@@ -1,0 +1,2 @@
+from repro_torch.data.rf_data import synth_rf  # noqa: F401
+from repro_torch.data.traces import seed_space  # noqa: F401

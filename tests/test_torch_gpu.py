@@ -1,0 +1,109 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+A CUDA kernel has no CPU mode, so every test here is marked ``gpu`` and
+skips where there is no CUDA device. On a machine with one:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+(``--noconftest``: tests/conftest.py imports JAX, which that machine
+need not have; nothing here uses its fixtures.)
+
+Tolerance: 1e-5 * max|plain| at every precision. Kernel and plain
+version round each per-channel term alike (the kernels are built with
+-fmad=false and the same operand casts); only the order of the channel
+sum differs, which a CPU emulation at the paper's geometry puts at
+3.4e-7 of the maximum.
+"""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+import torch  # noqa: E402
+
+from repro_torch import kernels  # noqa: E402
+from repro_torch.core import (BatchedExecutor, consts_from_numpy,  # noqa: E402
+                              init_pipeline, tiny_config)
+from repro_torch.core.cnn_ops import sqrt_rn  # noqa: E402
+from repro_torch.data import synth_rf  # noqa: E402
+from repro_torch.kernels.das_beamform import (das_beamform,  # noqa: E402
+                                              das_beamform_ref)
+from repro_torch.kernels.fused_pipeline import (  # noqa: E402
+    fused_ref, fused_rf_to_envelope, fused_rf_to_power)
+
+pytestmark = pytest.mark.gpu
+
+TABLES = ("carrier", "lpf", "idx", "frac", "apod", "rot")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _close(out, ref):
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n_pix,n_c,n_s,n_f", [
+    (64, 4, 32, 2), (100, 3, 40, 1), (40, 5, 24, 33), (333, 16, 128, 32)])
+def test_das_kernel_matches_plain(cuda, precision, n_pix, n_c, n_s, n_f):
+    g = torch.Generator().manual_seed(n_pix)
+    idx = torch.randint(0, n_s - 1, (n_pix, n_c), generator=g,
+                        dtype=torch.int32)
+    frac = torch.rand(n_pix, n_c, generator=g)
+    apod = torch.rand(n_pix, n_c, generator=g)
+    ph = torch.rand(n_pix, n_c, generator=g) * 6.28
+    rot = torch.stack([ph.cos(), ph.sin()], -1)
+    iq = torch.randn(3, n_s, n_c, n_f, 2, generator=g)
+    args = [t.to(cuda) for t in (idx, frac, apod, rot, iq)]
+    before = das_beamform.launches
+    out = das_beamform(*args, precision=precision)
+    assert das_beamform.launches == before + 1
+    _close(out, das_beamform_ref(*args, precision=precision))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("kw", [{}, dict(n_c=16, n_f=8, nz=32, nx=32)])
+def test_fused_kernels_match_plain(cuda, kw, precision):
+    cfg = tiny_config(variant="dynamic", modality="power_doppler", **kw)
+    c = consts_from_numpy(init_pipeline(cfg), cuda)
+    rf = torch.as_tensor(np.stack([synth_rf(cfg, seed=s)
+                                   for s in (1, 2)])).to(cuda)
+    tabs = [c[k] for k in TABLES]
+    p = dict(decim=cfg.decim, precision=precision)
+    _close(fused_rf_to_envelope(*tabs, rf, **p), fused_ref(*tabs, rf, **p))
+    _close(fused_rf_to_power(*tabs, c["wall_taps"], rf, **p),
+           fused_ref(*tabs, rf, head="power_doppler", wall=c["wall_taps"],
+                     **p))
+
+
+@pytest.mark.parametrize("fusion", ["none", "fused"])
+@pytest.mark.parametrize("modality", ["bmode", "power_doppler"])
+def test_executor_on_card_matches_cpu(cuda, modality, fusion):
+    cfg = tiny_config(variant="dynamic", modality=modality, fusion=fusion,
+                      n_c=16, n_f=8, nz=32, nx=32)
+    rf = np.stack([synth_rf(cfg, seed=s) for s in (3, 4)])
+    kernels.reset_launch_counts()
+    out = BatchedExecutor(cfg).call_padded(rf, pad_to=4).cpu()
+    ref = BatchedExecutor(cfg, device="cpu")(rf)
+    counts = kernels.launch_counts()
+    key = {"none": "das_beamform", "fused": {
+        "bmode": "fused_rf_to_envelope",
+        "power_doppler": "fused_rf_to_power"}[modality]}[fusion]
+    assert counts[key] == 1, counts
+    d = (out - ref).abs()
+    assert d.max().item() <= (1.2e-3 if modality == "bmode" else 1e-4)
+
+
+def test_cuda_sqrt_is_correctly_rounded(cuda):
+    x = torch.rand(1 << 20, dtype=torch.float64) * 1e4
+    x = x.to(torch.float32)
+    exact = torch.sqrt(x.double()).float()
+    assert torch.equal(sqrt_rn(x.to(cuda)).cpu(), exact)
