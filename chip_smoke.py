@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving paths on one CUDA card and check them.
 
 Run from the repository root on a machine with a CUDA device:
 
@@ -12,11 +12,16 @@ last line):
                parallel) and prints ptxas' registers / shared memory;
   3. kernels — at the paper's geometry, batch 4, each kernel against its
                plain PyTorch version on the same inputs (seeded synthetic
-               RF, the real delay tables), then timed with CUDA events
-               (L2 flushed before each launch) beside its bound;
+               RF, the real delay tables and BSR operator) in f32, bf16
+               and f16, then timed with CUDA events (L2 flushed before
+               each launch) beside its bound and, where one PyTorch call
+               computes the same function, that call's time;
   4. serve   — `serve_ultrasound_stream` at the paper's geometry for
-               B-mode and power Doppler, per stage and fused, with the
+               B-mode and power Doppler: the dynamic variant per stage
+               and fused, the cnn and sparse variants per stage, with the
                launch counters zeroed before and read after each run;
+               then the split of one batch: host-to-device copy, and each
+               stage of the engine on a device-resident batch;
   5. outputs — images from the card against the plain pipeline (paper
                geometry, on the card) and against the CPU (small input);
   6. a JSON line {"kernels": [...]} and, last, the device line.
@@ -41,10 +46,13 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.core import (BatchedExecutor, PRECISION_TOLERANCES,  # noqa: E402
                               Modality, consts_from_numpy, init_pipeline,
                               monolithic_pipeline_fn, paper_config,
-                              tiny_config)
+                              stage_fns, tiny_config)
 from repro_torch.core import demod  # noqa: E402
 from repro_torch.data import synth_rf  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
+from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
+                                          bsr_beamform, bsr_beamform_ref,
+                                          bsr_spmm, bsr_spmm_ref)
 from repro_torch.kernels.das_beamform import (das_beamform,  # noqa: E402
                                               das_beamform_ref)
 from repro_torch.kernels.fused_pipeline import (  # noqa: E402
@@ -62,6 +70,11 @@ F32_TOL = 1e-5          # max|kernel - plain| / max|plain|, see test_torch_gpu
 IMAGE_TOL = {"bmode": 1.2e-3, "power_doppler": 1e-4}   # test_torch_slice
 TABLES = ("carrier", "lpf", "idx", "frac", "apod", "rot")
 DAS_TABLES = ("idx", "frac", "apod", "rot")
+# (variant, fusion) of each served path; the kernel each must launch
+PATHS = (("dynamic", "none"), ("dynamic", "fused"), ("cnn", "none"),
+         ("sparse", "none"))
+FUSED_KERNEL = {"bmode": "fused_rf_to_envelope",
+                "power_doppler": "fused_rf_to_power"}
 
 
 def say(msg: str) -> None:
@@ -102,6 +115,46 @@ def bound(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_precisions(name, kernel, plain) -> float:
+    """``kernel(p)`` against ``plain(p)`` at f32 (1e-5 * max) and at bf16
+    and f16 (PRECISION_TOLERANCES, and the same 1e-5 * max: both round
+    the same operands). Returns the f32 max|d|."""
+    errs = {}
+    for prec in ("f32", "bf16", "f16"):
+        out, ref = kernel(prec), plain(prec)
+        err, scale = max_err(out, ref)
+        if prec != "f32":
+            rtol, atol = PRECISION_TOLERANCES[(prec, Modality.BMODE)]
+            check(bool(((out - ref).abs() <= atol * scale
+                        + rtol * ref.abs()).all()),
+                  f"{name}[{prec}] outside PRECISION_TOLERANCES")
+        say(f"[kernels] {name}[{prec}] max|d|={err:.3e} "
+            f"tol={F32_TOL * scale:.3e} (max|plain|={scale:.3e})")
+        check(err <= F32_TOL * scale, f"{name}[{prec}] disagrees with plain")
+        errs[prec] = err
+        del out, ref
+    return errs["f32"]
+
+
+def measure(rows: dict, flush: torch.Tensor) -> dict:
+    """Time each row's kernel, plain version and library call, then drop
+    the closures (and with them the tensors they hold)."""
+    out = {}
+    for name, row in rows.items():
+        row["ms"] = time_ms(row.pop("fn"), 20, flush)
+        row["plain_ms"] = time_ms(row.pop("plain"), 3, flush)
+        library = row.pop("library", None)
+        row["library_ms"] = (time_ms(library, 20, flush)
+                             if library is not None else None)
+        lib = (f"{row['library_ms']:.4f} ms ({row['library_name']})"
+               if library is not None else row["library_name"])
+        say(f"[kernels] {name}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
+            f"({row['bound'][1]}), library: {lib}")
+        out[name] = row
+    return out
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: torch.cuda.is_available() is false — "
@@ -129,7 +182,7 @@ def phase_build() -> None:
                 say(f"[build] {name}: {line.strip()}")
 
 
-def phase_kernels(source) -> dict:
+def dynamic_rows(source, flush) -> dict:
     dev = torch.device("cuda")
     cfg = paper_config(variant="dynamic", modality="power_doppler")
     c = consts_from_numpy(init_pipeline(cfg), dev)
@@ -139,38 +192,26 @@ def phase_kernels(source) -> dict:
     n_wall = c["wall_taps"].shape[0]
     iq = demod.rf_to_iq(c, rf, cfg.decim)
     tabs = [c[n] for n in DAS_TABLES]
-    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
     rows = {}
 
     # das_beamform: f32 against the f32 plain version, reduced precision
     # against the plain version at the same precision (PRECISION_TOLERANCES).
-    for prec in ("f32", "bf16", "f16"):
-        out = das_beamform(*tabs, iq, precision=prec)
-        ref = das_beamform_ref(*tabs, iq, precision=prec)
-        err, scale = max_err(out, ref)
-        if prec == "f32":
-            tol = F32_TOL * scale
-        else:
-            rtol, atol = PRECISION_TOLERANCES[(prec, Modality.BMODE)]
-            tol = atol * scale
-            check(bool(((out - ref).abs() <= tol + rtol * ref.abs()).all()),
-                  f"das_beamform[{prec}] outside PRECISION_TOLERANCES")
-        say(f"[kernels] das_beamform[{prec}] max|d|={err:.3e} "
-            f"tol={tol:.3e} (max|plain|={scale:.3e})")
-        check(err <= tol, f"das_beamform[{prec}] disagrees with plain")
-        if prec == "f32":
-            das_err = err
+    das_err = check_precisions(
+        "das_beamform", lambda p: das_beamform(*tabs, iq, precision=p),
+        lambda p: das_beamform_ref(*tabs, iq, precision=p))
     tab_bytes = n_pix * n_c * (4 + 4 + 4 + 8)
     rf_bytes = rf.numel() * 2
     das_flops = 16.0 * b * n_pix * n_c * n_f
     demod_flops = b * n_s * n_c * n_f * 4.0 * k + b * n_l * n_c * n_f * 2.0
     wall_flops = b * n_pix * (n_f - n_wall + 1) * (4.0 * n_wall + 4)
+    none = "none: no single PyTorch call computes this function"
     rows["das_beamform"] = dict(
         err=das_err,
         fn=lambda: das_beamform(*tabs, iq),
         plain=lambda: das_beamform_ref(*tabs, iq),
         bound=bound(tab_bytes + iq.numel() * 4 + b * n_pix * n_f * 8,
                     das_flops),
+        library_name=none,
         source="src/repro_torch/kernels/csrc/das_beamform.cu",
         replaces="src/repro/kernels/das_beamform/kernel.py:93")
 
@@ -196,31 +237,162 @@ def phase_kernels(source) -> dict:
             err=err, fn=fn, plain=plain,
             bound=bound(rf_bytes + n_l * 8 + k * 4 + tab_bytes + out_bytes,
                         demod_flops + das_flops + head_flops),
+            library_name=none,
             source="src/repro_torch/kernels/csrc/fused_pipeline.cu",
             replaces="src/repro/kernels/fused_pipeline/kernel.py:196")
+    return measure(rows, flush)
 
-    for name, row in rows.items():
-        row["ms"] = time_ms(row["fn"], 20, flush)
-        row["plain_ms"] = time_ms(row["plain"], 3, flush)
-        say(f"[kernels] {name}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
-            f"({row['bound'][1]}), library: none computes this function")
+
+def library_check(name, fn, ref) -> bool:
+    """Whether torch's block-sparse product ``fn`` computes what the plain
+    version ``ref`` does (1e-5 * max). Prints the reason where not."""
+    try:
+        err, scale = max_err(fn(), ref)
+    except (RuntimeError, NotImplementedError, ValueError) as exc:
+        say(f"[kernels] {name} library: torch refused the BSR product: "
+            f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}")
+        return False
+    say(f"[kernels] {name} library max|d|={err:.3e} (max|plain|="
+        f"{scale:.3e})")
+    if err > F32_TOL * scale:
+        say(f"[kernels] {name} library: disagrees with the plain version")
+        return False
+    return True
+
+
+def sorted_bsr(cols, values, n_rows, n_cols):
+    """torch's BSR tensor of one row of blocks per pixel block, the slots
+    of each row sorted by column (the padded slots repeat column 0)."""
+    cols = cols.long()
+    order = cols.argsort(dim=1, stable=True)
+    n_pb, slots = cols.shape
+    rows = torch.arange(n_pb, device=cols.device)[:, None]
+    crow = torch.arange(0, n_pb * slots + 1, slots, device=cols.device)
+    return torch.sparse_bsr_tensor(
+        crow, cols[rows, order].reshape(-1),
+        values[rows, order].reshape((-1,) + values.shape[2:]),
+        size=(n_rows, n_cols))
+
+
+def sparse_rows(source, flush) -> dict:
+    """bsr_beamform at the served shapes, and bsr_spmm on one channel's
+    real product at the same shapes. The operations bound counts the
+    occupied blocks: the padded K slots are zero and need no work."""
+    dev = torch.device("cuda")
+    cfg = paper_config(variant="sparse")
+    t0 = time.perf_counter()
+    host = init_pipeline(cfg)
+    say(f"[init] paper sparse constants in {time.perf_counter() - t0:.1f}s "
+        f"(bsr_blocks {host['bsr_blocks'].shape}, "
+        f"{host['bsr_blocks'].nbytes / 1e9:.3f} GB)")
+    c = consts_from_numpy(host, dev)
+    del host
+    rf = torch.as_tensor(source.next()).to(dev)
+    iq = demod.rf_to_iq(c, rf, cfg.decim)
+    cols, blocks = c["bsr_col_idx"], c["bsr_blocks"]
+    n_c, n_pb, k, bp, bs, _ = blocks.shape
+    iq_b = block_sample_axis(iq, bs)
+    b, n_sb, _, _, n_f, _ = iq_b.shape
+    occupied = (blocks != 0).flatten(3).any(-1)          # (n_c, n_pb, K)
+    n_occ = int(occupied.sum())
+    gflop = 8.0 * b * bp * bs * n_f / 1e9          # per stored block
+    say(f"[kernels] BSR operator: n_c={n_c} n_pb={n_pb} K={k} bp={bp} "
+        f"bs={bs} n_sb={n_sb}; {n_occ} of {n_c * n_pb * k} stored blocks "
+        f"occupied; all stored: {gflop * n_c * n_pb * k:.1f} GFLOP, "
+        f"occupied: {gflop * n_occ:.1f} GFLOP")
+    rows = {}
+
+    bf_err = check_precisions(
+        "bsr_beamform", lambda p: bsr_beamform(cols, blocks, iq_b,
+                                               precision=p),
+        lambda p: bsr_beamform_ref(cols, blocks, iq_b, precision=p))
+    # torch's BSR product over the real form [[re, -im], [im, re]] of each
+    # block, columns (channel, sample block), summing the channels
+    re, im = blocks[..., 0], blocks[..., 1]
+    real = torch.cat([torch.cat([re, -im], -1), torch.cat([im, re], -1)], -2)
+    a = sorted_bsr(
+        (cols + torch.arange(n_c, device=dev)[:, None, None] * n_sb)
+        .permute(1, 0, 2).reshape(n_pb, n_c * k),
+        real.permute(1, 0, 2, 3, 4).reshape(n_pb, n_c * k, 2 * bp, 2 * bs),
+        n_pb * 2 * bp, n_c * n_sb * 2 * bs)
+    del real, re, im
+    x = iq_b.permute(3, 1, 5, 2, 0, 4).reshape(n_c * n_sb * 2 * bs,
+                                                 b * n_f)
+    plain = bsr_beamform_ref(cols, blocks, iq_b)
+    library = (lambda: a @ x)
+    as_out = (lambda y: y.view(n_pb, 2, bp, b, n_f).permute(3, 0, 2, 4, 1)
+              .reshape(b, n_pb * bp, n_f, 2))
+    ok = library_check("bsr_beamform", lambda: as_out(library()), plain)
+    rows["bsr_beamform"] = dict(
+        err=bf_err,
+        fn=lambda: bsr_beamform(cols, blocks, iq_b),
+        plain=lambda: bsr_beamform_ref(cols, blocks, iq_b),
+        library=library if ok else None,
+        library_name=("torch.sparse_bsr_tensor @ dense, real "
+                      "[[re, -im], [im, re]] blocks" if ok
+                      else "none: torch's BSR product refused or disagreed"),
+        bound=bound(n_occ * bp * bs * 8 + cols.numel() * 4
+                    + iq_b.numel() * 4 + b * n_pb * bp * n_f * 8,
+                    8.0 * b * n_occ * bp * bs * n_f),
+        source="src/repro_torch/kernels/csrc/bsr_spmm.cu",
+        replaces="src/repro/kernels/bsr_spmm/kernel.py:51")
+    del plain
+
+    # bsr_spmm: the real part of one (middle) channel's product
+    ch = n_c // 2
+    cols1 = cols[ch].contiguous()
+    blocks1 = blocks[ch, ..., 0].contiguous()
+    x1 = (iq_b[:, :, :, ch, :, 0].permute(1, 2, 0, 3)
+          .reshape(n_sb, bs, b * n_f).contiguous())
+    occ1 = int((blocks1 != 0).flatten(2).any(-1).sum())
+    spmm_err = check_precisions(
+        "bsr_spmm", lambda p: bsr_spmm(cols1, blocks1, x1, precision=p),
+        lambda p: bsr_spmm_ref(cols1, blocks1, x1, precision=p))
+    a1 = sorted_bsr(cols1, blocks1, n_pb * bp, n_sb * bs)
+    x1_flat = x1.reshape(n_sb * bs, b * n_f)
+    library1 = (lambda: a1 @ x1_flat)
+    ok1 = library_check("bsr_spmm",
+                        lambda: library1().view(n_pb, bp, b * n_f),
+                        bsr_spmm_ref(cols1, blocks1, x1))
+    rows["bsr_spmm"] = dict(
+        err=spmm_err,
+        fn=lambda: bsr_spmm(cols1, blocks1, x1),
+        plain=lambda: bsr_spmm_ref(cols1, blocks1, x1),
+        library=library1 if ok1 else None,
+        library_name=("torch.sparse_bsr_tensor @ dense" if ok1
+                      else "none: torch's BSR product refused or disagreed"),
+        bound=bound(occ1 * bp * bs * 4 + cols1.numel() * 4
+                    + x1.numel() * 4 + n_pb * bp * b * n_f * 4,
+                    2.0 * occ1 * bp * bs * b * n_f),
+        source="src/repro_torch/kernels/csrc/bsr_spmm.cu",
+        replaces="src/repro/kernels/bsr_spmm/kernel.py:51")
+    return measure(rows, flush)
+
+
+def phase_kernels(source) -> dict:
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = dynamic_rows(source, flush)
+    rows.update(sparse_rows(source, flush))
+    del flush
+    torch.cuda.empty_cache()
+    say(f"[kernels] done; {torch.cuda.memory_allocated() / 1e6:.1f} MB "
+        "still allocated before serving")
     return rows
 
 
 def phase_serve(source) -> dict:
     launches = {name: 0 for name in kernels.launch_counts()}
-    fused_kernel = {"bmode": "fused_rf_to_envelope",
-                    "power_doppler": "fused_rf_to_power"}
     for modality in ("bmode", "power_doppler"):
-        for fusion in ("none", "fused"):
-            cfg = paper_config(variant="dynamic", modality=modality,
+        for variant, fusion in PATHS:
+            cfg = paper_config(variant=variant, modality=modality,
                                fusion=fusion)
             kernels.reset_launch_counts()
+            t0 = time.perf_counter()
             stats = serve_ultrasound_stream(
                 cfg, batch=BATCH, n_batches=N_BATCHES, depth=2, pool=2,
                 source=source)
             counts = kernels.launch_counts()
+            setup = time.perf_counter() - t0 - stats["wall_s"]
             plan = stats["plan"]
             lat = stats["latency"]
             peak = stats["resources"]["peak_memory_bytes"]
@@ -228,13 +400,21 @@ def phase_serve(source) -> dict:
                 f"{stats['sustained_mbps']:.1f} MB/s, {stats['fps']:.1f} "
                 f"FPS, p50={lat.p50_s * 1e3:.3f} ms, "
                 f"p99={lat.p99_s * 1e3:.3f} ms, peak_mem={peak / 1e6:.1f} MB,"
-                f" lowerings={plan['stage_lowerings']}, launches={counts}")
-            key = ("das_beamform" if fusion == "none"
-                   else fused_kernel[modality])
+                f" lowerings={plan['stage_lowerings']}, launches={counts},"
+                f" setup {setup:.1f}s (constants, upload, warm-up)")
             check(plan["backend"] == "cuda", f"plan backend {plan}")
-            check(plan["stage_lowerings"]["beamform"] == "pallas",
+            want = "xla" if variant == "cnn" else "pallas"
+            check(plan["stage_lowerings"]["beamform"] == want,
                   f"beamform lowering {plan['stage_lowerings']}")
-            check(counts[key] > 0, f"{key} never launched in {stats['name']}")
+            key = {"dynamic": ("das_beamform" if fusion == "none"
+                               else FUSED_KERNEL[modality]),
+                   "sparse": "bsr_beamform", "cnn": None}[variant]
+            if key is None:
+                check(set(counts.values()) == {0},
+                      f"cnn launched a kernel: {counts}")
+            else:
+                check(counts[key] > 0,
+                      f"{key} never launched in {stats['name']}")
             for name, n in counts.items():
                 launches[name] += n
             split(cfg, source, stats)
@@ -243,7 +423,8 @@ def phase_serve(source) -> dict:
 
 def split(cfg, source, stats) -> None:
     """Where one batch's time goes: host->device copy of the pageable RF
-    batch (host clock) vs the engine on a device-resident batch (events)."""
+    batch (host clock), then each schedulable unit of the engine on a
+    device-resident batch, and the whole engine (CUDA events)."""
     dev = torch.device("cuda")
     engine = BatchedExecutor(cfg)
     host = source.next()
@@ -253,17 +434,31 @@ def split(cfg, source, stats) -> None:
         x = torch.as_tensor(host).to(dev)
         torch.cuda.synchronize()
         t.append(time.perf_counter() - t0)
+    fns = stage_fns(engine.cfg, "cuda")
+    engine(x)
+    events = {name: [] for name in fns}
+    for _ in range(5):
+        y = x
+        for name, fn in fns.items():
+            s, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            s.record()
+            y = fn(engine.consts, y)
+            e.record()
+            events[name].append((s, e))
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
-    engine(x)
     s.record()
     for _ in range(5):
         engine(x)
     e.record()
     torch.cuda.synchronize()
+    stages = ", ".join(
+        f"{name} {np.mean([a.elapsed_time(z) for a, z in ev]):.3f} ms"
+        for name, ev in events.items())
     say(f"[split] {stats['name']} fusion={cfg.fusion}: per batch of "
         f"{BATCH}: h2d {np.mean(t) * 1e3:.3f} ms, engine on device "
-        f"{s.elapsed_time(e) / 5:.3f} ms, served "
+        f"{s.elapsed_time(e) / 5:.3f} ms ({stages}), served "
         f"{stats['wall_s'] / N_BATCHES * 1e3:.3f} ms")
 
 
@@ -271,8 +466,8 @@ def phase_outputs(source) -> None:
     dev = torch.device("cuda")
     rf = source.next()
     for modality in ("bmode", "power_doppler"):
-        for fusion in ("none", "fused"):
-            cfg = paper_config(variant="dynamic", modality=modality,
+        for variant, fusion in PATHS:
+            cfg = paper_config(variant=variant, modality=modality,
                                fusion=fusion)
             engine = BatchedExecutor(cfg)
             out = engine(rf)
@@ -286,23 +481,25 @@ def phase_outputs(source) -> None:
                   "image outside [0, 1]")
             d = (out - ref).abs()
             frac = (d > 1e-5).float().mean().item()
-            say(f"[outputs] paper {modality}/{fusion} vs plain on card: "
+            what = f"{modality}/{variant}/{fusion}"
+            say(f"[outputs] paper {what} vs plain on card: "
                 f"max|d|={d.max().item():.3e} (tol "
                 f"{IMAGE_TOL[modality]:.1e}), >1e-5: {frac:.5f}")
             check(d.max().item() <= IMAGE_TOL[modality],
-                  f"{modality}/{fusion} image disagrees with plain")
-            small = tiny_config(variant="dynamic", modality=modality,
+                  f"{what} image disagrees with plain")
+            del engine, out, ref, d
+            small = tiny_config(variant=variant, modality=modality,
                                 fusion=fusion, n_c=16, n_f=8, nz=32, nx=32)
             x = np.stack([synth_rf(small, seed=s) for s in (1, 2)])
             got = BatchedExecutor(small)(x).cpu()
             want = BatchedExecutor(small, device="cpu")(x)
             err = (got - want).abs().max().item()
-            say(f"[outputs] small {modality}/{fusion} card vs cpu: "
-                f"max|d|={err:.3e}")
+            say(f"[outputs] small {what} card vs cpu: max|d|={err:.3e}")
             check(err <= IMAGE_TOL[modality], "card disagrees with cpu")
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     name = phase_device()
     phase_build()
     t0 = time.perf_counter()
@@ -313,13 +510,18 @@ def main() -> None:
     rows = phase_kernels(source)
     launches = phase_serve(source)
     phase_outputs(source)
+    served = [n for n in rows if launches[n] > 0]
+    say(f"[kernels] not on a served path (0 launches, left out of the "
+        f"kernels line): {[n for n in rows if n not in served]}")
+    say(f"[done] in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": [
-        {"name": n, "route": "cuda", "source": r["source"],
-         "replaces": r["replaces"], "launches": launches[n],
-         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-         "library_ms": None}
-        for n, r in rows.items()]}))
+        {"name": n, "route": "cuda", "source": rows[n]["source"],
+         "replaces": rows[n]["replaces"], "launches": launches[n],
+         "max_abs_err": rows[n]["err"], "ms": rows[n]["ms"],
+         "plain_ms": rows[n]["plain_ms"], "bound_ms": rows[n]["bound"][0],
+         "bound_by": rows[n]["bound"][1],
+         "library_ms": rows[n]["library_ms"]}
+        for n in served]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -62,3 +62,84 @@ def compute_delay_tables(cfg: UltrasoundConfig) -> DelayTables:
     rot = np.stack([np.cos(phase), np.sin(phase)], axis=-1).astype(np.float32)
 
     return DelayTables(idx=idx, frac=frac, valid=valid, apod=apod, rot=rot)
+
+
+def _taps(tables: DelayTables, c: int):
+    """Channel ``c``'s two interpolation taps per pixel, in the reference's
+    float32 arithmetic: rows at samples ``idx`` and ``idx + 1``, values
+    (n_pix, 2) complex as (re, im)."""
+    w = tables.apod[:, c]
+    re = tables.rot[:, c, 0] * w
+    im = tables.rot[:, c, 1] * w
+    i0 = tables.idx[:, c]
+    f = tables.frac[:, c]
+    return ((i0, np.stack([re * (1.0 - f), im * (1.0 - f)], axis=-1)),
+            (i0 + 1, np.stack([re * f, im * f], axis=-1)))
+
+
+def interp_matrix(cfg: UltrasoundConfig, tables: DelayTables) -> np.ndarray:
+    """The DAS operator as a dense complex (n_c, n_pix, n_s, 2) tensor
+    (the cnn variant's one-hot interpolation operator):
+
+        M[c, p, s] = apod * rot * ((1-frac) [s == idx] + frac [s == idx+1])
+    """
+    M = np.zeros((cfg.n_c, cfg.n_pix, cfg.n_s, 2), dtype=np.float32)
+    rows = np.arange(cfg.n_pix)
+    for c in range(cfg.n_c):
+        for s, v in _taps(tables, c):
+            # 0 + v, as the reference's scatter-add: -0.0 lands as +0.0
+            np.add.at(M[c], (rows, s), v)
+    return M
+
+
+@dataclasses.dataclass(frozen=True)
+class BsrOperator:
+    """Banded block-sparse row (BSR) form of the DAS operator, per channel
+    (the sparse variant).
+
+    blocks  : (n_c, n_pb, K, bp, bs, 2) f32 — the occupied (bp x bs)
+              blocks of each pixel block, complex as (re, im)
+    col_idx : (n_c, n_pb, K) int32 — sample-block column of each block,
+              ascending; unused K slots are all-zero blocks at column 0
+    nnz_ratio: stored / dense block count
+    """
+
+    blocks: np.ndarray
+    col_idx: np.ndarray
+    bp: int
+    bs: int
+    nnz_ratio: float
+
+
+def bsr_operator(cfg: UltrasoundConfig, tables: DelayTables) -> BsrOperator:
+    """The reference's BSR operator, bit for bit, built from the taps.
+
+    The reference pads the dense operator (2.8 GB at the paper's
+    geometry) and scans its blocks; a block is occupied when any tap in
+    it is non-zero. This places the two taps of every (channel, pixel)
+    straight into their blocks, so the host holds only the result.
+    """
+    bp, bs = cfg.sparse_block_p, cfg.sparse_block_s
+    n_c, n_pix = cfg.n_c, cfg.n_pix
+    n_pb = -(-n_pix // bp)
+    n_sb = -(-cfg.n_s // bs)
+    pb = np.arange(n_pix) // bp
+    taps = []                                   # (c, pixel, sample, value)
+    for c in range(n_c):
+        for s, v in _taps(tables, c):
+            nz = (v != 0).any(axis=-1)
+            taps.append((c, np.nonzero(nz)[0], s[nz], v[nz]))
+    occupied = np.zeros((n_c, n_pb, n_sb), dtype=bool)
+    for c, p, s, _ in taps:
+        occupied[c, pb[p], s // bs] = True
+    K = max(int(occupied.sum(axis=2).max()), 1)
+    slot = np.cumsum(occupied, axis=2) - 1      # K slot of an occupied column
+    col_idx = np.zeros((n_c, n_pb, K), dtype=np.int32)
+    ci, pi, si = np.nonzero(occupied)
+    col_idx[ci, pi, slot[ci, pi, si]] = si
+    blocks = np.zeros((n_c, n_pb, K, bp, bs, 2), dtype=np.float32)
+    for c, p, s, v in taps:
+        blocks[c, pb[p], slot[c, pb[p], s // bs], p % bp, s % bs] = v + 0.0
+    nnz_ratio = float(occupied.sum()) / float(n_c * n_pb * n_sb)
+    return BsrOperator(blocks=blocks, col_idx=col_idx, bp=bp, bs=bs,
+                       nnz_ratio=nnz_ratio)

@@ -15,8 +15,11 @@ resolves it through `resolve_fused`, which fails loudly on a missing
 registration, an unimplemented precision or a failed capability
 predicate — a fused request runs or fails, never falls back.
 
-Only the dynamic variant is ported: the cnn and sparse beamforms have no
-registration here, so a config naming them fails at resolution.
+Every variant has its ``xla`` beamform. The dynamic and sparse beamforms
+also have a ``pallas`` one (``das_beamform``, ``bsr_beamform``); the cnn
+beamform is a plain matrix product, as the reference leaves it to XLA.
+Fused spans are registered for the dynamic variant only, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -239,6 +242,14 @@ def _beamform_dynamic_kernel(cfg, consts, iq):
                         consts["rot"], iq, precision=cfg.precision)
 
 
+def _beamform_sparse_kernel(cfg, consts, iq):
+    from repro_torch.kernels.bsr_spmm import bsr_beamform, block_sample_axis
+    blocks = consts["bsr_blocks"]                # (n_c, n_pb, K, bp, bs, 2)
+    iq_b = block_sample_axis(iq, blocks.shape[4])
+    return bsr_beamform(consts["bsr_col_idx"], blocks, iq_b,
+                        precision=cfg.precision)[:, :cfg.n_pix]
+
+
 def _fused_dynamic_bmode_kernel(cfg, consts, rf):
     from repro_torch.kernels.fused_pipeline import fused_rf_to_envelope
     env = fused_rf_to_envelope(
@@ -265,14 +276,25 @@ def _fused_available(cfg: UltrasoundConfig, backend: str) -> bool:
     return backend == "cpu" or cfg.rf_dtype == "int16"
 
 
+def _bsr_available(cfg: UltrasoundConfig, backend: str) -> bool:
+    # The CUDA kernel stages a (64 x bs) operator tile in shared memory
+    # and puts the pixel blocks on the grid's y axis.
+    from repro_torch.kernels.bsr_spmm.ops import kernel_takes
+    n_pb = -(-cfg.n_pix // cfg.sparse_block_p)
+    return backend == "cpu" or kernel_takes(cfg.sparse_block_s, n_pb)
+
+
 def _register_defaults() -> None:
     register_lowering(
         "demod", "xla",
         lambda cfg, consts, rf: demod.rf_to_iq(consts, rf, cfg.decim))
-    register_lowering("beamform", "xla", beamform.beamform_dynamic,
-                      variant=Variant.DYNAMIC)
+    for variant, fn in beamform.BEAMFORMERS.items():
+        register_lowering("beamform", "xla", fn, variant=variant)
     register_lowering("beamform", "pallas", _beamform_dynamic_kernel,
                       variant=Variant.DYNAMIC,
+                      precisions=("f32", "bf16", "f16"))
+    register_lowering("beamform", "pallas", _beamform_sparse_kernel,
+                      variant=Variant.SPARSE, available=_bsr_available,
                       precisions=("f32", "bf16", "f16"))
     register_lowering(
         "bmode", "xla", lambda cfg, consts, bf: bmode.bmode_image(cfg, bf))

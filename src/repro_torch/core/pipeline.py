@@ -50,18 +50,36 @@ def resolve_device(device=None) -> torch.device:
 # Constants
 # ---------------------------------------------------------------------------
 
-# In-process LRU of numpy constants, keyed like the reference's cache.
-MEM_CACHE_MAX_ENTRIES = 8
+# In-process LRU of numpy constants, keyed like the reference's cache and
+# bounded in bytes as it is: a paper-scale variant sweep must not pin the
+# multi-GB cnn operator. An entry larger than the budget is served
+# uncached.
+MEM_CACHE_MAX_BYTES = 1024 * 1024 * 1024
 _MEM_CACHE: "collections.OrderedDict[str, Dict[str, np.ndarray]]" = \
     collections.OrderedDict()
+
+
+def _consts_nbytes(consts: Dict[str, np.ndarray]) -> int:
+    return sum(a.nbytes for a in consts.values())
+
+
+def _mem_put(key: str, consts: Dict[str, np.ndarray]) -> None:
+    if _consts_nbytes(consts) > MEM_CACHE_MAX_BYTES:
+        return
+    _MEM_CACHE[key] = consts
+    _MEM_CACHE.move_to_end(key)
+    while (len(_MEM_CACHE) > 1 and
+           sum(map(_consts_nbytes, _MEM_CACHE.values()))
+           > MEM_CACHE_MAX_BYTES):
+        _MEM_CACHE.popitem(last=False)         # evict least-recently used
 
 
 def init_pipeline(cfg: UltrasoundConfig) -> Dict[str, np.ndarray]:
     """Precompute all pipeline constants (numpy; untimed, cached).
 
-    The returned dict is a fresh shallow copy; its arrays are the cached
-    read-only buffers. Lowering, fusion and precision axes are excluded
-    from the key: they never change the constants.
+    The returned dict is a fresh shallow copy; its arrays are read-only
+    (the cached buffers). Lowering, fusion and precision axes are
+    excluded from the key: they never change the constants.
     """
     if not cfg.variant.concrete:
         raise ValueError(
@@ -69,15 +87,14 @@ def init_pipeline(cfg: UltrasoundConfig) -> Dict[str, np.ndarray]:
             "via repro_torch.core.plan.plan_pipeline")
     key = config_hash(cfg, exclude=("exec_map", "stage_lowerings", "fusion",
                                     "precision", "fusion_block"))
-    if key not in _MEM_CACHE:
-        consts = stages.init_graph_consts(cfg)
-        for a in consts.values():
-            a.flags.writeable = False
-        _MEM_CACHE[key] = consts
-        while len(_MEM_CACHE) > MEM_CACHE_MAX_ENTRIES:
-            _MEM_CACHE.popitem(last=False)
-    _MEM_CACHE.move_to_end(key)
-    return dict(_MEM_CACHE[key])
+    if key in _MEM_CACHE:
+        _MEM_CACHE.move_to_end(key)
+        return dict(_MEM_CACHE[key])
+    consts = stages.init_graph_consts(cfg)
+    for a in consts.values():
+        a.flags.writeable = False
+    _mem_put(key, consts)
+    return dict(consts)
 
 
 def consts_from_numpy(consts: Dict[str, np.ndarray],
@@ -111,7 +128,7 @@ def monolithic_pipeline_fn(cfg: UltrasoundConfig) -> Callable:
 
     def run(consts, rf):
         iq = demod.rf_to_iq(consts, rf, cfg.decim)
-        bf = beamform.beamform_dynamic(cfg, consts, iq)
+        bf = beamform.beamform(cfg, consts, iq)
         if cfg.modality == Modality.BMODE:
             return bmode.bmode_image(cfg, bf)
         if cfg.modality == Modality.DOPPLER:

@@ -13,9 +13,9 @@ The reference's ``autotune`` policy is not ported yet. ``backend`` is
 ``"cuda"`` or ``"cpu"``: the device the pipeline runs on.
 
 Lowerings the config leaves open come from the per-backend lowering
-preference table: on ``cuda`` the dynamic beamform resolves to the
-``pallas`` lowering — the hand-written Hopper kernel — as the ``tpu``
-row does in the reference.
+preference table: on ``cuda`` the dynamic and sparse beamforms resolve
+to their ``pallas`` lowerings — the hand-written Hopper kernels — as the
+``tpu`` row does in the reference; the cnn beamform stays ``xla``.
 """
 
 from __future__ import annotations
@@ -34,12 +34,12 @@ BACKEND_VARIANT_PREFERENCE: Dict[str, Variant] = {
     "cpu": Variant.DYNAMIC,
     "cuda": Variant.DYNAMIC,
 }
-# The variants the port implements; the planner refuses the others.
-PORTED_VARIANTS = (Variant.DYNAMIC,)
-
 BACKEND_LOWERING_PREFERENCE: Dict[str, Dict[Tuple[str, Optional[str]],
                                             str]] = {
-    "cuda": {("beamform", Variant.DYNAMIC.value): "pallas"},
+    "cuda": {
+        ("beamform", Variant.DYNAMIC.value): "pallas",
+        ("beamform", Variant.SPARSE.value): "pallas",
+    },
 }
 
 
@@ -187,10 +187,6 @@ def plan_pipeline(cfg: UltrasoundConfig, policy: str = "fixed", *,
     else:
         variant = BACKEND_VARIANT_PREFERENCE[backend]
         provenance = f"heuristic:{backend}->{variant.value}"
-    if variant not in PORTED_VARIANTS:
-        raise ValueError(
-            f"variant {variant.value!r} is not ported to PyTorch yet "
-            f"(ported: {[v.value for v in PORTED_VARIANTS]})")
     resolved = cfg.with_(variant=variant)
     stage_lowerings = _resolve_stage_lowerings(resolved, backend)
     fusion_group = (lowering_lib.resolve_fused(resolved, backend).group

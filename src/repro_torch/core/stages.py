@@ -39,13 +39,14 @@ def _beamform_consts(cfg: UltrasoundConfig) -> Dict[str, np.ndarray]:
         raise ValueError(
             "Variant.AUTO has no constants — resolve it with "
             "repro_torch.core.plan.plan_pipeline before building the graph")
-    if cfg.variant != Variant.DYNAMIC:
-        raise ValueError(
-            f"variant {cfg.variant.value!r} is not ported to PyTorch yet "
-            "(only 'dynamic')")
     tables = delays.compute_delay_tables(cfg)
-    return dict(idx=tables.idx, frac=tables.frac, apod=tables.apod,
-                rot=tables.rot)
+    if cfg.variant == Variant.DYNAMIC:
+        return dict(idx=tables.idx, frac=tables.frac, apod=tables.apod,
+                    rot=tables.rot)
+    if cfg.variant == Variant.CNN:
+        return {"interp_matrix": delays.interp_matrix(cfg, tables)}
+    op = delays.bsr_operator(cfg, tables)
+    return {"bsr_blocks": op.blocks, "bsr_col_idx": op.col_idx}
 
 
 def _doppler_consts(cfg: UltrasoundConfig) -> Dict[str, np.ndarray]:

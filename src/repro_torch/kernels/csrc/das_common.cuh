@@ -1,5 +1,6 @@
 // Delay-and-sum accumulation shared by das_beamform.cu and
-// fused_pipeline.cu.
+// fused_pipeline.cu; bsr_spmm.cu takes the precision codes and operand
+// rounding from here too.
 //
 // One warp owns one pixel; lane f owns frame f (frames past 32 loop in
 // strides of 32). Per channel, every lane reads the same table entry

@@ -8,7 +8,8 @@ keys. Peak memory is ``torch.cuda.max_memory_allocated`` over the timed
 window; energy is not measured (None).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --ultrasound \\
-      --batch 4 --batches 32 --depth 2 [--device cpu]
+      --batch 4 --batches 32 --depth 2 [--variant dynamic|cnn|sparse|auto] \\
+      [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -152,7 +153,7 @@ def main() -> None:
     ap.add_argument("--plan", default=None, choices=["fixed", "heuristic"],
                     help="variant-resolution policy")
     ap.add_argument("--variant", default="dynamic",
-                    choices=["dynamic", "auto"],
+                    choices=["dynamic", "cnn", "sparse", "auto"],
                     help="operator variant (auto = planner)")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cuda (fails without a CUDA device)")

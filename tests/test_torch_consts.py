@@ -5,6 +5,8 @@ them to the reference: equal config hashes, array-equal constants,
 byte-equal RF and seeds.
 """
 
+import collections
+
 import numpy as np
 import pytest
 
@@ -13,11 +15,14 @@ pytest.importorskip("torch")
 import torch  # noqa: E402
 
 from repro.core import config as jcfg  # noqa: E402
+from repro.core import delays as jdelays  # noqa: E402
 from repro.core import stages as jstages  # noqa: E402
 from repro.data import seed_space as j_seed_space  # noqa: E402
 from repro.data import synth_rf as j_synth_rf  # noqa: E402
 
 from repro_torch.core import config as tcfg  # noqa: E402
+from repro_torch.core import delays as tdelays  # noqa: E402
+from repro_torch.core import pipeline as tpipe  # noqa: E402
 from repro_torch.core import stages as tstages  # noqa: E402
 from repro_torch.core.pipeline import consts_from_numpy, init_pipeline  # noqa: E402
 from repro_torch.data import seed_space, synth_rf  # noqa: E402
@@ -98,9 +103,73 @@ def test_consts_from_numpy_copies_and_adds_int64_index():
     assert consts["frac"][0, 0] != -1.0
 
 
-def test_unported_variant_refused():
-    with pytest.raises(ValueError, match="not ported"):
-        tstages.init_graph_consts(tcfg.tiny_config(variant="cnn"))
+def _bits_equal(out, ref):
+    return (out.dtype == ref.dtype and out.shape == ref.shape
+            and out.tobytes() == ref.tobytes())
+
+
+# tiny, the wide test geometry, and one at the paper's 64 x 64 blocks
+OPERATOR_GEOMETRIES = ({}, dict(n_c=16, n_f=8, nz=32, nx=32),
+                       dict(n_c=16, nz=64, nx=32, sparse_block_p=64,
+                            sparse_block_s=64))
+
+
+@pytest.mark.parametrize("kw", OPERATOR_GEOMETRIES)
+def test_interp_matrix_bit_equal(kw):
+    j, t = _pair("tiny", **kw)
+    ref = jdelays.interp_matrix(j, jdelays.compute_delay_tables(j))
+    out = tdelays.interp_matrix(t, tdelays.compute_delay_tables(t))
+    assert _bits_equal(out, ref)
+
+
+@pytest.mark.parametrize("kw", OPERATOR_GEOMETRIES)
+def test_bsr_operator_bit_equal(kw):
+    """Built straight from the taps, the port's BSR operator is the
+    reference's (built from the padded dense operator) bit for bit."""
+    j, t = _pair("tiny", **kw)
+    ref = jdelays.bsr_operator(j, jdelays.compute_delay_tables(j))
+    out = tdelays.bsr_operator(t, tdelays.compute_delay_tables(t))
+    assert _bits_equal(out.blocks, ref.blocks)
+    assert _bits_equal(out.col_idx, ref.col_idx)
+    assert (out.bp, out.bs, out.nnz_ratio) == (ref.bp, ref.bs, ref.nnz_ratio)
+    assert out.blocks.shape[2] >= 2         # padded K slots are exercised
+
+
+@pytest.mark.parametrize("variant", ("cnn", "sparse"))
+def test_ported_variant_consts_bit_equal(variant):
+    """The cnn and sparse constants (refused before these variants were
+    ported) are the reference's arrays, under the reference's keys."""
+    j, t = _pair("tiny", variant=variant, modality="power_doppler", n_c=16,
+                 n_f=8, nz=32, nx=32)
+    ref = jstages.init_graph_consts(j)
+    out = tstages.init_graph_consts(t)
+    assert sorted(out) == sorted(ref)
+    for k in ref:
+        assert _bits_equal(out[k], ref[k]), k
+
+
+def test_consts_cache_bounded_in_bytes(monkeypatch):
+    """LRU by bytes, as the reference: an entry over the budget is served
+    uncached, and older entries go once the total passes it."""
+    monkeypatch.setattr(tpipe, "_MEM_CACHE", collections.OrderedDict())
+    a = tcfg.tiny_config(variant="dynamic")
+    b = tcfg.tiny_config(variant="sparse")
+    size_a = tpipe._consts_nbytes(init_pipeline(a))
+    size_b = tpipe._consts_nbytes(init_pipeline(b))
+    assert len(tpipe._MEM_CACHE) == 2
+    monkeypatch.setattr(tpipe, "MEM_CACHE_MAX_BYTES", size_a + size_b - 1)
+    tpipe._MEM_CACHE.clear()
+    init_pipeline(a)
+    init_pipeline(b)                         # evicts a, the older entry
+    assert len(tpipe._MEM_CACHE) == 1
+    assert init_pipeline(b)["bsr_blocks"] is init_pipeline(b)["bsr_blocks"]
+    big = tcfg.tiny_config(variant="cnn")
+    monkeypatch.setattr(tpipe, "MEM_CACHE_MAX_BYTES", size_b)
+    first, second = init_pipeline(big), init_pipeline(big)
+    assert first["interp_matrix"] is not second["interp_matrix"]
+    assert np.array_equal(first["interp_matrix"], second["interp_matrix"])
+    assert not first["interp_matrix"].flags.writeable
+    assert len(tpipe._MEM_CACHE) == 1       # b stays; big is uncached
 
 
 @pytest.mark.parametrize("seed", (0, 7))

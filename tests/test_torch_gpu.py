@@ -12,7 +12,8 @@ Tolerance: 1e-5 * max|plain| at every precision. Kernel and plain
 version round each per-channel term alike (the kernels are built with
 -fmad=false and the same operand casts); only the order of the channel
 sum differs, which a CPU emulation at the paper's geometry puts at
-3.4e-7 of the maximum.
+3.4e-7 of the maximum. The BSR kernels round the same operands as their
+plain versions and sum in f32 with fused multiply-adds, in another order.
 """
 
 import numpy as np
@@ -27,6 +28,9 @@ from repro_torch.core import (BatchedExecutor, consts_from_numpy,  # noqa: E402
                               init_pipeline, tiny_config)
 from repro_torch.core.cnn_ops import sqrt_rn  # noqa: E402
 from repro_torch.data import synth_rf  # noqa: E402
+from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
+                                          bsr_beamform, bsr_beamform_ref,
+                                          bsr_spmm, bsr_spmm_ref)
 from repro_torch.kernels.das_beamform import (das_beamform,  # noqa: E402
                                               das_beamform_ref)
 from repro_torch.kernels.fused_pipeline import (  # noqa: E402
@@ -82,6 +86,55 @@ def test_fused_kernels_match_plain(cuda, kw, precision):
     _close(fused_rf_to_power(*tabs, c["wall_taps"], rf, **p),
            fused_ref(*tabs, rf, head="power_doppler", wall=c["wall_taps"],
                      **p))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n_pb,k,bp,bs,n_sb,nf", [
+    (4, 2, 16, 16, 6, 3), (8, 1, 8, 32, 4, 8), (3, 3, 32, 8, 9, 1),
+    (5, 2, 16, 16, 7, 40), (2, 2, 80, 24, 3, 5), (16, 2, 64, 64, 6, 128)])
+def test_bsr_spmm_kernel_matches_plain(cuda, precision, n_pb, k, bp, bs,
+                                       n_sb, nf):
+    g = torch.Generator().manual_seed(n_pb * bs)
+    cols = torch.randint(0, n_sb, (n_pb, k), generator=g, dtype=torch.int32)
+    blocks = torch.randn(n_pb, k, bp, bs, generator=g)
+    x = torch.randn(n_sb, bs, nf, generator=g)
+    args = [t.to(cuda) for t in (cols, blocks, x)]
+    before = bsr_spmm.launches
+    out = bsr_spmm(*args, precision=precision)
+    assert bsr_spmm.launches == before + 1
+    _close(out, bsr_spmm_ref(*args, precision=precision))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("kw", [{}, dict(n_c=16, n_f=8, nz=32, nx=32),
+                                dict(n_c=16, n_f=40, nz=64, nx=32,
+                                     sparse_block_p=64, sparse_block_s=64)])
+def test_bsr_beamform_kernel_matches_plain(cuda, kw, precision):
+    cfg = tiny_config(variant="sparse", **kw)
+    c = consts_from_numpy(init_pipeline(cfg), cuda)
+    g = torch.Generator().manual_seed(cfg.n_c)
+    iq = torch.randn(3, cfg.n_s, cfg.n_c, cfg.n_f, 2, generator=g)
+    iq_b = block_sample_axis(iq.to(cuda), cfg.sparse_block_s)
+    args = (c["bsr_col_idx"], c["bsr_blocks"], iq_b)
+    before = bsr_beamform.launches
+    out = bsr_beamform(*args, precision=precision)
+    assert bsr_beamform.launches == before + 1
+    _close(out, bsr_beamform_ref(*args, precision=precision))
+
+
+@pytest.mark.parametrize("modality", ["bmode", "power_doppler", "doppler"])
+@pytest.mark.parametrize("variant", ["cnn", "sparse"])
+def test_operator_variant_on_card_matches_cpu(cuda, variant, modality):
+    cfg = tiny_config(variant=variant, modality=modality, n_c=16, n_f=8,
+                      nz=32, nx=32)
+    rf = np.stack([synth_rf(cfg, seed=s) for s in (3, 4)])
+    kernels.reset_launch_counts()
+    out = BatchedExecutor(cfg).call_padded(rf, pad_to=4).cpu()
+    ref = BatchedExecutor(cfg, device="cpu")(rf)
+    counts = kernels.launch_counts()
+    assert counts["bsr_beamform"] == (variant == "sparse"), counts
+    d = (out - ref).abs()
+    assert d.max().item() <= (1.2e-3 if modality == "bmode" else 1e-4)
 
 
 @pytest.mark.parametrize("fusion", ["none", "fused"])

@@ -1,9 +1,10 @@
 """The PyTorch port's serving path on the CPU, against the JAX reference.
 
-``UltrasoundPipeline`` and ``BatchedExecutor(device="cpu")`` for B-mode
-and power Doppler, each per stage (``fusion="none"``) and fused, against
-the reference's ``monolithic_pipeline_fn`` on the same seeded RF and the
-reference's own constants.
+``UltrasoundPipeline`` and ``BatchedExecutor(device="cpu")`` against the
+reference's ``monolithic_pipeline_fn`` on the same seeded RF and the
+reference's own constants: the dynamic variant for B-mode and power
+Doppler, each per stage (``fusion="none"``) and fused, and colour Doppler;
+the cnn and sparse variants per stage for all three modalities.
 
 Tolerances (image level):
   * B-mode: atol 1.2e-3 with at most 1 % of pixels above 1e-5.
@@ -19,6 +20,10 @@ Tolerances (image level):
   * Colour Doppler: atol 1e-4. The phase atan2(Im R1, Re R1) of pixels
     where |R1| is small follows the last bits of the channel and frame
     sums; measured max 2.8e-5 at (n_c=16, n_f=8, 32x32).
+
+Measured for cnn / sparse at that size: B-mode 5.65e-4 on one pixel of
+16,384 (one ``ln_approx`` step), power Doppler 1.8e-7, colour Doppler
+2.9e-5 / 1.9e-5.
 """
 
 import numpy as np
@@ -37,6 +42,7 @@ from repro.data import synth_rf  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import (BatchedExecutor, UltrasoundPipeline,  # noqa: E402
+                              init_pipeline, monolithic_pipeline_fn,
                               plan_pipeline, resolve_device, tiny_config)
 from repro_torch.core.pipeline import consts_from_numpy  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -56,21 +62,35 @@ def _check_image(modality, out, ref):
         assert d.max() <= 1e-4, d.max()
 
 
+def _reference_images(variant, modality):
+    """JAX monolithic images of one (variant, modality) on seeded RF."""
+    jc = jcfg.tiny_config(variant=jcfg.Variant(variant),
+                          modality=jcfg.Modality(modality), **WIDE)
+    consts = jpipe.init_pipeline(jc)
+    fn = jax.jit(jpipe.monolithic_pipeline_fn(jc))
+    rf = np.stack([synth_rf(jc, seed=s) for s in SEEDS])
+    jconsts = {k: jnp.asarray(v) for k, v in consts.items()}
+    return rf, np.stack([np.asarray(fn(jconsts, jnp.asarray(r)))
+                         for r in rf])
+
+
 @pytest.fixture(scope="module")
 def refs():
-    """JAX monolithic images for each modality on seeded RF."""
-    out = {}
-    for modality in ("bmode", "power_doppler", "doppler"):
-        jc = jcfg.tiny_config(variant=jcfg.Variant.DYNAMIC,
-                              modality=jcfg.Modality(modality), **WIDE)
-        consts = jpipe.init_pipeline(jc)
-        fn = jax.jit(jpipe.monolithic_pipeline_fn(jc))
-        rf = np.stack([synth_rf(jc, seed=s) for s in SEEDS])
-        jconsts = {k: jnp.asarray(v) for k, v in consts.items()}
-        imgs = np.stack([np.asarray(fn(jconsts, jnp.asarray(r)))
-                         for r in rf])
-        out[modality] = (rf, imgs)
-    return out
+    """JAX monolithic images for each modality, dynamic variant."""
+    return {m: _reference_images("dynamic", m)
+            for m in ("bmode", "power_doppler", "doppler")}
+
+
+@pytest.fixture(scope="module")
+def operator_refs():
+    """The same for the cnn and sparse variants, built on first use."""
+    cache = {}
+
+    def get(variant, modality):
+        if (variant, modality) not in cache:
+            cache[variant, modality] = _reference_images(variant, modality)
+        return cache[variant, modality]
+    return get
 
 
 @pytest.mark.parametrize("fusion", ["none", "fused"])
@@ -103,6 +123,55 @@ def test_color_doppler_matches_reference(refs):
     assert np.abs(np.asarray(out) - ref).max() <= 1e-4
 
 
+OPERATOR_CELLS = [(v, m) for v in ("cnn", "sparse")
+                  for m in ("bmode", "power_doppler", "doppler")]
+
+
+@pytest.mark.parametrize("variant,modality", OPERATOR_CELLS)
+def test_operator_variant_executor_matches_reference(operator_refs, variant,
+                                                     modality):
+    rf, ref = operator_refs(variant, modality)
+    cfg = tiny_config(variant=variant, modality=modality, **WIDE)
+    ex = BatchedExecutor(cfg, device="cpu")
+    assert dict(ex.plan.stage_lowerings)["beamform"] == "xla"
+    _check_image(modality, ex(rf), ref)
+
+
+@pytest.mark.parametrize("variant,modality", OPERATOR_CELLS)
+def test_operator_variant_pipeline_matches_reference(operator_refs, variant,
+                                                     modality):
+    rf, ref = operator_refs(variant, modality)
+    cfg = tiny_config(variant=variant, modality=modality, **WIDE)
+    pipe = UltrasoundPipeline(cfg, device="cpu")
+    _check_image(modality, pipe(rf[0]), ref[0])
+
+
+@pytest.mark.parametrize("variant", ["cnn", "sparse"])
+def test_operator_variant_kernel_lowering_matches_reference(operator_refs,
+                                                            variant):
+    """The ``pallas`` beamform pinned on the CPU (the wrapper's plain
+    version) gives the reference's image too."""
+    rf, ref = operator_refs(variant, "power_doppler")
+    cfg = tiny_config(variant=variant, modality="power_doppler",
+                      stage_lowerings={"beamform": "pallas"}, **WIDE)
+    if variant == "cnn":
+        with pytest.raises(ValueError, match="no such lowering"):
+            BatchedExecutor(cfg, device="cpu")
+        return
+    _check_image("power_doppler", BatchedExecutor(cfg, device="cpu")(rf),
+                 ref)
+
+
+def test_monolithic_oracle_dispatches_on_variant(operator_refs):
+    """The port's oracle runs each variant's own beamform."""
+    rf, ref = operator_refs("sparse", "bmode")
+    cfg = tiny_config(variant="sparse", **WIDE)
+    consts = consts_from_numpy(init_pipeline(cfg), "cpu")
+    assert "bsr_blocks" in consts and "idx" not in consts
+    _check_image("bmode", monolithic_pipeline_fn(cfg)(
+        consts, torch.as_tensor(rf)), ref)
+
+
 def test_pipeline_on_reference_consts_matches_own(refs):
     """consts_from_numpy on the reference's constants runs the port
     exactly as its own init_pipeline does."""
@@ -132,6 +201,19 @@ def test_padded_batch_equals_single_acquisitions(modality, fusion):
         np.testing.assert_allclose(out[i], single, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("modality", ["bmode", "power_doppler"])
+def test_sparse_padded_batch_equals_single_acquisitions(modality):
+    cfg = tiny_config(variant="sparse", modality=modality)
+    rf = np.stack([synth_rf(cfg, seed=s) for s in (1, 2, 3)])
+    rf[2] //= 7
+    ex = BatchedExecutor(cfg, device="cpu")
+    out = ex.call_padded(rf, pad_to=4)
+    assert out.shape[0] == 3
+    for i in range(3):
+        np.testing.assert_allclose(out[i], ex(rf[i:i + 1])[0], rtol=0,
+                                   atol=1e-6)
+
+
 def test_exec_map_map_equals_vmap():
     cfg = tiny_config(variant="dynamic")
     rf = np.stack([synth_rf(cfg, seed=s) for s in (1, 2)])
@@ -145,6 +227,9 @@ def test_cpu_run_launches_no_kernel():
     for modality in ("bmode", "power_doppler"):
         cfg = tiny_config(variant="dynamic", modality=modality,
                           fusion="fused")
+        BatchedExecutor(cfg, device="cpu")(synth_rf(cfg)[None])
+        cfg = tiny_config(variant="sparse", modality=modality,
+                          stage_lowerings={"beamform": "pallas"})
         BatchedExecutor(cfg, device="cpu")(synth_rf(cfg)[None])
     assert set(kernels.launch_counts().values()) == {0}
 
@@ -203,8 +288,25 @@ def test_cuda_plan_resolves_kernels():
     assert auto.provenance == "heuristic:cuda->dynamic"
 
 
+def test_cuda_plan_operator_variants():
+    """On the card the sparse beamform is the Hopper BSR kernel and the
+    cnn beamform the plain matrix product; AUTO stays dynamic."""
+    for variant, lowering in (("sparse", "pallas"), ("cnn", "xla")):
+        for modality in ("bmode", "power_doppler", "doppler"):
+            plan = plan_pipeline(tiny_config(variant=variant,
+                                             modality=modality),
+                                 backend="cuda")
+            assert dict(plan.stage_lowerings) == {
+                "demod": "xla", "beamform": lowering, modality: "xla"}
+        cpu = plan_pipeline(tiny_config(variant=variant), backend="cpu")
+        assert dict(cpu.stage_lowerings)["beamform"] == "xla"
+    big_blocks = tiny_config(variant="sparse", sparse_block_s=512)
+    assert dict(plan_pipeline(big_blocks, backend="cuda")
+                .stage_lowerings)["beamform"] == "xla"
+
+
 @pytest.mark.parametrize("kw,match", [
-    (dict(variant="cnn"), "not ported"),
+    (dict(variant="cnn", fusion="fused"), "no fused lowering is registered"),
     (dict(variant="auto"), "cannot resolve"),
     (dict(variant="dynamic", modality="doppler", fusion="fused"),
      "no fused lowering is registered"),
@@ -213,6 +315,8 @@ def test_cuda_plan_resolves_kernels():
     (dict(variant="dynamic", precision="bf16"), "no available lowering"),
     (dict(variant="dynamic", fusion="fused",
           stage_lowerings={"beamform": "xla"}), "claims"),
+    (dict(variant="sparse", modality="power_doppler", fusion="fused"),
+     "no fused lowering is registered"),
 ])
 def test_plan_refuses_loudly(kw, match):
     with pytest.raises(ValueError, match=match):
@@ -226,3 +330,13 @@ def test_serve_cli_on_cpu(monkeypatch, capsys):
     serve.main()
     out = capsys.readouterr().out
     assert "backend=cpu" in out and "energy=not measured" in out
+
+
+@pytest.mark.parametrize("variant", ["cnn", "sparse"])
+def test_serve_cli_operator_variants_on_cpu(monkeypatch, capsys, variant):
+    monkeypatch.setattr("sys.argv", ["serve", "--ultrasound", "--variant",
+                                     variant, "--device", "cpu",
+                                     "--batches", "2", "--batch", "2"])
+    serve.main()
+    out = capsys.readouterr().out
+    assert f"variant={variant}" in out and f"/{variant}/b2" in out

@@ -77,6 +77,24 @@ def test_beamform_dynamic(case):
     _close(out, case["bf"])
 
 
+@pytest.mark.parametrize("variant", ["cnn", "sparse"])
+def test_beamform_cnn_and_sparse(case, variant):
+    """Each operator variant on the reference's own operator constants
+    equals the reference's formulation, and the dynamic beamform."""
+    jc = case["jc"].with_(variant=jcfg.Variant(variant))
+    consts = init_pipeline(jc)
+    iq = torch.as_tensor(case["iq"])
+    out = tbf.BEAMFORMERS[tcfg.Variant(variant)](
+        case["tc"].with_(variant=variant), consts_from_numpy(consts, "cpu"),
+        torch.stack([iq, 2 * iq]))
+    ref = jbf.BEAMFORMERS[jc.variant](
+        jc, {k: jnp.asarray(v) for k, v in consts.items()},
+        jnp.asarray(case["iq"]))
+    _close(out[0], ref)
+    _close(out[1], 2 * np.asarray(ref))
+    _close(out[0], case["bf"])
+
+
 def test_envelope(case):
     out = tbm.envelope(torch.as_tensor(case["bf"])[None])[0]
     _close(out, jbm.envelope(jnp.asarray(case["bf"])))
