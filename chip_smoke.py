@@ -510,9 +510,6 @@ def main() -> None:
     rows = phase_kernels(source)
     launches = phase_serve(source)
     phase_outputs(source)
-    served = [n for n in rows if launches[n] > 0]
-    say(f"[kernels] not on a served path (0 launches, left out of the "
-        f"kernels line): {[n for n in rows if n not in served]}")
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": rows[n]["source"],
@@ -521,7 +518,7 @@ def main() -> None:
          "plain_ms": rows[n]["plain_ms"], "bound_ms": rows[n]["bound"][0],
          "bound_by": rows[n]["bound"][1],
          "library_ms": rows[n]["library_ms"]}
-        for n in served]}))
+        for n in rows]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -276,14 +276,6 @@ def _fused_available(cfg: UltrasoundConfig, backend: str) -> bool:
     return backend == "cpu" or cfg.rf_dtype == "int16"
 
 
-def _bsr_available(cfg: UltrasoundConfig, backend: str) -> bool:
-    # The CUDA kernel stages a (64 x bs) operator tile in shared memory
-    # and puts the pixel blocks on the grid's y axis.
-    from repro_torch.kernels.bsr_spmm.ops import kernel_takes
-    n_pb = -(-cfg.n_pix // cfg.sparse_block_p)
-    return backend == "cpu" or kernel_takes(cfg.sparse_block_s, n_pb)
-
-
 def _register_defaults() -> None:
     register_lowering(
         "demod", "xla",
@@ -294,7 +286,7 @@ def _register_defaults() -> None:
                       variant=Variant.DYNAMIC,
                       precisions=("f32", "bf16", "f16"))
     register_lowering("beamform", "pallas", _beamform_sparse_kernel,
-                      variant=Variant.SPARSE, available=_bsr_available,
+                      variant=Variant.SPARSE,
                       precisions=("f32", "bf16", "f16"))
     register_lowering(
         "bmode", "xla", lambda cfg, consts, bf: bmode.bmode_image(cfg, bf))

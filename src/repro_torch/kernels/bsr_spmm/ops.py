@@ -3,7 +3,9 @@
 `bsr_spmm` is the real primitive, `bsr_beamform` the complex
 multi-channel beamform of the sparse variant in one launch.
 `block_sample_axis` cuts the IQ sample axis into the operator's sample
-blocks.
+blocks. The kernel itself refuses a block structure it cannot take (a
+staged tile larger than shared memory, more than 65535 pixel blocks);
+the wrapper then raises.
 """
 
 from __future__ import annotations
@@ -16,11 +18,6 @@ import torch.nn.functional as F
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.bsr_spmm.ref import bsr_beamform_ref, bsr_spmm_ref
 from repro_torch.kernels.das_beamform.ops import PRECISION_CODES
-
-# Largest sample block the kernel stages in shared memory (bsr_spmm.cu).
-MAX_BLOCK_S = 256
-# Pixel blocks run on the grid's y axis.
-MAX_PIXEL_BLOCKS = 65535
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -43,11 +40,6 @@ def block_sample_axis(iq: torch.Tensor, bs: int) -> torch.Tensor:
     return iq.reshape(iq.shape[:-4] + (-1, bs) + iq.shape[-3:])
 
 
-def kernel_takes(bs: int, n_pb: int) -> bool:
-    """Whether the CUDA kernel takes this block structure."""
-    return bs <= MAX_BLOCK_S and n_pb <= MAX_PIXEL_BLOCKS
-
-
 def _launch(symbol, cols, blocks, x, out, dims, precision):
     dev = x.device
     fn = cuda_lib.kernel_fn("bsr_spmm", symbol,
@@ -58,16 +50,12 @@ def _launch(symbol, cols, blocks, x, out, dims, precision):
     cuda_lib.check_launch(rc, symbol)
 
 
-def _check(precision, x, bs, n_pb):
+def _check(precision, x):
     if precision not in PRECISION_CODES:
         raise ValueError(f"unknown precision {precision!r}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"bsr_spmm runs on cuda or cpu, not "
                          f"{x.device.type}")
-    if x.device.type == "cuda" and not kernel_takes(bs, n_pb):
-        raise ValueError(
-            f"the CUDA kernel takes bs <= {MAX_BLOCK_S} and n_pb <= "
-            f"{MAX_PIXEL_BLOCKS}, got bs={bs}, n_pb={n_pb}")
 
 
 def bsr_spmm(cols, blocks, x, *, precision: str = "f32"):
@@ -84,7 +72,7 @@ def bsr_spmm(cols, blocks, x, *, precision: str = "f32"):
       (``bsr_spmm_ref``); a CUDA ``x`` launches the kernel or raises.
     """
     n_pb, k, bp, bs = blocks.shape
-    _check(precision, x, bs, n_pb)
+    _check(precision, x)
     if x.device.type == "cpu":
         return bsr_spmm_ref(cols, blocks, x, precision=precision)
     dev = x.device
@@ -115,7 +103,7 @@ def bsr_beamform(cols, blocks, iq_b, *, precision: str = "f32"):
       raises.
     """
     n_c, n_pb, k, bp, bs, _ = blocks.shape
-    _check(precision, iq_b, bs, n_pb)
+    _check(precision, iq_b)
     if iq_b.device.type == "cpu":
         return bsr_beamform_ref(cols, blocks, iq_b, precision=precision)
     dev = iq_b.device

@@ -177,6 +177,7 @@ int launch(const void* cols, const void* blocks, const void* x, void* out,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = shared_bytes<V>(bs);
+  // The one check of what this kernel takes: the caller raises on it.
   if (smem > kMaxShared || n_pb > 65535 || batch * n_f < 1) {
     return (int)cudaErrorInvalidValue;
   }

@@ -122,6 +122,20 @@ def test_bsr_beamform_kernel_matches_plain(cuda, kw, precision):
     _close(out, bsr_beamform_ref(*args, precision=precision))
 
 
+@pytest.mark.parametrize("n_pb,bs", [(1, 512), (70000, 8)])
+def test_bsr_beamform_kernel_refuses_what_it_cannot_take(cuda, n_pb, bs):
+    """A (64 x bs) complex tile past shared memory, or more pixel blocks
+    than the grid's y axis holds: the kernel refuses, the wrapper raises,
+    and nothing is launched."""
+    cols = torch.zeros((1, n_pb, 1), dtype=torch.int32, device=cuda)
+    blocks = torch.ones((1, n_pb, 1, 1, bs, 2), device=cuda)
+    iq_b = torch.ones((1, 1, bs, 1, 1, 2), device=cuda)
+    before = bsr_beamform.launches
+    with pytest.raises(RuntimeError, match="bsr_beamform_launch"):
+        bsr_beamform(cols, blocks, iq_b)
+    assert bsr_beamform.launches == before
+
+
 @pytest.mark.parametrize("modality", ["bmode", "power_doppler", "doppler"])
 @pytest.mark.parametrize("variant", ["cnn", "sparse"])
 def test_operator_variant_on_card_matches_cpu(cuda, variant, modality):
