@@ -24,7 +24,22 @@ last line):
                stage of the engine on a device-resident batch;
   5. outputs — images from the card against the plain pipeline (paper
                geometry, on the card) and against the CPU (small input);
-  6. a JSON line {"kernels": [...]} and, last, the device line.
+  6. lm kernels — the ultrasound tensors freed, `flash_attention` at
+               zamba2's prefill shape and `ssd_scan` at its scoring shape,
+               f32, each against its plain version, timed as in 3;
+  7. lm serve — zamba2-1.2b at full width and depth in bf16, random
+               weights from a seed: `serve_session` with the flash kernel
+               (8 requests, slot batch 4, prompt 1024, 32 new tokens),
+               then scoring (`loss_fn`, forward at (4, 2048)) with the SSD
+               kernel, each with the launch counters zeroed before and
+               read after;
+     then `[lm split]`: torch.profiler over one prefill, one decode step
+               and one scoring forward, for the device's busy share and
+               the kernels that take the device time;
+  8. lm outputs — full width in f32: the kernel path's logits against the
+               plain path's, and prefill and decode logits against
+               forward's;
+  9. a JSON line {"kernels": [...]} and, last, the device line.
 
 Needs only this checkout (it puts src/ on sys.path) and imports no JAX.
 """
@@ -47,7 +62,9 @@ from repro_torch.core import (BatchedExecutor, PRECISION_TOLERANCES,  # noqa: E4
                               Modality, consts_from_numpy, init_pipeline,
                               monolithic_pipeline_fn, paper_config,
                               stage_fns, tiny_config)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import demod  # noqa: E402
+from repro_torch.data import synth_train_batch  # noqa: E402
 from repro_torch.data import synth_rf  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
@@ -55,10 +72,17 @@ from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
                                           bsr_spmm, bsr_spmm_ref)
 from repro_torch.kernels.das_beamform import (das_beamform,  # noqa: E402
                                               das_beamform_ref)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_ref)
 from repro_torch.kernels.fused_pipeline import (  # noqa: E402
     fused_ref, fused_rf_to_envelope, fused_rf_to_power)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
 from repro_torch.launch.serve import (SyntheticAcquisitionSource,  # noqa: E402
+                                      _grow_cache, serve_session,
                                       serve_ultrasound_stream)
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models.common import logits_from_hidden  # noqa: E402
+from repro_torch.models.hybrid import n_attn_invocations  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM rate, f32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -75,6 +99,14 @@ PATHS = (("dynamic", "none"), ("dynamic", "fused"), ("cnn", "none"),
          ("sparse", "none"))
 FUSED_KERNEL = {"bmode": "fused_rf_to_envelope",
                 "power_doppler": "fused_rf_to_power"}
+
+# LM half: zamba2-1.2b, served and scored at full width and depth
+ARCH = "zamba2-1.2b"
+LM_REQUESTS, LM_BATCH, PROMPT_LEN, MAX_NEW = 8, 4, 1024, 32
+SCORE_SHAPE = (4, 2048)
+FLASH_TOL = (2e-4, 2e-5)   # rtol, atol: test_torch_lm_kernels / _gpu
+SSD_TOL = (2e-4, 2e-4)
+LOGITS_TOL = 2e-3          # rtol = atol, tests/test_decode_consistency.py
 
 
 def say(msg: str) -> None:
@@ -498,6 +530,264 @@ def phase_outputs(source) -> None:
             check(err <= IMAGE_TOL[modality], "card disagrees with cpu")
 
 
+def close_enough(name, out, ref, rtol, atol) -> float:
+    """Fail unless |out - ref| <= atol + rtol |ref| everywhere; returns
+    max|out - ref|."""
+    err, scale = max_err(out, ref)
+    ok = bool(((out - ref).abs() <= atol + rtol * ref.abs()).all())
+    say(f"[lm] {name}: max|d|={err:.3e} (max|ref|={scale:.3e}, tolerance "
+        f"{atol:g} + {rtol:g}|ref|)")
+    check(ok, f"{name} outside its tolerance")
+    return err
+
+
+def phase_lm_kernels() -> dict:
+    """flash_attention at zamba2's served prefill shape and ssd_scan at
+    its scoring shape, f32, against their plain versions; then timed."""
+    dev = torch.device("cuda")
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+
+    b, l, h, d = LM_BATCH, PROMPT_LEN, 32, 64
+    q, k, v = (torch.randn(b, l, h, d, generator=g, device=dev)
+               for _ in range(3))
+    err = close_enough("flash_attention vs plain",
+                       flash_attention(q, k, v), flash_attention_ref(q, k, v),
+                       *FLASH_TOL)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library = (lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    ok = library_check("flash_attention", lambda: library().transpose(1, 2),
+                       flash_attention_ref(q, k, v))
+    rows["flash_attention"] = dict(
+        err=err,
+        fn=lambda: flash_attention(q, k, v),
+        plain=lambda: flash_attention_ref(q, k, v),
+        library=library if ok else None,
+        library_name=("F.scaled_dot_product_attention(is_causal=True), "
+                      "f32, (B, H, L, d)" if ok else
+                      "none: SDPA disagreed with the plain version"),
+        bound=bound(4.0 * 4 * b * l * h * d,
+                    4.0 * b * h * d * l * (l + 1) / 2),
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:77")
+
+    bsz, length = SCORE_SHAPE
+    cfg = get_config(ARCH)
+    heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    p, n, chunk = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    log_a = -torch.rand(bsz, length, heads, generator=g, device=dev) * 0.3
+    x = torch.randn(bsz, length, heads, p, generator=g, device=dev)
+    bm, cm = (torch.randn(bsz, length, n, generator=g, device=dev) * 0.3
+              for _ in range(2))
+    args = (log_a, x, bm, cm)
+    err = close_enough("ssd_scan vs plain", ssd_scan(*args, chunk=chunk),
+                       ssd_scan_ref(*args), *SSD_TOL)
+    nc = -(-length // chunk)
+    rows["ssd_scan"] = dict(
+        err=err,
+        fn=lambda: ssd_scan(*args, chunk=chunk),
+        plain=lambda: ssd_scan_ref(*args),
+        library=None,
+        library_name="none: no single PyTorch call computes the SSD scan",
+        bound=bound(4.0 * (log_a.numel() + 2 * x.numel() + bm.numel()
+                           + cm.numel()),
+                    1.0 * bsz * heads * nc * (chunk * (chunk + 1) * (n + p)
+                                              + 4 * chunk * n * p)),
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:71")
+    say(f"[lm] shapes: flash (B {b}, L {l}, H {h}, d {d}) causal; ssd "
+        f"(B {bsz}, L {length}, H {heads}, P {p}, N {n}, Q {chunk}), B and "
+        "C group-shared")
+    rows = measure(rows, flush)
+    del flush, q, k, v, qt, kt, vt, x, log_a, bm, cm, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_lm_serve() -> dict:
+    """zamba2-1.2b in bf16: serve_session with the flash kernel, then
+    scoring with the SSD kernel, each read from its own launch counts."""
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH, use_flash_kernel=True)
+    t0 = time.perf_counter()
+    params = get_model(cfg).init_params(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    say(f"[lm] {ARCH}: {cfg.n_layers} Mamba2 layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters in "
+        f"{cfg.param_dtype}, random from seed 0, made on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    kernels.reset_launch_counts()
+    out, stats = serve_session(cfg, requests=LM_REQUESTS, batch=LM_BATCH,
+                               prompt_len=PROMPT_LEN, max_new=MAX_NEW,
+                               params=params)
+    counts = kernels.launch_counts()
+    n_prefill = -(-LM_REQUESTS // LM_BATCH)
+    n_inv = n_attn_invocations(cfg)
+    pre = np.array(stats["prefill_s"]) * 1e3
+    dec = np.array(stats["decode_s"]) * 1e3
+    say(f"[lm] serve {ARCH} bf16 flash: {LM_REQUESTS} requests, slot batch "
+        f"{LM_BATCH}, prompt {PROMPT_LEN}, {MAX_NEW} new tokens: "
+        f"{stats['tokens']} tokens in {stats['wall_s']:.3f}s = "
+        f"{stats['tok_per_s']:.1f} tok/s; prefill per slot batch "
+        f"{', '.join(f'{t:.3f}' for t in pre)} ms; decode per step mean "
+        f"{dec.mean():.3f} ms, p50 {np.median(dec):.3f} ms, max "
+        f"{dec.max():.3f} ms; peak_mem="
+        f"{stats['peak_memory_bytes'] / 1e6:.1f} MB; launches={counts}")
+    check(out.shape == (LM_REQUESTS, MAX_NEW + 1), f"tokens {out.shape}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "generated tokens outside the vocabulary")
+    check(counts["flash_attention"] == n_inv * n_prefill,
+          f"flash_attention launched {counts['flash_attention']} times, "
+          f"want {n_inv} per prefill x {n_prefill}")
+    check(counts["ssd_scan"] == 0, "ssd_scan on the serving path")
+    launches = {"flash_attention": counts["flash_attention"]}
+
+    model = get_model(cfg)
+    prompt = synth_train_batch(cfg, LM_BATCH, PROMPT_LEN, seed=0, device=dev)
+    with torch.no_grad():
+        device_split("prefill (flash)", lambda: model.prefill(params, prompt))
+        _, cache = model.prefill(params, prompt)
+        cache = _grow_cache(model, cache, PROMPT_LEN + MAX_NEW + 1)
+        tok = prompt["tokens"][:, -1:]
+        lengths = torch.full((LM_BATCH,), PROMPT_LEN, dtype=torch.int32,
+                             device=dev)
+        device_split("decode step", lambda: model.decode_step(
+            params, tok, cache, lengths))
+    del cache, prompt
+
+    cfg = get_config(ARCH, use_ssd_kernel=True)
+    model = get_model(cfg)
+    batch = synth_train_batch(cfg, *SCORE_SHAPE, seed=1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, _ = model.loss_fn(params, batch)
+    loss = loss.item()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    s, e = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    with torch.no_grad():
+        s.record()
+        h, _ = model.forward(params, batch)
+        e.record()
+    torch.cuda.synchronize()
+    toks = SCORE_SHAPE[0] * SCORE_SHAPE[1]
+    say(f"[lm] score {ARCH} bf16 ssd: loss_fn at {SCORE_SHAPE}: loss "
+        f"{loss:.4f} (ln V = {np.log(cfg.vocab_size):.4f}), first call "
+        f"{wall * 1e3:.1f} ms, forward {s.elapsed_time(e):.3f} ms "
+        f"(CUDA events) = {toks / s.elapsed_time(e) * 1e3:.0f} tok/s; "
+        f"peak_mem={peak / 1e6:.1f} MB; launches={counts}")
+    check(np.isfinite(loss), "non-finite loss")
+    check(tuple(h.shape) == SCORE_SHAPE + (cfg.d_model,)
+          and bool(torch.isfinite(h).all()), "forward hidden states")
+    check(counts["ssd_scan"] == cfg.n_layers,
+          f"ssd_scan launched {counts['ssd_scan']} times, want "
+          f"{cfg.n_layers}")
+    check(counts["flash_attention"] == 0, "flash on the scoring path")
+    launches["ssd_scan"] = counts["ssd_scan"]
+    with torch.no_grad():
+        device_split("scoring forward (ssd)",
+                     lambda: model.forward(params, batch))
+    del params, batch, h
+    torch.cuda.empty_cache()
+    return launches
+
+
+def device_split(name, fn, n_top=6) -> None:
+    """Profile one call of ``fn`` (after one warm call): its wall time to
+    the last kernel's end (host clock; the profiler adds host overhead),
+    the summed time of its kernels, their busy share of the wall, the
+    shares of our kernels, cuBLAS products and everything else, and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy == 0:
+        say(f"[lm split] {name}: the profiler saw no device time; device "
+            f"busy share not measured (wall {wall:.3f} ms)")
+        return
+    ours = ("flash_attention_kernel", "ssd_scan_kernel")
+    cats = {"ours": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in kern:
+        key = ("ours" if any(o in e.key for o in ours) else "matmul"
+               if any(m in e.key.lower() for m in ("gemm", "nvjet", "xmma",
+                                                   "cutlass"))
+               else "other")
+        cats[key] += e.self_device_time_total / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:n_top]
+    say(f"[lm split] {name}: wall {wall:.3f} ms (profiled), kernels "
+        f"{busy:.3f} ms = {busy / wall:.1%} busy, "
+        f"{sum(e.count for e in kern)} launches; "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in cats.items())
+        + "; top: " + "; ".join(
+            f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms "
+            f"x{e.count}" for e in top))
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def phase_lm_outputs() -> None:
+    """Full width in f32: the kernel path against the plain path, and
+    prefill then decode against forward, on the same tokens."""
+    cfg = get_config(ARCH, param_dtype="float32", compute_dtype="float32")
+    kcfg = cfg.with_(use_flash_kernel=True, use_ssd_kernel=True)
+    plain, kern = get_model(cfg), get_model(kcfg)
+    params = plain.init_params(1)
+    prompt, extra = 256, 4
+    batch = synth_train_batch(cfg, 2, prompt + extra, seed=2,
+                              device=plain.device)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        full = {m: logits_from_hidden(params["embed"], cfg,
+                                      model.forward(params, batch)[0])
+                for m, model in (("plain", plain), ("kernel", kern))}
+        check(all(bool(torch.isfinite(t).all()) for t in full.values()),
+              "non-finite logits")
+        close_enough("f32 forward logits, kernels vs plain", full["kernel"],
+                     full["plain"], LOGITS_TOL, LOGITS_TOL)
+        logits, cache = kern.prefill(params,
+                                     {"tokens": batch["tokens"][:, :prompt]})
+        close_enough("f32 prefill logits vs forward", logits[:, 0],
+                     full["kernel"][:, prompt - 1], LOGITS_TOL, LOGITS_TOL)
+        cache = _grow_cache(kern, cache, prompt + extra + 1)
+        lengths = torch.full((2,), prompt, dtype=torch.int32,
+                             device=plain.device)
+        for t in range(extra):
+            logits, cache = kern.decode_step(
+                params, batch["tokens"][:, prompt + t:prompt + t + 1],
+                cache, lengths)
+            close_enough(f"f32 decode step {t} logits vs forward",
+                         logits[:, 0], full["kernel"][:, prompt + t],
+                         LOGITS_TOL, LOGITS_TOL)
+            lengths = lengths + 1
+    counts = kernels.launch_counts()
+    check(counts["flash_attention"] == 2 * n_attn_invocations(cfg)
+          and counts["ssd_scan"] == cfg.n_layers,
+          f"kernel path of the f32 check: {counts}")
+    del params, cache, full
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name = phase_device()
@@ -510,6 +800,13 @@ def main() -> None:
     rows = phase_kernels(source)
     launches = phase_serve(source)
     phase_outputs(source)
+    del source
+    torch.cuda.empty_cache()
+    say(f"[lm] ultrasound phases freed; "
+        f"{torch.cuda.memory_allocated() / 1e6:.1f} MB still allocated")
+    rows.update(phase_lm_kernels())
+    launches.update(phase_lm_serve())
+    phase_lm_outputs()
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": rows[n]["source"],

@@ -1,0 +1,37 @@
+"""Architecture registry of the port.
+
+`get_config(name)` returns the full published config, `get_smoke(name)`
+a reduced same-family config for CPU tests. Only the architectures whose
+family is ported are here (zamba2-1.2b); ROADMAP A lists the others.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig  # noqa: F401
+
+ARCHS: List[str] = ["zamba2_1p2b"]
+
+# CLI ids (dashes) -> module names
+_ALIASES: Dict[str, str] = {"zamba2-1.2b": "zamba2_1p2b"}
+
+
+def _module(name: str):
+    mod_name = _ALIASES.get(name, name)
+    if mod_name not in ARCHS:
+        raise ValueError(
+            f"architecture {name!r} is not ported to PyTorch yet (ported: "
+            f"{sorted(_ALIASES)}); ROADMAP A lists the order of the rest")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get_config(name: str, **overrides) -> ModelConfig:
+    cfg = _module(name).config()
+    return cfg.with_(**overrides) if overrides else cfg
+
+
+def get_smoke(name: str, **overrides) -> ModelConfig:
+    cfg = _module(name).smoke()
+    return cfg.with_(**overrides) if overrides else cfg

@@ -30,7 +30,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"das_beamform": "das_beamform.cu",
            "fused_pipeline": "fused_pipeline.cu",
-           "bsr_spmm": "bsr_spmm.cu"}
+           "bsr_spmm": "bsr_spmm.cu",
+           "flash_attention": "flash_attention.cu",
+           "ssd_scan": "ssd_scan.cu"}
 HEADERS = ("das_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

@@ -1,17 +1,26 @@
-"""Ultrasound streaming loop (PyTorch port).
+"""Serving drivers of the PyTorch port, for both system halves.
 
-`serve_ultrasound_stream` feeds RF batches from a synthetic acquisition
-source through a `BatchedExecutor`, keeps up to ``depth`` batches in
-flight on the device's stream, and reports sustained MB/s / FPS and the
-completion-interval latency distribution with the reference's stats
-keys. Peak memory is ``torch.cuda.max_memory_allocated`` over the timed
-window; energy is not measured (None).
+LM half — slot-based batching, as the reference: B fixed slots, each
+request batch prefills into its slots, then all slots decode in lockstep,
+greedily (`serve_session`). zamba2-1.2b is the ported architecture:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --smoke --requests 8 --batch 4 --prompt-len 32 --max-new 16 \
+      [--device cpu]
+
+Ultrasound half — `serve_ultrasound_stream` feeds RF batches from a
+synthetic acquisition source through a `BatchedExecutor`, keeps up to
+``depth`` batches in flight on the device's stream, and reports
+sustained MB/s / FPS and the completion-interval latency distribution
+with the reference's stats keys. Peak memory is
+``torch.cuda.max_memory_allocated`` over the timed window; energy is not
+measured (None).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --ultrasound \\
       --batch 4 --batches 32 --depth 2 [--variant dynamic|cnn|sparse|auto] \\
       [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given.
+Both run on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -22,6 +31,89 @@ import time
 
 import numpy as np
 import torch
+
+
+def serve_session(cfg, *, requests: int, batch: int, prompt_len: int,
+                  max_new: int, seed: int = 0, params=None, device=None):
+    """Process ``requests`` prompts in slot batches of ``batch``.
+
+    Prompts are ``synth_train_batch(cfg, bsz, prompt_len, seed + r0)``, as
+    in the reference. ``params`` defaults to ``init_params(seed)`` (the
+    port's draws; pass ``params_from_numpy`` of the reference's to serve
+    the same weights). Returns (generated tokens (requests, max_new + 1)
+    int32 array, stats dict): the reference's keys, plus the host-clock
+    time of each slot batch's prefill (the first token included) and of
+    each decode step, and the peak device memory (None on the CPU).
+    """
+    from repro_torch.data.batches import synth_train_batch
+    from repro_torch.models import get_model
+    from repro_torch.train import steps as steps_lib
+
+    model = get_model(cfg, device=device)
+    dev = model.device
+    if params is None:
+        params = model.init_params(seed)
+    prefill_step = steps_lib.make_prefill_step(model)
+    serve_step = steps_lib.make_serve_step(model)
+    on_cuda = dev.type == "cuda"
+    if on_cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    outs, prefill_s, decode_s = [], [], []
+    t0 = time.perf_counter()
+    max_len = prompt_len + max_new + 1
+    for r0 in range(0, requests, batch):
+        bsz = min(batch, requests - r0)
+        prompt = synth_train_batch(cfg, bsz, prompt_len, seed=seed + r0,
+                                   device=dev)
+        t = time.perf_counter()
+        tok_next, cache = prefill_step(params, prompt)
+        tok = tok_next[:, None]
+        # decoder-only: extend the prefilled cache to serving length
+        cache = _grow_cache(model, cache, max_len)
+        lengths = torch.full((bsz,), prompt_len, dtype=torch.int32,
+                             device=dev)
+        gen = [tok.cpu().numpy()]           # waits for the device
+        prefill_s.append(time.perf_counter() - t)
+        for _ in range(max_new):
+            t = time.perf_counter()
+            tok, cache, lengths = serve_step(params, tok, cache, lengths)
+            gen.append(tok.cpu().numpy())
+            decode_s.append(time.perf_counter() - t)
+        outs.append(np.concatenate(gen, axis=1))
+
+    wall = time.perf_counter() - t0
+    toks = sum(o.size for o in outs)
+    stats = {"wall_s": wall, "tokens": toks,
+             "tok_per_s": toks / max(wall, 1e-9),
+             "decode_steps": len(decode_s),
+             "prefill_s": prefill_s, "decode_s": decode_s,
+             "peak_memory_bytes": (int(torch.cuda.max_memory_allocated(dev))
+                                   if on_cuda else None),
+             "device": str(dev)}
+    return np.concatenate(outs, axis=0)[:requests], stats
+
+
+def _grow_cache(model, cache, max_len: int):
+    """Pad every leaf's sequence axis with zeros to ``max_len``.
+
+    The sequence axis is found structurally through ``cache_specs``
+    (``seq_sharded=True`` labels it "seq"); leaves without one (the SSM
+    and conv states) pass through untouched.
+    """
+    def grow(spec, a):
+        if isinstance(spec, dict):
+            return {k: grow(spec[k], a[k]) for k in spec}
+        if "seq" not in spec:
+            return a
+        i = spec.index("seq")
+        if a.shape[i] >= max_len:
+            return a
+        pad = [0, 0] * (a.dim() - i - 1) + [0, max_len - a.shape[i]]
+        return torch.nn.functional.pad(a, pad)
+
+    return grow(model.cache_specs(seq_sharded=True), cache)
 
 
 class SyntheticAcquisitionSource:
@@ -143,7 +235,14 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ultrasound", action="store_true",
                     help="stream RF through the batched stage-graph engine")
+    ap.add_argument("--arch", default="zamba2-1.2b",
+                    help="LM: architecture (ported: zamba2-1.2b)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="LM: the reduced same-family config")
+    ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--batches", type=int, default=32,
                     help="RF batches to stream")
     ap.add_argument("--depth", type=int, default=2,
@@ -160,8 +259,21 @@ def main() -> None:
     args = ap.parse_args()
 
     if not args.ultrasound:
-        ap.error("the PyTorch port serves --ultrasound only (the LM half "
-                 "is not ported yet)")
+        from repro_torch.configs import get_config, get_smoke
+        cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+        _, stats = serve_session(
+            cfg, requests=args.requests, batch=args.batch,
+            prompt_len=args.prompt_len, max_new=args.max_new,
+            device=args.device)
+        peak = stats["peak_memory_bytes"]
+        print(f"served {args.requests} requests on {stats['device']}: "
+              f"{stats['tokens']} tokens in {stats['wall_s']:.2f}s = "
+              f"{stats['tok_per_s']:,.0f} tok/s; prefill "
+              f"{np.mean(stats['prefill_s']) * 1e3:.1f} ms per slot batch, "
+              f"decode {np.mean(stats['decode_s']) * 1e3:.2f} ms per step; "
+              + (f"peak_mem={peak / 1e6:.1f}MB" if peak is not None
+                 else "peak_mem=not measured"))
+        return
     if args.variant == "auto" and args.plan == "fixed":
         ap.error("--variant auto needs --plan heuristic")
 

@@ -1,0 +1,166 @@
+"""Shared building blocks of the LM half: init, norm, RoPE, MLP, embedding.
+
+Parameters are plain nested dicts of tensors, laid out as the reference's
+pytrees (per-layer leaves stacked on a leading layer axis), so a JAX
+parameter tree carries over leaf by leaf (`models.params`). The
+reference's sharding constraints and remat have no counterpart here: on
+one device without a mesh they do nothing in the reference either.
+
+Numerics follow the reference: `rmsnorm` and `apply_rope` compute in
+float32 and return the input's dtype; logits are float32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+
+def dense_init(shape, dtype, gen: torch.Generator, device,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Truncated-normal fan-in init (+-3 std), drawn in f32, then cast.
+
+    ``fan_in`` is ``shape[-2]``, as in the reference, so a layer-stacked
+    (L, d_in, d_out) leaf is initialised like L separate (d_in, d_out)
+    ones. The draws come from ``gen``; they are not the reference's.
+    """
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else fan_in ** -0.5
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, std=std, a=-3.0 * std, b=3.0 * std,
+                                generator=gen)
+    return w.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_params(d: int, dtype, device, lead=()) -> Dict:
+    return {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype,
+                                device=device)}
+
+
+def rmsnorm(params: Dict, x: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * params["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Sequence[int] = ()) -> torch.Tensor:
+    """Rotary embedding on the fly. x (B, S, H, D); positions (B, S).
+
+    M-RoPE (qwen2-vl's (B, 3, S) positions) is not ported: it raises.
+    """
+    if mrope_sections:
+        raise NotImplementedError(
+            "M-RoPE is not ported yet (ROADMAP A: the transformer family)")
+    d = x.shape[-1]
+    half = d // 2
+    inv = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
+                          device=x.device)
+    ang = positions.float()[..., None] * inv              # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+def mlp_params(d: int, ff: int, dtype, gen, device) -> Dict:
+    return {
+        "wi_gate": dense_init((d, ff), dtype, gen, device),
+        "wi_up": dense_init((d, ff), dtype, gen, device),
+        "wo": dense_init((ff, d), dtype, gen, device),
+    }
+
+
+def mlp_apply(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    gate = F.silu(x @ params["wi_gate"])
+    up = x @ params["wi_up"]
+    return (gate * up) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embed_params(cfg: ModelConfig, dtype, gen, device) -> Dict:
+    p = {"embedding": dense_init((cfg.vocab_size, cfg.d_model), dtype, gen,
+                                 device, scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), dtype, gen,
+                                  device)
+    return p
+
+
+def embed_tokens(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embedding"][tokens.long()]
+
+
+def logits_from_hidden(params: Dict, cfg: ModelConfig,
+                       h: torch.Tensor) -> torch.Tensor:
+    """f32 logits (..., V) for a stable softmax and loss."""
+    w = params["embedding"].T if cfg.tie_embeddings else params["lm_head"]
+    return h.float() @ w.float()
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy; logits (..., V) f32, labels (...)."""
+    logz = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)).
+
+    Not ``F.softplus``, which switches to the identity above a threshold.
+    """
+    return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))

@@ -14,6 +14,13 @@ version round each per-channel term alike (the kernels are built with
 sum differs, which a CPU emulation at the paper's geometry puts at
 3.4e-7 of the maximum. The BSR kernels round the same operands as their
 plain versions and sum in f32 with fused multiply-adds, in another order.
+
+The LM kernels are held to their plain versions with the CPU parity
+tolerances of tests/test_torch_lm_kernels.py: flash attention rtol 2e-4,
+atol 2e-5 (online softmax in tiles against one softmax), the SSD scan
+rtol = atol = 2e-4 (chunked against the step recurrence). From bf16
+inputs both compute in f32 and round once to bf16, so they agree within
+one bf16 step (rtol 2**-7).
 """
 
 import numpy as np
@@ -33,8 +40,11 @@ from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
                                           bsr_spmm, bsr_spmm_ref)
 from repro_torch.kernels.das_beamform import (das_beamform,  # noqa: E402
                                               das_beamform_ref)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_ref)
 from repro_torch.kernels.fused_pipeline import (  # noqa: E402
     fused_ref, fused_rf_to_envelope, fused_rf_to_power)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -174,3 +184,127 @@ def test_cuda_sqrt_is_correctly_rounded(cuda):
     x = x.to(torch.float32)
     exact = torch.sqrt(x.double()).float()
     assert torch.equal(sqrt_rn(x.to(cuda)).cpu(), exact)
+
+
+# ---------------------------------------------------------------------------
+# LM kernels
+# ---------------------------------------------------------------------------
+
+
+def _qkv(cuda, b, l, hq, hkv, d, dtype=torch.float32):
+    g = torch.Generator().manual_seed(b * l + d)
+    return [torch.randn(b, l, h, d, generator=g).to(cuda, dtype)
+            for h in (hq, hkv, hkv)]
+
+
+@pytest.mark.parametrize("b,l,hq,hkv,d,causal", [
+    (1, 64, 2, 2, 16, True), (2, 96, 4, 2, 32, True),
+    (1, 128, 4, 1, 64, True), (2, 64, 2, 2, 16, False),
+    (2, 96, 4, 4, 48, False), (1, 200, 2, 2, 128, True),
+    (2, 130, 2, 1, 80, True), (1, 70, 1, 1, 256, True),
+    (4, 1024, 32, 32, 64, True)])
+def test_flash_kernel_matches_plain(cuda, b, l, hq, hkv, d, causal):
+    q, k, v = _qkv(cuda, b, l, hq, hkv, d)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v,
+                                                        causal=causal),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_flash_kernel_from_bf16(cuda):
+    q, k, v = _qkv(cuda, 2, 96, 4, 2, 64, torch.bfloat16)
+    out = flash_attention(q, k, v)
+    assert out.dtype == torch.bfloat16
+    ref = flash_attention_ref(q, k, v).to(torch.bfloat16)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [24, 8, 272])
+def test_flash_kernel_refuses_head_dims(cuda, d):
+    q, k, v = _qkv(cuda, 1, 32, 2, 2, d)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before
+
+
+def _ssd_args(cuda, bsz, L, H, P, N, shared, dtype=torch.float32):
+    g = torch.Generator().manual_seed(L * H + P)
+    log_a = -torch.rand(bsz, L, H, generator=g) * 0.3
+    x = torch.randn(bsz, L, H, P, generator=g)
+    shape = (bsz, L, N) if shared else (bsz, L, H, N)
+    b = torch.randn(*shape, generator=g) * 0.3
+    c = torch.randn(*shape, generator=g) * 0.3
+    return [log_a.to(cuda)] + [t.to(cuda, dtype) for t in (x, b, c)]
+
+
+@pytest.mark.parametrize("bsz,L,H,P,N,chunk,shared", [
+    (1, 64, 2, 16, 8, 16, False), (2, 100, 3, 16, 8, 32, False),
+    (1, 32, 1, 64, 16, 32, False), (2, 37, 4, 8, 16, 128, True),
+    (2, 64, 8, 16, 16, 16, True), (1, 300, 2, 64, 64, 128, True),
+    (1, 50, 3, 6, 5, 7, True)])
+def test_ssd_kernel_matches_plain(cuda, bsz, L, H, P, N, chunk, shared):
+    args = _ssd_args(cuda, bsz, L, H, P, N, shared)
+    before = ssd_scan.launches
+    out = ssd_scan(*args, chunk=chunk)
+    assert ssd_scan.launches == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ssd_scan_ref(*args), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_ssd_kernel_from_bf16(cuda):
+    args = _ssd_args(cuda, 2, 160, 4, 32, 16, True, torch.bfloat16)
+    out = ssd_scan(*args, chunk=64)
+    assert out.dtype == torch.bfloat16
+    ref = ssd_scan_ref(*args).to(torch.bfloat16)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
+                               atol=2e-4)
+
+
+def test_ssd_kernel_refuses_a_chunk_past_shared_memory(cuda):
+    args = _ssd_args(cuda, 1, 512, 1, 64, 64, True)
+    before = ssd_scan.launches
+    with pytest.raises(RuntimeError, match="ssd_scan"):
+        ssd_scan(*args, chunk=512)
+    assert ssd_scan.launches == before
+
+
+def test_zamba2_smoke_on_card_matches_cpu(cuda):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import get_model
+    from repro_torch.models.hybrid import n_attn_invocations
+
+    cfg = get_smoke("zamba2-1.2b", use_flash_kernel=True,
+                    use_ssd_kernel=True)
+    cpu = get_model(cfg, device="cpu")
+    params = cpu.init_params(0)
+    card = get_model(cfg, device=cuda)
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(cuda)
+                for k, v in tree.items()}
+
+    cparams = to_card(params)
+    g = torch.Generator().manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=g,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens}
+    kernels.reset_launch_counts()
+    h, _ = card.forward(cparams, {k: t.to(cuda) for k, t in batch.items()})
+    assert kernels.launch_counts()["ssd_scan"] == cfg.n_layers
+    ref, _ = cpu.forward(params, batch)
+    torch.testing.assert_close(h.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+    kw = dict(requests=4, batch=2, prompt_len=24, max_new=6)
+    kernels.reset_launch_counts()
+    got, stats = serve_session(cfg, params=cparams, device=cuda, **kw)
+    assert kernels.launch_counts()["flash_attention"] == \
+        2 * n_attn_invocations(cfg)
+    want, _ = serve_session(cfg, params=params, device="cpu", **kw)
+    np.testing.assert_array_equal(got, want)
+    assert stats["peak_memory_bytes"] > 0

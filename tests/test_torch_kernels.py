@@ -158,7 +158,8 @@ def test_wrappers_route_cpu_tensors_to_plain_version(real):
                            das_beamform_ref(*tabs, iq, precision=p))
     assert kernels.launch_counts() == {
         "das_beamform": 0, "fused_rf_to_envelope": 0,
-        "fused_rf_to_power": 0, "bsr_spmm": 0, "bsr_beamform": 0}
+        "fused_rf_to_power": 0, "bsr_spmm": 0, "bsr_beamform": 0,
+        "flash_attention": 0, "ssd_scan": 0}
 
 
 def test_wrappers_refuse_bad_arguments():
