@@ -651,7 +651,7 @@ def phase_lm_serve() -> dict:
     with torch.no_grad():
         device_split("prefill (flash)", lambda: model.prefill(params, prompt))
         _, cache = model.prefill(params, prompt)
-        cache = _grow_cache(model, cache, PROMPT_LEN + MAX_NEW + 1)
+        cache = _grow_cache(cache, PROMPT_LEN + MAX_NEW + 1)
         tok = prompt["tokens"][:, -1:]
         lengths = torch.full((LM_BATCH,), PROMPT_LEN, dtype=torch.int32,
                              device=dev)
@@ -769,7 +769,7 @@ def phase_lm_outputs() -> None:
                                      {"tokens": batch["tokens"][:, :prompt]})
         close_enough("f32 prefill logits vs forward", logits[:, 0],
                      full["kernel"][:, prompt - 1], LOGITS_TOL, LOGITS_TOL)
-        cache = _grow_cache(kern, cache, prompt + extra + 1)
+        cache = _grow_cache(cache, prompt + extra + 1)
         lengths = torch.full((2,), prompt, dtype=torch.int32,
                              device=plain.device)
         for t in range(extra):

@@ -26,13 +26,11 @@ class ModelConfig:
     d_model: int = 128
     n_heads: int = 4
     n_kv_heads: int = 4
-    d_head: int = 0           # 0 => d_model // n_heads
     d_ff: int = 512
     vocab_size: int = 1024
     tie_embeddings: bool = False
 
     # attention -----------------------------------------------------------
-    qk_norm: bool = False
     rope_theta: float = 10_000.0
     mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (not ported)
     attn_logit_softcap: float = 0.0
@@ -58,7 +56,7 @@ class ModelConfig:
     # ---------------------------------------------------------------------
     @property
     def head_dim(self) -> int:
-        return self.d_head or (self.d_model // self.n_heads)
+        return self.d_model // self.n_heads
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -17,14 +17,14 @@
 // Every product is a 4 x 4 register tile of fmaf over the contracted
 // axis in ascending order. Only the lower triangle of M is computed, and
 // y's intra-chunk product stops at the diagonal (the rest of M is zero).
-// B and C are read group-shared when the caller passes one group (G = 1):
-// the reference broadcasts them to every head first (134 MB per matrix
-// at the served shape), the kernel reads row (batch, t) for every head.
+// B and C are group-shared: the reference broadcasts them to every head
+// first (134 MB per matrix at the served shape), the kernel reads row
+// (batch, t) for every head.
 // Steps past L, and the padding of Q, N and P up to multiples of 4, are
 // zero in shared memory: exactly what the reference's padding adds.
 //
 // Layout (f32, contiguous): log_a (B, L, H); x (B, L, H, P); b, c
-// (B, L, G, N) with G = 1 or H; y (B, L, H, P). Grid B*H, 256 threads.
+// (B, L, N); y (B, L, H, P). Grid B*H, 256 threads.
 // Shared memory: cumsum and the two decay vectors (3 Q), C and B
 // transposed (N x (Q+4) each), x (Q x P), M transposed (Q x (Q+4)) and
 // the state (N x P): 186 KB at Q = 128, N = P = 64, so one block per SM.
@@ -72,7 +72,7 @@ __device__ __forceinline__ void unpack(float4 a, float* v) {
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const float* __restrict__ log_a, const float* __restrict__ x,
                 const float* __restrict__ bm, const float* __restrict__ cm,
-                float* __restrict__ y, int L, int H, int P, int N, int G,
+                float* __restrict__ y, int L, int H, int P, int N,
                 int Q, Dims dm) {
   extern __shared__ __align__(16) float smem[];
   const int qp = dm.qp, np = dm.np, pp = dm.pp, ldq = dm.ldq;
@@ -88,7 +88,6 @@ ssd_scan_kernel(const float* __restrict__ log_a, const float* __restrict__ x,
   const int tid = threadIdx.x;
   const int bi = blockIdx.x / H;
   const int h = blockIdx.x - bi * H;
-  const int g = G == 1 ? 0 : h;
   const int nq4 = qp / 4, nn4 = np / 4, np4 = pp / 4;
 
   for (int e = tid; e < np * pp; e += kThreads) hs[e] = 0.0f;
@@ -110,7 +109,7 @@ ssd_scan_kernel(const float* __restrict__ log_a, const float* __restrict__ x,
     for (int e = tid; e < qp * np; e += kThreads) {
       const int r = e / np, n = e - r * np, t = t0 + r;
       const bool in = r < Q && t < L && n < N;
-      const size_t off = (((size_t)bi * L + t) * G + g) * N + n;
+      const size_t off = ((size_t)bi * L + t) * N + n;
       bt[n * ldq + r] = in ? bm[off] : 0.0f;
       ct[n * ldq + r] = in ? cm[off] : 0.0f;
     }
@@ -242,11 +241,11 @@ ssd_scan_kernel(const float* __restrict__ log_a, const float* __restrict__ x,
 
 extern "C" int ssd_scan_launch(const void* log_a, const void* x,
                                const void* b, const void* c, void* y,
-                               int batch, int L, int H, int P, int N, int G,
+                               int batch, int L, int H, int P, int N,
                                int Q, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (Q <= 0 || P <= 0 || N <= 0 || (G != 1 && G != H))
+  if (Q <= 0 || P <= 0 || N <= 0)
     return (int)cudaErrorInvalidValue;
   const Dims dm = dims_of(Q, N, P);
   const size_t smem = shared_bytes(dm);
@@ -258,6 +257,6 @@ extern "C" int ssd_scan_launch(const void* log_a, const void* x,
   if (err != cudaSuccess) return (int)err;
   ssd_scan_kernel<<<batch * H, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)log_a, (const float*)x, (const float*)b, (const float*)c,
-      (float*)y, L, H, P, N, G, Q, dm);
+      (float*)y, L, H, P, N, Q, dm);
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,6 @@ import ctypes
 import torch
 
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.bsr_spmm.ops import next_multiple
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 REFERENCE_BK = 128      # the reference wrapper's default key tile
@@ -47,7 +46,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
             or k.shape[-1] != d:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    bk_eff = min(REFERENCE_BK, next_multiple(lk, 8))
+    bk_eff = min(REFERENCE_BK, -(-lk // 8) * 8)
     if not causal and lk % bk_eff:
         raise ValueError("non-causal flash requires Lk % bk == 0 "
                          f"(got Lk={lk}, bk={bk_eff})")

@@ -1,9 +1,9 @@
 """Public wrapper for the SSD scan CUDA kernel (csrc/ssd_scan.cu): batch,
 heads, a ragged last chunk, dtypes.
 
-B and C may be group-shared, (batch, L, N), which the kernel reads for
-every head in place, or per head, (batch, L, H, N), as the reference's
-wrapper takes them. The kernel treats the steps past L as the
+B and C are group-shared, (batch, L, N), as ``ssm_apply`` has them; the
+kernel reads them for every head in place, where the reference's wrapper
+takes them broadcast per head. The kernel treats the steps past L as the
 reference's zero padding, so nothing is padded or broadcast here.
 """
 
@@ -19,7 +19,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 DEFAULT_CHUNK = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I] * 8 + [_P]
+_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
 
 
 def ssd_scan(log_a, x, b, c, *, chunk: int = DEFAULT_CHUNK):
@@ -28,7 +28,7 @@ def ssd_scan(log_a, x, b, c, *, chunk: int = DEFAULT_CHUNK):
     Args:
       log_a: (batch, L, H) log decays (<= 0).
       x:     (batch, L, H, P).
-      b, c:  (batch, L, N) group-shared, or (batch, L, H, N) per head.
+      b, c:  (batch, L, N), shared by every head.
     Returns:
       y (batch, L, H, P), dtype of ``x``. A CPU ``x`` runs the plain step
       recurrence (``ssd_scan_ref``); a CUDA ``x`` launches the kernel or
@@ -36,8 +36,7 @@ def ssd_scan(log_a, x, b, c, *, chunk: int = DEFAULT_CHUNK):
     """
     bsz, length, heads, p = x.shape
     n = b.shape[-1]
-    per_head = b.dim() == 4
-    want = (bsz, length) + ((heads,) if per_head else ()) + (n,)
+    want = (bsz, length, n)
     if tuple(b.shape) != want or tuple(c.shape) != want \
             or tuple(log_a.shape) != (bsz, length, heads) or chunk < 1:
         raise ValueError(f"ssd_scan: log_a {tuple(log_a.shape)}, x "
@@ -58,8 +57,8 @@ def ssd_scan(log_a, x, b, c, *, chunk: int = DEFAULT_CHUNK):
                     device=dev)
     fn = cuda_lib.kernel_fn("ssd_scan", "ssd_scan_launch", _ARGTYPES)
     rc = fn(la.data_ptr(), xf.data_ptr(), bf.data_ptr(), cf.data_ptr(),
-            y.data_ptr(), bsz, length, heads, p, n,
-            heads if per_head else 1, min(chunk, length), dev.index,
+            y.data_ptr(), bsz, length, heads, p, n, min(chunk, length),
+            dev.index,
             cuda_lib.stream_of(dev))
     cuda_lib.check_launch(rc, "ssd_scan")
     ssd_scan.launches += 1

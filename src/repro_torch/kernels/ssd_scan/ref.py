@@ -12,18 +12,15 @@ import torch
 
 
 def ssd_scan_ref(log_a, x, b, c):
-    """log_a (B, L, H); x (B, L, H, P); b, c (B, L, N) group-shared or
-    (B, L, H, N) per head. Returns y (B, L, H, P) f32."""
+    """log_a (B, L, H); x (B, L, H, P); b, c (B, L, N), shared by every
+    head. Returns y (B, L, H, P) f32."""
     bsz, L, H, P = x.shape
     la, x = log_a.float(), x.float()
     b, c = b.float(), c.float()
-    if b.dim() == 3:                    # one group: the same row per head
-        b, c = b[:, :, None, :], c[:, :, None, :]
-    b, c = b.expand(bsz, L, H, -1), c.expand(bsz, L, H, -1)
     h = x.new_zeros((bsz, H, b.shape[-1], P))
     y = x.new_empty((bsz, L, H, P))
     for t in range(L):
         h = (torch.exp(la[:, t])[..., None, None] * h
-             + b[:, t, :, :, None] * x[:, t, :, None, :])
-        y[:, t] = torch.einsum("bhn,bhnp->bhp", c[:, t], h)
+             + b[:, t, None, :, None] * x[:, t, :, None, :])
+        y[:, t] = torch.einsum("bn,bhnp->bhp", c[:, t], h)
     return y

@@ -71,7 +71,7 @@ def serve_session(cfg, *, requests: int, batch: int, prompt_len: int,
         tok_next, cache = prefill_step(params, prompt)
         tok = tok_next[:, None]
         # decoder-only: extend the prefilled cache to serving length
-        cache = _grow_cache(model, cache, max_len)
+        cache = _grow_cache(cache, max_len)
         lengths = torch.full((bsz,), prompt_len, dtype=torch.int32,
                              device=dev)
         gen = [tok.cpu().numpy()]           # waits for the device
@@ -95,25 +95,17 @@ def serve_session(cfg, *, requests: int, batch: int, prompt_len: int,
     return np.concatenate(outs, axis=0)[:requests], stats
 
 
-def _grow_cache(model, cache, max_len: int):
-    """Pad every leaf's sequence axis with zeros to ``max_len``.
-
-    The sequence axis is found structurally through ``cache_specs``
-    (``seq_sharded=True`` labels it "seq"); leaves without one (the SSM
-    and conv states) pass through untouched.
-    """
-    def grow(spec, a):
-        if isinstance(spec, dict):
-            return {k: grow(spec[k], a[k]) for k in spec}
-        if "seq" not in spec:
-            return a
-        i = spec.index("seq")
-        if a.shape[i] >= max_len:
-            return a
-        pad = [0, 0] * (a.dim() - i - 1) + [0, max_len - a.shape[i]]
-        return torch.nn.functional.pad(a, pad)
-
-    return grow(model.cache_specs(seq_sharded=True), cache)
+def _grow_cache(cache, max_len: int):
+    """Pad the KV caches ``attn_k`` and ``attn_v``, (n_inv, B, S, Hkv,
+    dh), with zeros along the sequence axis (dim 2) to ``max_len``. The
+    SSM and conv states have no sequence axis and pass through."""
+    out = dict(cache)
+    for key in ("attn_k", "attn_v"):
+        a = cache[key]
+        if a.shape[2] < max_len:
+            out[key] = torch.nn.functional.pad(
+                a, (0, 0, 0, 0, 0, max_len - a.shape[2]))
+    return out
 
 
 class SyntheticAcquisitionSource:

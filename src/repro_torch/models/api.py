@@ -8,7 +8,6 @@ the config and the device:
   prefill(params, batch)            -> (logits, cache)
   init_cache(batch, max_len)        -> cache
   decode_step(params, tokens, cache, lengths) -> (logits, cache)
-  cache_specs(seq_sharded=...)      -> logical axes of the cache leaves
 
 The device is CUDA unless the caller passes ``device="cpu"``; without a
 card the default raises. Only the hybrid family (zamba2) is ported; the
@@ -49,7 +48,6 @@ class Model:
     prefill: Callable
     init_cache: Callable
     decode_step: Callable
-    cache_specs: Callable
 
 
 def family_module(cfg: ModelConfig):
@@ -84,5 +82,4 @@ def get_model(cfg: ModelConfig, device=None) -> Model:
         prefill=with_cfg(mod.prefill),
         init_cache=functools.partial(mod.init_cache, cfg, device=dev),
         decode_step=with_cfg(mod.decode_step),
-        cache_specs=functools.partial(mod.cache_specs, cfg),
     )

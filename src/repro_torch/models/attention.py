@@ -31,16 +31,12 @@ NEG_INF = -1e30
 
 def attn_params(cfg: ModelConfig, dtype, gen, device) -> Dict:
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    p = {
+    return {
         "wq": dense_init((d, h * dh), dtype, gen, device),
         "wk": dense_init((d, hkv * dh), dtype, gen, device),
         "wv": dense_init((d, hkv * dh), dtype, gen, device),
         "wo": dense_init((h * dh, d), dtype, gen, device),
     }
-    if cfg.qk_norm:
-        p["q_norm"] = common.rmsnorm_params(dh, dtype, device)
-        p["k_norm"] = common.rmsnorm_params(dh, dtype, device)
-    return p
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +170,6 @@ def gqa_project_qkv(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     q = (x @ params["wq"]).reshape(b, s, h, dh)
     k = (x @ params["wk"]).reshape(b, s, hkv, dh)
     v = (x @ params["wv"]).reshape(b, s, hkv, dh)
-    if cfg.qk_norm:
-        q = common.rmsnorm(params["q_norm"], q)
-        k = common.rmsnorm(params["k_norm"], k)
     q = common.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = common.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v

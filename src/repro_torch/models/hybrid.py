@@ -114,18 +114,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
     }
 
 
-def cache_specs(cfg: ModelConfig, *, seq_sharded: bool = False):
-    """Logical axes of each cache leaf, as the reference names them;
-    `_grow_cache` finds the sequence axis ("seq") here."""
-    seq_ax = "seq" if seq_sharded else None
-    return {
-        "mamba": {"conv": (None, "batch", None, "model"),
-                  "ssm": (None, "batch", "model", None, None)},
-        "attn_k": (None, "batch", seq_ax, "kv_heads", None),
-        "attn_v": (None, "batch", seq_ax, "kv_heads", None),
-    }
-
-
 def prefill(params: Dict, cfg: ModelConfig, batch: Dict):
     h = common.embed_tokens(params["embed"], batch["tokens"])
     positions = _positions(batch["tokens"])

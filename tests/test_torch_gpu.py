@@ -232,23 +232,21 @@ def test_flash_kernel_refuses_head_dims(cuda, d):
     assert flash_attention.launches == before
 
 
-def _ssd_args(cuda, bsz, L, H, P, N, shared, dtype=torch.float32):
+def _ssd_args(cuda, bsz, L, H, P, N, dtype=torch.float32):
     g = torch.Generator().manual_seed(L * H + P)
     log_a = -torch.rand(bsz, L, H, generator=g) * 0.3
     x = torch.randn(bsz, L, H, P, generator=g)
-    shape = (bsz, L, N) if shared else (bsz, L, H, N)
-    b = torch.randn(*shape, generator=g) * 0.3
-    c = torch.randn(*shape, generator=g) * 0.3
+    b = torch.randn(bsz, L, N, generator=g) * 0.3
+    c = torch.randn(bsz, L, N, generator=g) * 0.3
     return [log_a.to(cuda)] + [t.to(cuda, dtype) for t in (x, b, c)]
 
 
-@pytest.mark.parametrize("bsz,L,H,P,N,chunk,shared", [
-    (1, 64, 2, 16, 8, 16, False), (2, 100, 3, 16, 8, 32, False),
-    (1, 32, 1, 64, 16, 32, False), (2, 37, 4, 8, 16, 128, True),
-    (2, 64, 8, 16, 16, 16, True), (1, 300, 2, 64, 64, 128, True),
-    (1, 50, 3, 6, 5, 7, True)])
-def test_ssd_kernel_matches_plain(cuda, bsz, L, H, P, N, chunk, shared):
-    args = _ssd_args(cuda, bsz, L, H, P, N, shared)
+@pytest.mark.parametrize("bsz,L,H,P,N,chunk", [
+    (1, 64, 2, 16, 8, 16), (2, 100, 3, 16, 8, 32), (1, 32, 1, 64, 16, 32),
+    (2, 37, 4, 8, 16, 128), (2, 64, 8, 16, 16, 16), (1, 300, 2, 64, 64, 128),
+    (1, 50, 3, 6, 5, 7)])
+def test_ssd_kernel_matches_plain(cuda, bsz, L, H, P, N, chunk):
+    args = _ssd_args(cuda, bsz, L, H, P, N)
     before = ssd_scan.launches
     out = ssd_scan(*args, chunk=chunk)
     assert ssd_scan.launches == before + 1
@@ -258,7 +256,7 @@ def test_ssd_kernel_matches_plain(cuda, bsz, L, H, P, N, chunk, shared):
 
 
 def test_ssd_kernel_from_bf16(cuda):
-    args = _ssd_args(cuda, 2, 160, 4, 32, 16, True, torch.bfloat16)
+    args = _ssd_args(cuda, 2, 160, 4, 32, 16, torch.bfloat16)
     out = ssd_scan(*args, chunk=64)
     assert out.dtype == torch.bfloat16
     ref = ssd_scan_ref(*args).to(torch.bfloat16)
@@ -267,7 +265,7 @@ def test_ssd_kernel_from_bf16(cuda):
 
 
 def test_ssd_kernel_refuses_a_chunk_past_shared_memory(cuda):
-    args = _ssd_args(cuda, 1, 512, 1, 64, 64, True)
+    args = _ssd_args(cuda, 1, 512, 1, 64, 64)
     before = ssd_scan.launches
     with pytest.raises(RuntimeError, match="ssd_scan"):
         ssd_scan(*args, chunk=512)

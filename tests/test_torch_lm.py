@@ -126,7 +126,7 @@ def test_decode_steps_match_reference(ref, port, kv_variant):
     cfg = port["cfg"].with_(kv_variant=Variant(kv_variant))
     model = get_model(cfg, device="cpu")
     _, cache = model.prefill(port["params"], _batch(ref, S))
-    cache = serve._grow_cache(model, cache, S + EXTRA + 1)
+    cache = serve._grow_cache(cache, S + EXTRA + 1)
     jcache = j_serve._grow_cache(jmodel, ref["cache"], S + EXTRA + 1)
     decode = jax.jit(jmodel.decode_step)
     lengths = np.full((B,), S, np.int32)
@@ -173,7 +173,7 @@ def test_prefill_then_decode_matches_forward(kv_variant, flags):
     full = logits_from_hidden(params["embed"], cfg, h)
     logits, cache = model.prefill(params, {"tokens": tokens[:, :16]})
     _close(logits[:, 0], full[:, 15], rtol=2e-3)
-    cache = serve._grow_cache(model, cache, 16 + EXTRA + 1)
+    cache = serve._grow_cache(cache, 16 + EXTRA + 1)
     lengths = torch.full((B,), 16, dtype=torch.int32)
     for t in range(EXTRA):
         logits, cache = model.decode_step(

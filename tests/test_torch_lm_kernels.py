@@ -94,13 +94,13 @@ def test_flash_keeps_input_dtype():
 # ---------------------------------------------------------------------------
 
 
-def _ssd_inputs(rng, bsz, L, H, P, N, shared=False):
+def _ssd_inputs(rng, bsz, L, H, P, N):
+    """B and C group-shared, (bsz, L, N), as ssm_apply passes them."""
     log_a = -np.abs(rng.standard_normal((bsz, L, H))).astype(
         np.float32) * 0.2
     x = rng.standard_normal((bsz, L, H, P)).astype(np.float32)
-    shape = (bsz, L, N) if shared else (bsz, L, H, N)
-    b = (rng.standard_normal(shape) * 0.3).astype(np.float32)
-    c = (rng.standard_normal(shape) * 0.3).astype(np.float32)
+    b = (rng.standard_normal((bsz, L, N)) * 0.3).astype(np.float32)
+    c = (rng.standard_normal((bsz, L, N)) * 0.3).astype(np.float32)
     return log_a, x, b, c
 
 
@@ -110,9 +110,13 @@ def _ssd_inputs(rng, bsz, L, H, P, N, shared=False):
     (1, 32, 1, 64, 16, 32),
 ])
 def test_ssd_plain_matches_reference_kernel(bsz, L, H, P, N, chunk):
+    """The reference's wrapper takes B and C per head: they are broadcast
+    on its side alone, as its ssm_apply does."""
     rng = np.random.default_rng(L + P)
     args = _ssd_inputs(rng, bsz, L, H, P, N)
-    ref = j_ssd(*map(jnp.asarray, args), chunk=chunk)
+    log_a, x, b, c = map(jnp.asarray, args)
+    ref = j_ssd(log_a, x, *(jnp.broadcast_to(m[:, :, None], (bsz, L, H, N))
+                            for m in (b, c)), chunk=chunk)
     kernels.reset_launch_counts()
     out = ssd_scan(*map(T, args), chunk=chunk)
     assert kernels.launch_counts()["ssd_scan"] == 0   # CPU: plain
@@ -122,15 +126,12 @@ def test_ssd_plain_matches_reference_kernel(bsz, L, H, P, N, chunk):
 @pytest.mark.parametrize("bsz,L,H,P,N,chunk", [
     (1, 64, 2, 16, 8, 16), (2, 100, 3, 16, 8, 32), (2, 37, 4, 8, 16, 128)])
 def test_ssd_plain_matches_port_chunked(bsz, L, H, P, N, chunk):
-    """Group-shared B and C, as ssm_apply passes them: the step recurrence
-    against the port's chunked form, and against per-head copies."""
+    """The step recurrence against the port's chunked form."""
     rng = np.random.default_rng(L * H)
-    args = list(map(T, _ssd_inputs(rng, bsz, L, H, P, N, shared=True)))
+    args = list(map(T, _ssd_inputs(rng, bsz, L, H, P, N)))
     out = ssd_scan(*args, chunk=chunk)
     chunked, _ = ssm._ssd_chunked(*args, chunk)
     _close(out, chunked, rtol=2e-4, atol=2e-4)
-    per_head = [t[:, :, None].expand(bsz, L, H, N) for t in args[2:]]
-    _close(ssd_scan(*args[:2], *per_head, chunk=chunk), out)
 
 
 def test_ssd_refuses_mismatched_shapes():
@@ -138,6 +139,9 @@ def test_ssd_refuses_mismatched_shapes():
     with pytest.raises(ValueError, match="ssd_scan"):
         ssd_scan(torch.zeros((1, 8, 2)), x, torch.zeros((1, 8, 3)),
                  torch.zeros((1, 8, 2)))
+    per_head = torch.zeros((1, 8, 2, 3))      # B and C are group-shared
+    with pytest.raises(ValueError, match="ssd_scan"):
+        ssd_scan(torch.zeros((1, 8, 2)), x, per_head, per_head)
 
 
 # ---------------------------------------------------------------------------
