@@ -26,7 +26,9 @@ last line):
                geometry, on the card) and against the CPU (small input);
   6. lm kernels — the ultrasound tensors freed, `flash_attention` at
                zamba2's prefill shape and `ssd_scan` at its scoring shape,
-               f32, each against its plain version, timed as in 3;
+               f32, each against its plain version, timed as in 3, with
+               bounds for their 3xTF32 tensor-core route beside the f32
+               SIMT bound;
   7. lm serve — zamba2-1.2b at full width and depth in bf16, random
                weights from a seed: `serve_session` with the flash kernel
                (8 requests, slot batch 4, prompt 1024, 32 new tokens),
@@ -39,7 +41,9 @@ last line):
   8. lm outputs — full width in f32: the kernel path's logits against the
                plain path's, and prefill and decode logits against
                forward's;
-  9. a JSON line {"kernels": [...]} and, last, the device line.
+  9. lm launches — how many CUDA launches one call of each LM kernel
+               makes (torch.profiler, after every timed phase);
+ 10. a JSON line {"kernels": [...]} and, last, the device line.
 
 Needs only this checkout (it puts src/ on sys.path) and imports no JAX.
 """
@@ -84,9 +88,12 @@ from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.common import logits_from_hidden  # noqa: E402
 from repro_torch.models.hybrid import n_attn_invocations  # noqa: E402
 
-# NVIDIA H100 SXM data sheet: HBM rate, f32 rate outside the tensor cores.
+# NVIDIA H100 SXM data sheet: HBM rate, f32 rate outside the tensor cores,
+# dense TF32 rate of the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
+SPLIT_TF32 = 3          # 3xTF32: three TF32 products per f32 product
 
 BATCH = 4
 N_BATCHES = 16
@@ -141,10 +148,38 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return float(np.mean([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def bound(nbytes: float, flops: float,
+          flop_per_s: float = PEAK_F32_FLOP_PER_S) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the operations over ``flop_per_s``."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def split_tf32_bound(nbytes: float, flops: float) -> tuple:
+    """The bound of an f32 product run as 3xTF32 on the tensor cores, and
+    beside it the same work's bound on the f32 FMA units (SIMT)."""
+    return (bound(nbytes, SPLIT_TF32 * flops, PEAK_TF32_FLOP_PER_S),
+            bound(nbytes, flops))
+
+
+def profiled(fn) -> tuple:
+    """One call of ``fn`` under torch.profiler, after one warm call: the
+    CUDA kernels' events (an empty list where the profiler sees no device
+    activity) and the call's wall time in ms (host clock; the profiler
+    adds host overhead)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return ([e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA], wall)
 
 
 def check_precisions(name, kernel, plain) -> float:
@@ -180,9 +215,12 @@ def measure(rows: dict, flush: torch.Tensor) -> dict:
                              if library is not None else None)
         lib = (f"{row['library_ms']:.4f} ms ({row['library_name']})"
                if library is not None else row["library_name"])
+        simt = row.get("simt_bound")
+        simt = (f", SIMT bound {simt[0]:.4f} ms ({simt[1]})"
+                if simt is not None else "")
         say(f"[kernels] {name}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
-            f"({row['bound'][1]}), library: {lib}")
+            f"({row['bound'][1]}){simt}, library: {lib}")
         out[name] = row
     return out
 
@@ -541,17 +579,36 @@ def close_enough(name, out, ref, rtol, atol) -> float:
     return err
 
 
+def lm_kernel_inputs() -> tuple:
+    """f32 inputs from seed 0: q, k, v at zamba2's served prefill shape
+    and (log_a, x, b, c) at its scoring shape, and the SSD chunk."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    qkv = tuple(torch.randn(LM_BATCH, PROMPT_LEN, 32, 64, generator=g,
+                            device=dev) for _ in range(3))
+    bsz, length = SCORE_SHAPE
+    cfg = get_config(ARCH)
+    heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    p, n = cfg.ssm_head_dim, cfg.ssm_state
+    log_a = -torch.rand(bsz, length, heads, generator=g, device=dev) * 0.3
+    x = torch.randn(bsz, length, heads, p, generator=g, device=dev)
+    bm, cm = (torch.randn(bsz, length, n, generator=g, device=dev) * 0.3
+              for _ in range(2))
+    return qkv, (log_a, x, bm, cm), cfg.ssm_chunk
+
+
 def phase_lm_kernels() -> dict:
     """flash_attention at zamba2's served prefill shape and ssd_scan at
-    its scoring shape, f32, against their plain versions; then timed."""
+    its scoring shape, f32, against their plain versions; then timed.
+    Both run their products as 3xTF32 on the tensor cores: the bound is
+    that route's (three TF32 products per f32 one at 495 TFLOP/s), with
+    the f32 FMA units' (SIMT) bound printed beside it."""
     dev = torch.device("cuda")
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
-    g = torch.Generator(device=dev).manual_seed(0)
     rows = {}
 
-    b, l, h, d = LM_BATCH, PROMPT_LEN, 32, 64
-    q, k, v = (torch.randn(b, l, h, d, generator=g, device=dev)
-               for _ in range(3))
+    (q, k, v), args, chunk = lm_kernel_inputs()
+    b, l, h, d = q.shape
     err = close_enough("flash_attention vs plain",
                        flash_attention(q, k, v), flash_attention_ref(q, k, v),
                        *FLASH_TOL)
@@ -560,6 +617,8 @@ def phase_lm_kernels() -> dict:
         qt, kt, vt, is_causal=True))
     ok = library_check("flash_attention", lambda: library().transpose(1, 2),
                        flash_attention_ref(q, k, v))
+    route, simt = split_tf32_bound(4.0 * 4 * b * l * h * d,
+                                   4.0 * b * h * d * l * (l + 1) / 2)
     rows["flash_attention"] = dict(
         err=err,
         fn=lambda: flash_attention(q, k, v),
@@ -568,33 +627,30 @@ def phase_lm_kernels() -> dict:
         library_name=("F.scaled_dot_product_attention(is_causal=True), "
                       "f32, (B, H, L, d)" if ok else
                       "none: SDPA disagreed with the plain version"),
-        bound=bound(4.0 * 4 * b * l * h * d,
-                    4.0 * b * h * d * l * (l + 1) / 2),
+        bound=route, simt_bound=simt,
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:77")
 
-    bsz, length = SCORE_SHAPE
-    cfg = get_config(ARCH)
-    heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
-    p, n, chunk = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
-    log_a = -torch.rand(bsz, length, heads, generator=g, device=dev) * 0.3
-    x = torch.randn(bsz, length, heads, p, generator=g, device=dev)
-    bm, cm = (torch.randn(bsz, length, n, generator=g, device=dev) * 0.3
-              for _ in range(2))
-    args = (log_a, x, bm, cm)
+    log_a, x, bm, cm = args
+    bsz, length, heads, p = x.shape
+    n = bm.shape[-1]
     err = close_enough("ssd_scan vs plain", ssd_scan(*args, chunk=chunk),
                        ssd_scan_ref(*args), *SSD_TOL)
     nc = -(-length // chunk)
+    # C B^T once per (batch, chunk) (B and C are group-shared), the lower
+    # triangles of C B^T and of M x, and the two state products per head
+    route, simt = split_tf32_bound(
+        4.0 * (log_a.numel() + 2 * x.numel() + bm.numel() + cm.numel()),
+        1.0 * bsz * nc * (chunk * (chunk + 1) * n
+                          + heads * (chunk * (chunk + 1) * p
+                                     + 4 * chunk * n * p)))
     rows["ssd_scan"] = dict(
         err=err,
         fn=lambda: ssd_scan(*args, chunk=chunk),
         plain=lambda: ssd_scan_ref(*args),
         library=None,
         library_name="none: no single PyTorch call computes the SSD scan",
-        bound=bound(4.0 * (log_a.numel() + 2 * x.numel() + bm.numel()
-                           + cm.numel()),
-                    1.0 * bsz * heads * nc * (chunk * (chunk + 1) * (n + p)
-                                              + 4 * chunk * n * p)),
+        bound=route, simt_bound=simt,
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:71")
     say(f"[lm] shapes: flash (B {b}, L {l}, H {h}, d {d}) causal; ssd "
@@ -701,29 +757,36 @@ def phase_lm_serve() -> dict:
     return launches
 
 
+def phase_lm_launches() -> None:
+    """How many CUDA launches one call of each LM kernel makes, read by
+    torch.profiler after every timed phase, so that no profiler session
+    precedes the host-clock times of serving."""
+    (q, k, v), args, chunk = lm_kernel_inputs()
+    for name, fn in (("flash_attention", lambda: flash_attention(q, k, v)),
+                     ("ssd_scan", lambda: ssd_scan(*args, chunk=chunk))):
+        kern, _ = profiled(fn)
+        say(f"[lm] {name}: one call makes {sum(e.count for e in kern)} CUDA "
+            "launches (torch.profiler), its launch counter counts the call: "
+            + "; ".join(f"{e.key[:70]} x{e.count} "
+                        f"{e.self_device_time_total / 1e3:.4f} ms"
+                        for e in kern))
+    del q, k, v, args
+    torch.cuda.empty_cache()
+
+
 def device_split(name, fn, n_top=6) -> None:
-    """Profile one call of ``fn`` (after one warm call): its wall time to
-    the last kernel's end (host clock; the profiler adds host overhead),
-    the summed time of its kernels, their busy share of the wall, the
-    shares of our kernels, cuBLAS products and everything else, and the
-    kernels that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    """Profile one call of ``fn`` (``profiled``): its wall time to the
+    last kernel's end, the summed time of its kernels, their busy share of
+    the wall, the shares of our kernels, cuBLAS products and everything
+    else, and the kernels that take the most device time."""
+    kern, wall = profiled(fn)
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     if busy == 0:
         say(f"[lm split] {name}: the profiler saw no device time; device "
             f"busy share not measured (wall {wall:.3f} ms)")
         return
-    ours = ("flash_attention_kernel", "ssd_scan_kernel")
+    ours = ("flash_attention_kernel", "ssd_chunk_kernel", "ssd_chain_kernel",
+            "ssd_offdiag_kernel")
     cats = {"ours": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kern:
         key = ("ours" if any(o in e.key for o in ours) else "matmul"
@@ -807,6 +870,7 @@ def main() -> None:
     rows.update(phase_lm_kernels())
     launches.update(phase_lm_serve())
     phase_lm_outputs()
+    phase_lm_launches()
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": rows[n]["source"],

@@ -33,7 +33,7 @@ SOURCES = {"das_beamform": "das_beamform.cu",
            "bsr_spmm": "bsr_spmm.cu",
            "flash_attention": "flash_attention.cu",
            "ssd_scan": "ssd_scan.cu"}
-HEADERS = ("das_common.cuh",)
+HEADERS = ("das_common.cuh", "tf32_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -101,14 +101,15 @@ def build_log(name: str) -> str:
     return _log_path(library_path(name)).read_text()
 
 
-def kernel_fn(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+def kernel_fn(name: str, symbol: str, argtypes: Sequence,
+              restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C entry ``symbol`` of library ``name`` (built and loaded once)."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(build((name,))[name]))
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 

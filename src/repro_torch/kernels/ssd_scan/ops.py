@@ -5,6 +5,13 @@ B and C are group-shared, (batch, L, N), as ``ssm_apply`` has them; the
 kernel reads them for every head in place, where the reference's wrapper
 takes them broadcast per head. The kernel treats the steps past L as the
 reference's zero padding, so nothing is padded or broadcast here.
+
+One call makes three CUDA launches (one when L fits in one chunk): the
+chunk-parallel products, the pass that carries the state across chunks,
+and the chunk-parallel product with the carried state. What passes
+between them (the chunk states and their decays) lies in one f32 scratch
+buffer, whose size the kernel's library gives and whose layout only it
+knows; the wrapper allocates it and counts the call once.
 """
 
 from __future__ import annotations
@@ -18,8 +25,8 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 DEFAULT_CHUNK = 128
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = [_P] * 6 + [_LL] + [_I] * 7 + [_P]
 
 
 def ssd_scan(log_a, x, b, c, *, chunk: int = DEFAULT_CHUNK):
@@ -53,13 +60,18 @@ def ssd_scan(log_a, x, b, c, *, chunk: int = DEFAULT_CHUNK):
     for t, name in ((la, "log_a"), (bf, "b"), (cf, "c")):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    q = min(chunk, length)
     y = torch.empty((bsz, length, heads, p), dtype=torch.float32,
                     device=dev)
+    sizes = (bsz, length, heads, p, n, q)
+    scratch_floats = cuda_lib.kernel_fn("ssd_scan", "ssd_scan_scratch_floats",
+                                        [_I] * 6, restype=_LL)
+    scratch = torch.empty(scratch_floats(*sizes), dtype=torch.float32,
+                          device=dev)
     fn = cuda_lib.kernel_fn("ssd_scan", "ssd_scan_launch", _ARGTYPES)
     rc = fn(la.data_ptr(), xf.data_ptr(), bf.data_ptr(), cf.data_ptr(),
-            y.data_ptr(), bsz, length, heads, p, n, min(chunk, length),
-            dev.index,
-            cuda_lib.stream_of(dev))
+            y.data_ptr(), scratch.data_ptr(), scratch.numel(), *sizes,
+            dev.index, cuda_lib.stream_of(dev))
     cuda_lib.check_launch(rc, "ssd_scan")
     ssd_scan.launches += 1
     return y.to(x.dtype)

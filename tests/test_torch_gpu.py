@@ -42,6 +42,7 @@ from repro_torch.kernels.das_beamform import (das_beamform,  # noqa: E402
                                               das_beamform_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.fused_pipeline import (  # noqa: E402
     fused_ref, fused_rf_to_envelope, fused_rf_to_power)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
@@ -202,7 +203,12 @@ def _qkv(cuda, b, l, hq, hkv, d, dtype=torch.float32):
     (1, 128, 4, 1, 64, True), (2, 64, 2, 2, 16, False),
     (2, 96, 4, 4, 48, False), (1, 200, 2, 2, 128, True),
     (2, 130, 2, 1, 80, True), (1, 70, 1, 1, 256, True),
-    (4, 1024, 32, 32, 64, True)])
+    (4, 1024, 32, 32, 64, True),
+    (1, 2048, 4, 2, 64, True),        # many key tiles
+    (2, 1000, 4, 4, 64, True),        # Lq not a multiple of 128
+    (1, 384, 8, 2, 128, True),        # d 128, GQA rep 4
+    (1, 256, 8, 2, 256, True),        # d 256, GQA rep 4
+    (2, 256, 4, 1, 256, False)])
 def test_flash_kernel_matches_plain(cuda, b, l, hq, hkv, d, causal):
     q, k, v = _qkv(cuda, b, l, hq, hkv, d)
     before = flash_attention.launches
@@ -232,6 +238,56 @@ def test_flash_kernel_refuses_head_dims(cuda, d):
     assert flash_attention.launches == before
 
 
+def _tf32(t):
+    """``t`` rounded to TF32 (10 mantissa bits, to nearest): what one
+    TF32 tensor-core pass would read."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_flash_kernel_non_causal_lq_past_lk(cuda):
+    """Lq != Lk (no mask), with a ragged last query tile."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(1, 300, 4, 64, generator=g).to(cuda)
+    k, v = (torch.randn(1, 256, 2, 64, generator=g).to(cuda)
+            for _ in range(2))
+    out = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v,
+                                                        causal=False),
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,l,h", [(2, 512, 8), (1, 8192, 2)])
+def test_flash_kernel_keeps_f32_error_on_peaked_softmax(cuda, b, l, h):
+    """q and k scaled by 4: scores spread about 16 make the softmax peaked.
+    Held to the exact attention (the plain function in float64) at the
+    kernel tolerance, and to the plain f32 version's own error there:
+    one TF32 pass over q and k misses the tolerance by far (checked on
+    the plain version), so passing shows the split precision. (Against
+    the plain f32 version the two errors would add: its own error
+    against exact is close to the tolerance here.) At L 8192 the last
+    query rows sum over 256 key tiles: the sums do not drift as they
+    grow."""
+    q, k, v = _qkv(cuda, b, l, h, h, 64)
+    q, k = 4 * q, 4 * k
+
+    def heads(t):
+        return t.permute(0, 2, 1, 3).reshape(-1, t.shape[1], t.shape[3])
+
+    exact = attention_ref(*(heads(t).double() for t in (q, k, v)))
+    exact = exact.reshape(b, h, l, 64).permute(0, 2, 1, 3)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(
+            flash_attention_ref(_tf32(q), _tf32(k), v).double(), exact,
+            rtol=2e-4, atol=2e-5)
+    out = flash_attention(q, k, v).double()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, exact, rtol=2e-4, atol=2e-5)
+    plain = flash_attention_ref(q, k, v).double()
+    assert (out - exact).abs().max() <= (plain - exact).abs().max()
+
+
 def _ssd_args(cuda, bsz, L, H, P, N, dtype=torch.float32):
     g = torch.Generator().manual_seed(L * H + P)
     log_a = -torch.rand(bsz, L, H, generator=g) * 0.3
@@ -244,7 +300,17 @@ def _ssd_args(cuda, bsz, L, H, P, N, dtype=torch.float32):
 @pytest.mark.parametrize("bsz,L,H,P,N,chunk", [
     (1, 64, 2, 16, 8, 16), (2, 100, 3, 16, 8, 32), (1, 32, 1, 64, 16, 32),
     (2, 37, 4, 8, 16, 128), (2, 64, 8, 16, 16, 16), (1, 300, 2, 64, 64, 128),
-    (1, 50, 3, 6, 5, 7)])
+    (1, 50, 3, 6, 5, 7),
+    (1, 4096, 4, 64, 64, 128),    # 32 chained chunks
+    (1, 256, 64, 64, 64, 128),    # zamba2's heads: group-shared C B^T
+    (2, 1000, 9, 64, 64, 128),    # ragged last chunk, a partial head group
+    (1, 130, 3, 32, 16, 64),      # ragged, P of one half
+    (1, 300, 3, 64, 128, 64),     # mamba2-130m's state: N 128, P 64, Q 64
+    (1, 200, 2, 128, 64, 64),     # two P tiles
+    (2, 260, 9, 80, 130, 128),    # three N tiles, a ragged P tile
+    (1, 300, 3, 64, 128, 128),    # one group of warps: two x tiles won't fit
+    (1, 400, 2, 64, 64, 152),     # a chunk past 128 steps, 10 row tiles
+    (1, 300, 3, 64, 128, 144)])   # both
 def test_ssd_kernel_matches_plain(cuda, bsz, L, H, P, N, chunk):
     args = _ssd_args(cuda, bsz, L, H, P, N)
     before = ssd_scan.launches
