@@ -15,7 +15,10 @@ last line):
                RF, the real delay tables and BSR operator) in f32, bf16
                and f16, then timed with CUDA events (L2 flushed before
                each launch) beside its bound and, where one PyTorch call
-               computes the same function, that call's time;
+               computes the same function, that call's time; for
+               `bsr_beamform` also its skip rule against the all-zero
+               blocks, two runs bit-equal, f32 errors against float64,
+               the 3xTF32 bound beside the SIMT one, and its bf16 time;
   4. serve   — `serve_ultrasound_stream` at the paper's geometry for
                B-mode and power Doppler: the dynamic variant per stage
                and fused, the cnn and sparse variants per stage, with the
@@ -73,7 +76,7 @@ from repro_torch.data import synth_rf  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
                                           bsr_beamform, bsr_beamform_ref,
-                                          bsr_spmm, bsr_spmm_ref)
+                                          bsr_spmm, bsr_spmm_ref, kept_slots)
 from repro_torch.kernels.das_beamform import (das_beamform,  # noqa: E402
                                               das_beamform_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -93,6 +96,7 @@ from repro_torch.models.hybrid import n_attn_invocations  # noqa: E402
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
+PEAK_BF16_FLOP_PER_S = 989e12
 SPLIT_TF32 = 3          # 3xTF32: three TF32 products per f32 product
 
 BATCH = 4
@@ -344,10 +348,35 @@ def sorted_bsr(cols, values, n_rows, n_cols):
         size=(n_rows, n_cols))
 
 
+def check_skip_rule(cols, occupied) -> None:
+    """The slots bsr_beamform's kernel skips (``kept_slots`` False) are
+    all-zero blocks, and the all-zero blocks it keeps are exactly slot 0
+    of the rows with no occupied block (``cols`` cannot tell those from a
+    block at column 0)."""
+    kept = kept_slots(cols)
+    empty = ~occupied.any(-1, keepdim=True)
+    slot0 = torch.arange(cols.shape[-1], device=cols.device) == 0
+    n_zero = int((~occupied).sum())
+    n_skip = int((~kept).sum())
+    n_kept_zero = int((kept & ~occupied).sum())
+    per_pb = kept.sum(dim=(0, 2)).float()        # kept units per pixel block
+    say(f"[kernels] bsr_beamform skip rule: {n_skip} slots skipped, "
+        f"{int(kept.sum())} kept; {n_zero} all-zero blocks: {n_skip} "
+        f"skipped, {n_kept_zero} kept (slot 0 of the {int(empty.sum())} "
+        f"rows with no occupied block); kept per pixel block: min "
+        f"{per_pb.min().item():.0f}, mean {per_pb.mean().item():.2f}, max "
+        f"{per_pb.max().item():.0f}")
+    check(not bool(occupied[~kept].any()), "a skipped slot is not zero")
+    check(torch.equal(kept & ~occupied, empty & slot0),
+          "kept all-zero blocks other than slot 0 of empty rows")
+
+
 def sparse_rows(source, flush) -> dict:
     """bsr_beamform at the served shapes, and bsr_spmm on one channel's
     real product at the same shapes. The operations bound counts the
-    occupied blocks: the padded K slots are zero and need no work."""
+    occupied blocks: the padded K slots are zero and need no work. For
+    bsr_beamform also: the skip rule, two runs bit-equal, the f32 error
+    of kernel and plain version against float64, and the bf16 time."""
     dev = torch.device("cuda")
     cfg = paper_config(variant="sparse")
     t0 = time.perf_counter()
@@ -370,12 +399,25 @@ def sparse_rows(source, flush) -> dict:
         f"bs={bs} n_sb={n_sb}; {n_occ} of {n_c * n_pb * k} stored blocks "
         f"occupied; all stored: {gflop * n_c * n_pb * k:.1f} GFLOP, "
         f"occupied: {gflop * n_occ:.1f} GFLOP")
+    check_skip_rule(cols, occupied)
     rows = {}
 
     bf_err = check_precisions(
         "bsr_beamform", lambda p: bsr_beamform(cols, blocks, iq_b,
                                                precision=p),
         lambda p: bsr_beamform_ref(cols, blocks, iq_b, precision=p))
+    first = bsr_beamform(cols, blocks, iq_b)
+    check(torch.equal(first, bsr_beamform(cols, blocks, iq_b)),
+          "bsr_beamform: two runs differ")
+    say("[kernels] bsr_beamform: two runs bit-equal")
+    exact = bsr_beamform_ref(cols, blocks.double(), iq_b.double())
+    plain = bsr_beamform_ref(cols, blocks, iq_b).double()
+    err64, plain64 = ((t - exact).abs().max().item()
+                      for t in (first.double(), plain))
+    say(f"[kernels] bsr_beamform[f32] against float64: kernel "
+        f"max|d|={err64:.3e}, plain max|d|={plain64:.3e} "
+        f"(max|exact|={exact.abs().max().item():.3e})")
+    del first, exact, plain
     # torch's BSR product over the real form [[re, -im], [im, re]] of each
     # block, columns (channel, sample block), summing the channels
     re, im = blocks[..., 0], blocks[..., 1]
@@ -390,6 +432,12 @@ def sparse_rows(source, flush) -> dict:
                                                  b * n_f)
     plain = bsr_beamform_ref(cols, blocks, iq_b)
     library = (lambda: a @ x)
+    # the occupied blocks' work: the bound of the 3xTF32 route, and the
+    # f32 FMA units' (SIMT) beside it
+    bf_bytes = (n_occ * bp * bs * 8 + cols.numel() * 4 + iq_b.numel() * 4
+                + b * n_pb * bp * n_f * 8)
+    bf_flops = 8.0 * b * n_occ * bp * bs * n_f
+    route, simt = split_tf32_bound(bf_bytes, bf_flops)
     as_out = (lambda y: y.view(n_pb, 2, bp, b, n_f).permute(3, 0, 2, 4, 1)
               .reshape(b, n_pb * bp, n_f, 2))
     ok = library_check("bsr_beamform", lambda: as_out(library()), plain)
@@ -401,12 +449,15 @@ def sparse_rows(source, flush) -> dict:
         library_name=("torch.sparse_bsr_tensor @ dense, real "
                       "[[re, -im], [im, re]] blocks" if ok
                       else "none: torch's BSR product refused or disagreed"),
-        bound=bound(n_occ * bp * bs * 8 + cols.numel() * 4
-                    + iq_b.numel() * 4 + b * n_pb * bp * n_f * 8,
-                    8.0 * b * n_occ * bp * bs * n_f),
+        bound=route, simt_bound=simt,
         source="src/repro_torch/kernels/csrc/bsr_spmm.cu",
         replaces="src/repro/kernels/bsr_spmm/kernel.py:51")
     del plain
+    ms16 = time_ms(lambda: bsr_beamform(cols, blocks, iq_b,
+                                        precision="bf16"), 20, flush)
+    b16 = bound(bf_bytes, bf_flops, PEAK_BF16_FLOP_PER_S)
+    say(f"[kernels] bsr_beamform[bf16]: kernel {ms16:.4f} ms, bound "
+        f"{b16[0]:.4f} ms ({b16[1]}; bf16 tensor cores at 989 TFLOP/s)")
 
     # bsr_spmm: the real part of one (middle) channel's product
     ch = n_c // 2

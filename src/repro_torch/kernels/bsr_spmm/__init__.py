@@ -6,4 +6,5 @@ from repro_torch.kernels.bsr_spmm.ops import (  # noqa: F401
 from repro_torch.kernels.bsr_spmm.ref import (  # noqa: F401
     bsr_beamform_ref,
     bsr_spmm_ref,
+    kept_slots,
 )

@@ -7,6 +7,8 @@ reference's channel ``vmap`` of four real SpMMs) with a leading
 acquisition axis; it walks the channels and accumulates, so it holds one
 channel's gathered IQ at a time. ``precision`` rounds both operands to
 bf16/f16 before the f32 arithmetic, which is what the CUDA kernel does.
+``kept_slots`` is the rule by which the ``bsr_beamform`` kernel skips
+the padded K slots.
 """
 
 from __future__ import annotations
@@ -14,6 +16,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.das_beamform.ref import round_to
+
+
+def kept_slots(cols):
+    """(..., K) bool: the slots the ``bsr_beamform`` kernel stages and
+    multiplies. Slot 0 always; slot k > 0 where its column is above slot
+    k - 1's. In ``bsr_operator``'s format (occupied slots first, columns
+    strictly ascending, then all-zero blocks at column 0) every slot left
+    out is an all-zero block; the all-zero blocks kept are slot 0 of rows
+    with no occupied slot, which ``cols`` cannot tell from a block at
+    column 0.
+    """
+    cols = torch.as_tensor(cols)
+    first = torch.ones_like(cols[..., :1], dtype=torch.bool)
+    return torch.cat([first, cols[..., 1:] > cols[..., :-1]], dim=-1)
 
 
 def bsr_spmm_ref(cols, blocks, x, *, precision: str = "f32"):

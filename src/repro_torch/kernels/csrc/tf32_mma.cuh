@@ -1,5 +1,5 @@
 // Split-precision TF32 tensor-core products (3xTF32) and cp.async helpers
-// for the LM kernels (flash_attention.cu, ssd_scan.cu), sm_90a.
+// for flash_attention.cu, ssd_scan.cu and bsr_spmm.cu (sm_90a).
 //
 // A TF32 operand keeps 10 of f32's 23 mantissa bits. Each f32 operand is
 // split as hi = tf32(a), lo = tf32(a - hi), and a product is accumulated
@@ -102,6 +102,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,

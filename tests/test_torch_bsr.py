@@ -25,9 +25,11 @@ from repro.kernels.pallas_compat import (  # noqa: E402
     block_sample_axis as j_block_sample_axis)
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.core import config as tcfg  # noqa: E402
+from repro_torch.core import delays as tdelays  # noqa: E402
 from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
                                           bsr_beamform, bsr_beamform_ref,
-                                          bsr_spmm, bsr_spmm_ref)
+                                          bsr_spmm, bsr_spmm_ref, kept_slots)
 
 
 def _close(out, ref):
@@ -123,3 +125,74 @@ def test_wrappers_refuse_bad_arguments():
         bsr_spmm(cols, blocks, x.to("meta"))
     with pytest.raises(ValueError, match="precision"):
         bsr_beamform(cols[None], blocks[None, ..., None], x, precision="x")
+
+
+# The geometries of the skip-rule tests: the tiny config, a wider one at
+# 16 x 16 blocks (some (channel, pixel block) rows hold no occupied block),
+# and a mid one at the paper's 64 x 64 blocks.
+SKIP_GEOMS = {"tiny": {}, "wide": dict(n_c=16, n_f=8, nz=32, nx=32),
+              "mid": dict(n_c=16, nz=64, nx=32, sparse_block_p=64,
+                          sparse_block_s=64)}
+
+
+def _nonzero_blocks(blocks):
+    """(n_c, n_pb, K) bool: blocks with any non-zero value."""
+    return (np.asarray(blocks) != 0).reshape(blocks.shape[:3] + (-1,)).any(-1)
+
+
+@pytest.mark.parametrize("geom", sorted(SKIP_GEOMS))
+def test_reference_operator_pads_after_ascending_columns(geom):
+    """The format the kernel's skip rule reads, on the reference's
+    operator: the occupied (non-zero) slots of each row come first with
+    strictly ascending columns; every slot after them is an all-zero block
+    at column 0. So the slots ``kept_slots`` leaves out are all-zero
+    blocks, and the only all-zero blocks it keeps are slot 0 of rows with
+    no occupied slot."""
+    cfg = jcfg.tiny_config(variant="sparse", **SKIP_GEOMS[geom])
+    op = bsr_operator(cfg, compute_delay_tables(cfg))
+    nonzero = _nonzero_blocks(op.blocks)
+    n_occ = nonzero.sum(-1)                                  # per row
+    k = np.arange(op.col_idx.shape[-1])
+    assert np.array_equal(nonzero, k < n_occ[..., None])     # occupied first
+    cols = op.col_idx
+    ascending = cols[..., 1:] > cols[..., :-1]
+    assert ascending[nonzero[..., 1:]].all()
+    assert (cols[~nonzero] == 0).all()
+    kept = kept_slots(torch.as_tensor(cols)).numpy()
+    assert not nonzero[~kept].any()                # every skipped slot zero
+    empty_row_slot0 = (n_occ == 0)[..., None] & (k == 0)
+    assert np.array_equal(kept & ~nonzero, empty_row_slot0)
+    if geom != "wide":                             # no empty rows there
+        assert not empty_row_slot0.any()
+        assert np.array_equal(kept, nonzero)
+
+
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_kept_slots_matches_nonzero_blocks(package):
+    """``kept_slots`` against ``(blocks != 0).any(...)`` on both packages'
+    operators (bit for bit the same): kept = non-zero, plus slot 0 of the
+    rows with no non-zero block."""
+    geom = SKIP_GEOMS["wide"]
+    if package == "reference":
+        cfg = jcfg.tiny_config(variant="sparse", **geom)
+        op = bsr_operator(cfg, compute_delay_tables(cfg))
+    else:
+        cfg = tcfg.tiny_config(variant="sparse", **geom)
+        op = tdelays.bsr_operator(cfg, tdelays.compute_delay_tables(cfg))
+    nonzero = _nonzero_blocks(op.blocks)
+    kept = kept_slots(torch.as_tensor(op.col_idx)).numpy()
+    empty = ~nonzero.any(-1, keepdims=True)
+    slot0 = np.arange(nonzero.shape[-1]) == 0
+    assert empty.any()
+    assert np.array_equal(kept, nonzero | (empty & slot0))
+
+
+def test_kept_slots_rule_on_edge_rows():
+    """A real block at column 0 in slot 0, an empty row, a full row, and
+    a row with one occupied slot followed by padding."""
+    cols = torch.tensor([[0, 0, 0], [0, 0, 0], [1, 3, 4], [2, 0, 0],
+                         [0, 5, 0]], dtype=torch.int32)
+    want = torch.tensor([[1, 0, 0], [1, 0, 0], [1, 1, 1], [1, 0, 0],
+                         [1, 1, 0]], dtype=torch.bool)
+    assert torch.equal(kept_slots(cols), want)
+    assert torch.equal(kept_slots(cols[None]), want[None])

@@ -133,18 +133,104 @@ def test_bsr_beamform_kernel_matches_plain(cuda, kw, precision):
     _close(out, bsr_beamform_ref(*args, precision=precision))
 
 
-@pytest.mark.parametrize("n_pb,bs", [(1, 512), (70000, 8)])
-def test_bsr_beamform_kernel_refuses_what_it_cannot_take(cuda, n_pb, bs):
-    """A (64 x bs) complex tile past shared memory, or more pixel blocks
-    than the grid's y axis holds: the kernel refuses, the wrapper raises,
-    and nothing is launched."""
+@pytest.mark.parametrize("n_pb,bp,bs", [(70000, 1, 8),
+                                         (1, 64 * 65535 + 1, 1)])
+def test_bsr_beamform_kernel_refuses_what_it_cannot_take(cuda, n_pb, bp, bs):
+    """More pixel blocks than the grid's y axis holds, or more 64-row
+    tiles of a pixel block than its z axis: the kernel refuses, the
+    wrapper raises, and nothing is launched. (Samples are staged in
+    chunks of 64, so no bs is past shared memory.)"""
     cols = torch.zeros((1, n_pb, 1), dtype=torch.int32, device=cuda)
-    blocks = torch.ones((1, n_pb, 1, 1, bs, 2), device=cuda)
+    blocks = torch.ones((1, n_pb, 1, bp, bs, 2), device=cuda)
     iq_b = torch.ones((1, 1, bs, 1, 1, 2), device=cuda)
     before = bsr_beamform.launches
     with pytest.raises(RuntimeError, match="bsr_beamform_launch"):
         bsr_beamform(cols, blocks, iq_b)
     assert bsr_beamform.launches == before
+
+
+def _edge_operator(cuda, n_c, n_pb, k, bp, bs, n_sb, seed):
+    """A BSR operator in bsr_operator's format with the rows the skip rule
+    must get right: row 0 of every channel holds one real block at column
+    0 in slot 0 (then padding), row 1 is empty, row 2 has every K slot
+    occupied, the rest a random count of random ascending columns."""
+    rng = np.random.default_rng(seed)
+    cols = np.zeros((n_c, n_pb, k), np.int32)
+    n_occ = rng.integers(0, k + 1, (n_c, n_pb))
+    n_occ[:, 0], n_occ[:, 1], n_occ[:, 2] = 1, 0, k
+    for c in range(n_c):
+        for i in range(n_pb):
+            cols[c, i, :n_occ[c, i]] = np.sort(
+                rng.choice(n_sb, n_occ[c, i], replace=False))
+    cols[:, 0, 0] = 0
+    blocks = rng.standard_normal((n_c, n_pb, k, bp, bs, 2)).astype(
+        np.float32)
+    blocks[np.arange(k) >= n_occ[..., None]] = 0.0
+    return (torch.as_tensor(cols).to(cuda), torch.as_tensor(blocks).to(cuda))
+
+
+# (B, n_c, n_pb, K, bp, bs, n_sb, n_f); where the output tiles are few the
+# kernel splits the channels over up to 4 thread blocks and adds their
+# partial tiles in order, elsewhere each tile is one block
+EDGE_SHAPES = [
+    (2, 3, 5, 3, 80, 24, 4, 5),       # ragged rows, odd n_f (8-byte copies)
+    (2, 3, 4, 2, 48, 21, 5, 3),       # odd bs: 8-byte operator copies too
+    (3, 4, 4, 2, 64, 64, 6, 40),      # two column tiles, a ragged one
+    (1, 2, 3, 4, 16, 136, 5, 1),      # bs past one 64-sample chunk, n_f 1
+    (4, 5, 3, 2, 64, 64, 6, 32),      # the paper's tile: 128 columns
+    (2, 1, 6, 2, 64, 64, 3, 8),       # one channel: no channel groups
+    (1, 2, 1100, 1, 8, 8, 2, 2),      # tiles enough: no channel groups
+]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_bsr_beamform_kernel_on_edge_rows(cuda, shape, precision):
+    b, n_c, n_pb, k, bp, bs, n_sb, n_f = shape
+    cols, blocks = _edge_operator(cuda, n_c, n_pb, k, bp, bs, n_sb,
+                                  seed=n_pb * bs)
+    g = torch.Generator().manual_seed(bs)
+    iq_b = torch.randn(b, n_sb, bs, n_c, n_f, 2, generator=g).to(cuda)
+    before = bsr_beamform.launches
+    out = bsr_beamform(cols, blocks, iq_b, precision=precision)
+    assert bsr_beamform.launches == before + 1
+    _close(out, bsr_beamform_ref(cols, blocks, iq_b, precision=precision))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_bsr_beamform_kernel_is_bit_identical_run_to_run(cuda, precision):
+    cfg = tiny_config(variant="sparse", n_c=16, n_f=32, nz=64, nx=32,
+                      sparse_block_p=64, sparse_block_s=64)
+    c = consts_from_numpy(init_pipeline(cfg), cuda)
+    g = torch.Generator().manual_seed(5)
+    iq = torch.randn(4, cfg.n_s, cfg.n_c, cfg.n_f, 2, generator=g)
+    iq_b = block_sample_axis(iq.to(cuda), cfg.sparse_block_s)
+    args = (c["bsr_col_idx"], c["bsr_blocks"], iq_b)
+    first = bsr_beamform(*args, precision=precision)
+    for _ in range(3):
+        assert torch.equal(bsr_beamform(*args, precision=precision), first)
+
+
+def test_bsr_beamform_kernel_keeps_f32_error(cuda):
+    """The f32 kernel (3xTF32, each staged unit summed from zero and added
+    in f32) and the plain f32 version, each against the plain version in
+    float64, on the real operator at 64 x 64 blocks: the kernel is held to
+    1e-5 * max there and to at most twice the plain version's error (the
+    split drops the lo x lo term, about 2^-22 of a product)."""
+    cfg = tiny_config(variant="sparse", n_c=32, n_f=32, nz=64, nx=64,
+                      sparse_block_p=64, sparse_block_s=64)
+    c = consts_from_numpy(init_pipeline(cfg), cuda)
+    g = torch.Generator().manual_seed(6)
+    iq = torch.randn(4, cfg.n_s, cfg.n_c, cfg.n_f, 2, generator=g)
+    iq_b = block_sample_axis(iq.to(cuda), cfg.sparse_block_s)
+    cols, blocks = c["bsr_col_idx"], c["bsr_blocks"]
+    exact = bsr_beamform_ref(cols, blocks.double(), iq_b.double())
+    out = bsr_beamform(cols, blocks, iq_b).double()
+    plain = bsr_beamform_ref(cols, blocks, iq_b).double()
+    torch.cuda.synchronize()
+    err, err_plain = ((t - exact).abs().max().item() for t in (out, plain))
+    assert err <= 1e-5 * exact.abs().max().item(), err
+    assert err <= 2 * err_plain, (err, err_plain)
 
 
 @pytest.mark.parametrize("modality", ["bmode", "power_doppler", "doppler"])
