@@ -19,9 +19,15 @@ last line):
                `bsr_beamform` also its skip rule against the all-zero
                blocks, two runs bit-equal, f32 errors against float64,
                the 3xTF32 bound beside the SIMT one, and its bf16 time;
+               for `das_beamform` and the fused spans the share of
+               zero-apodization pairs they skip, the IQ bytes they stage
+               into shared memory, the bound of the terms these tables
+               need beside the all-terms bound and the no-FMA instruction
+               floor, and two runs bit-equal;
   4. serve   — `serve_ultrasound_stream` at the paper's geometry for
                B-mode and power Doppler: the dynamic variant per stage
-               and fused, the cnn and sparse variants per stage, with the
+               and fused (power also with fusion_block 128), the cnn and
+               sparse variants per stage, with the
                launch counters zeroed before and read after each run;
                then the split of one batch: host-to-device copy, and each
                stage of the engine on a device-resident batch;
@@ -44,8 +50,15 @@ last line):
   8. lm outputs — full width in f32: the kernel path's logits against the
                plain path's, and prefill and decode logits against
                forward's;
-  9. lm launches — how many CUDA launches one call of each LM kernel
-               makes (torch.profiler, after every timed phase);
+  9. launches — how many CUDA launches one call of each multi-launch
+               kernel makes, and the device time of each (torch.profiler,
+               after every timed phase): the fused spans at the paper's
+               geometry, flash_attention and ssd_scan; then `[engine
+               trace]`: each fused engine (B-mode, power) on a
+               device-resident batch, its time a call (CUDA events) beside
+               the host's time to enqueue a call, and its kernels' device
+               times under torch.profiler, their share of the event time
+               and the device's idle share;
  10. a JSON line {"kernels": [...]} and, last, the device line.
 
 Needs only this checkout (it puts src/ on sys.path) and imports no JAX.
@@ -53,6 +66,7 @@ Needs only this checkout (it puts src/ on sys.path) and imports no JAX.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +85,7 @@ from repro_torch.core import (BatchedExecutor, PRECISION_TOLERANCES,  # noqa: E4
                               stage_fns, tiny_config)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import demod  # noqa: E402
+from repro_torch.core.delays import check_skipped_slots  # noqa: E402
 from repro_torch.data import synth_train_batch  # noqa: E402
 from repro_torch.data import synth_rf  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
@@ -79,6 +94,7 @@ from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
                                           bsr_spmm, bsr_spmm_ref, kept_slots)
 from repro_torch.kernels.das_beamform import (das_beamform,  # noqa: E402
                                               das_beamform_ref)
+from repro_torch.kernels.das_beamform.ops import tile_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
 from repro_torch.kernels.fused_pipeline import (  # noqa: E402
@@ -98,6 +114,10 @@ PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
 PEAK_BF16_FLOP_PER_S = 989e12
 SPLIT_TF32 = 3          # 3xTF32: three TF32 products per f32 product
+# f32 instructions per second outside the tensor cores (128 lanes x 132
+# SMs x 1.98 GHz): half the FLOP rate, which counts an FMA as two. Built
+# with -fmad=false, every f32 operation of the DAS kernels is one.
+NO_FMA_INSTR_PER_S = PEAK_F32_FLOP_PER_S / 2
 
 BATCH = 4
 N_BATCHES = 16
@@ -108,6 +128,7 @@ DAS_TABLES = ("idx", "frac", "apod", "rot")
 # (variant, fusion) of each served path; the kernel each must launch
 PATHS = (("dynamic", "none"), ("dynamic", "fused"), ("cnn", "none"),
          ("sparse", "none"))
+FUSION_BLOCK = 128      # a fused run with the pixel tile set, not default
 FUSED_KERNEL = {"bmode": "fused_rf_to_envelope",
                 "power_doppler": "fused_rf_to_power"}
 
@@ -178,12 +199,17 @@ def profiled(fn) -> tuple:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a marker kernel first: the trace can miss the session's first
+        # kernel, and this one is left out of the result by its name
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     return ([e for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA], wall)
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "spin_kernel" not in e.key], wall)
 
 
 def check_precisions(name, kernel, plain) -> float:
@@ -222,6 +248,10 @@ def measure(rows: dict, flush: torch.Tensor) -> dict:
         simt = row.get("simt_bound")
         simt = (f", SIMT bound {simt[0]:.4f} ms ({simt[1]})"
                 if simt is not None else "")
+        if "all_bound" in row:
+            simt += (f", all-terms bound {row['all_bound'][0]:.4f} ms "
+                     f"({row['all_bound'][1]}), no-FMA floor "
+                     f"{row['floor_ms']:.4f} ms")
         say(f"[kernels] {name}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
             f"({row['bound'][1]}){simt}, library: {lib}")
@@ -251,9 +281,12 @@ def phase_build() -> None:
     say(f"[build] {len(paths)} libraries in "
         f"{time.perf_counter() - t0:.1f}s (nvcc {cuda_lib.NVCC_FLAGS})")
     for name in paths:
-        for line in cuda_lib.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                say(f"[build] {name}: {line.strip()}")
+        log = cuda_lib.build_log(name)
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
+        smem = sorted({int(m) for m in re.findall(r"(\d+) bytes smem", log)})
+        say(f"[build] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+            f"registers, {spills} bytes spilled, static smem {smem} bytes")
 
 
 def dynamic_rows(source, flush) -> dict:
@@ -275,16 +308,31 @@ def dynamic_rows(source, flush) -> dict:
         lambda p: das_beamform_ref(*tabs, iq, precision=p))
     tab_bytes = n_pix * n_c * (4 + 4 + 4 + 8)
     rf_bytes = rf.numel() * 2
-    das_flops = 16.0 * b * n_pix * n_c * n_f
+    # the kernels skip (pixel, channel) pairs of zero apodization: the
+    # operations bound counts the terms these tables need; the all-terms
+    # bound is printed beside it
+    n_needed = int((c["apod"] != 0).sum())
+    das_flops, das_all = (16.0 * b * n * n_f for n in (n_needed,
+                                                        n_pix * n_c))
+    plan = tile_plan()
+    staged, n_direct = staged_iq(c["idx"], c["apod"], b, n_f, plan)
+    say(f"[kernels] DAS loop, bp {plan['bp']} ({plan['block_acqs']} "
+        f"acquisitions a block, stages of {plan['stage_rows']} IQ rows): "
+        f"{1 - n_needed / (n_pix * n_c):.2%} of (pixel, channel) pairs "
+        f"have apod 0 and are skipped; IQ staged into shared memory "
+        f"{staged / 1e6:.1f} MB per batch of {b} ({n_direct} (tile, "
+        f"channel) windows read from global memory instead)")
     demod_flops = b * n_s * n_c * n_f * 4.0 * k + b * n_l * n_c * n_f * 2.0
     wall_flops = b * n_pix * (n_f - n_wall + 1) * (4.0 * n_wall + 4)
     none = "none: no single PyTorch call computes this function"
+    das_bytes = tab_bytes + iq.numel() * 4 + b * n_pix * n_f * 8
     rows["das_beamform"] = dict(
         err=das_err,
         fn=lambda: das_beamform(*tabs, iq),
         plain=lambda: das_beamform_ref(*tabs, iq),
-        bound=bound(tab_bytes + iq.numel() * 4 + b * n_pix * n_f * 8,
-                    das_flops),
+        bound=bound(das_bytes, das_flops),
+        all_bound=bound(das_bytes, das_all),
+        floor_ms=das_flops / NO_FMA_INSTR_PER_S * 1e3,
         library_name=none,
         source="src/repro_torch/kernels/csrc/das_beamform.cu",
         replaces="src/repro/kernels/das_beamform/kernel.py:93")
@@ -292,29 +340,61 @@ def dynamic_rows(source, flush) -> dict:
     ft = [c[n] for n in TABLES]
     heads = {
         "fused_rf_to_envelope": (
-            lambda: fused_rf_to_envelope(*ft, rf, decim=cfg.decim),
-            lambda: fused_ref(*ft, rf, decim=cfg.decim),
+            lambda p="f32": fused_rf_to_envelope(*ft, rf, decim=cfg.decim,
+                                                 precision=p),
+            lambda p="f32": fused_ref(*ft, rf, decim=cfg.decim,
+                                      precision=p),
             b * n_pix * n_f * 4, 3.0 * b * n_pix * n_f),
         "fused_rf_to_power": (
-            lambda: fused_rf_to_power(*ft, c["wall_taps"], rf,
-                                      decim=cfg.decim),
-            lambda: fused_ref(*ft, rf, decim=cfg.decim,
-                              head="power_doppler", wall=c["wall_taps"]),
+            lambda p="f32": fused_rf_to_power(*ft, c["wall_taps"], rf,
+                                              decim=cfg.decim, precision=p),
+            lambda p="f32": fused_ref(*ft, rf, decim=cfg.decim,
+                                      head="power_doppler",
+                                      wall=c["wall_taps"], precision=p),
             b * n_pix * 4, wall_flops),
     }
     for name, (fn, plain, out_bytes, head_flops) in heads.items():
-        err, scale = max_err(fn(), plain())
-        say(f"[kernels] {name} max|d|={err:.3e} tol={F32_TOL * scale:.3e} "
-            f"(max|plain|={scale:.3e})")
-        check(err <= F32_TOL * scale, f"{name} disagrees with plain")
+        err = check_precisions(name, fn, plain)
+        nbytes = rf_bytes + n_l * 8 + k * 4 + tab_bytes + out_bytes
+        flops = demod_flops + das_flops + head_flops
         rows[name] = dict(
             err=err, fn=fn, plain=plain,
-            bound=bound(rf_bytes + n_l * 8 + k * 4 + tab_bytes + out_bytes,
-                        demod_flops + das_flops + head_flops),
+            bound=bound(nbytes, flops),
+            all_bound=bound(nbytes, demod_flops + das_all + head_flops),
+            floor_ms=flops / NO_FMA_INSTR_PER_S * 1e3,
             library_name=none,
             source="src/repro_torch/kernels/csrc/fused_pipeline.cu",
             replaces="src/repro/kernels/fused_pipeline/kernel.py:196")
+    for name, row in rows.items():
+        check(torch.equal(row["fn"](), row["fn"]()),
+              f"{name}: two runs differ")
+    say("[kernels] das_beamform, fused_rf_to_envelope, fused_rf_to_power: "
+        "two runs bit-equal")
     return measure(rows, flush)
+
+
+def staged_iq(idx, apod, batch, n_f, plan) -> tuple:
+    """The IQ bytes the DAS loop stages into shared memory for one call
+    with the built library's tile ``plan`` (``tile_plan``), and the (tile,
+    channel) windows it reads from global memory instead: per tile and
+    channel, the rows from the least to the largest sample index + 1 over
+    the pixels of non-zero apodization, for each chunk of acquisitions
+    that a block holds (csrc/das_common.cuh)."""
+    bp, per_block = plan["bp"], plan["block_acqs"]
+    n_pix, n_c = idx.shape
+    pad = -n_pix % bp
+    nz = torch.nn.functional.pad(apod, (0, 0, 0, pad)).view(-1, bp, n_c) != 0
+    i = torch.nn.functional.pad(idx, (0, 0, 0, pad)).view(-1, bp, n_c)
+    lo = torch.where(nz, i, torch.iinfo(torch.int32).max).amin(1)
+    hi = torch.where(nz, i, -1).amax(1)
+    length = torch.where(hi >= 0, hi - lo + 2, 0)
+    staged = direct = 0
+    for b0 in range(0, batch, per_block):
+        rows = length * min(per_block, batch - b0)
+        fits = rows <= plan["stage_rows"]
+        staged += int(rows[fits].sum()) * n_f * 8
+        direct += int((~fits).sum())
+    return staged, direct
 
 
 def library_check(name, fn, ref) -> bool:
@@ -384,6 +464,10 @@ def sparse_rows(source, flush) -> dict:
     say(f"[init] paper sparse constants in {time.perf_counter() - t0:.1f}s "
         f"(bsr_blocks {host['bsr_blocks'].shape}, "
         f"{host['bsr_blocks'].nbytes / 1e9:.3f} GB)")
+    t0 = time.perf_counter()
+    check_skipped_slots(host["bsr_col_idx"], host["bsr_blocks"])
+    say(f"[init] the operator's skipped K slots hold only zeros: checked "
+        f"on the host in {time.perf_counter() - t0:.3f}s")
     c = consts_from_numpy(host, dev)
     del host
     rf = torch.as_tensor(source.next()).to(dev)
@@ -501,44 +585,55 @@ def phase_kernels(source) -> dict:
     return rows
 
 
-def phase_serve(source) -> dict:
-    launches = {name: 0 for name in kernels.launch_counts()}
+def served_paths():
+    """(modality, variant, fusion, fusion_block) of each served run: every
+    path of PATHS for both modalities, then the fused power path once more
+    with its pixel tile set."""
     for modality in ("bmode", "power_doppler"):
         for variant, fusion in PATHS:
-            cfg = paper_config(variant=variant, modality=modality,
-                               fusion=fusion)
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            stats = serve_ultrasound_stream(
-                cfg, batch=BATCH, n_batches=N_BATCHES, depth=2, pool=2,
-                source=source)
-            counts = kernels.launch_counts()
-            setup = time.perf_counter() - t0 - stats["wall_s"]
-            plan = stats["plan"]
-            lat = stats["latency"]
-            peak = stats["resources"]["peak_memory_bytes"]
-            say(f"[serve] {stats['name']} fusion={fusion}: "
-                f"{stats['sustained_mbps']:.1f} MB/s, {stats['fps']:.1f} "
-                f"FPS, p50={lat.p50_s * 1e3:.3f} ms, "
-                f"p99={lat.p99_s * 1e3:.3f} ms, peak_mem={peak / 1e6:.1f} MB,"
-                f" lowerings={plan['stage_lowerings']}, launches={counts},"
-                f" setup {setup:.1f}s (constants, upload, warm-up)")
-            check(plan["backend"] == "cuda", f"plan backend {plan}")
-            want = "xla" if variant == "cnn" else "pallas"
-            check(plan["stage_lowerings"]["beamform"] == want,
-                  f"beamform lowering {plan['stage_lowerings']}")
-            key = {"dynamic": ("das_beamform" if fusion == "none"
-                               else FUSED_KERNEL[modality]),
-                   "sparse": "bsr_beamform", "cnn": None}[variant]
-            if key is None:
-                check(set(counts.values()) == {0},
-                      f"cnn launched a kernel: {counts}")
-            else:
-                check(counts[key] > 0,
-                      f"{key} never launched in {stats['name']}")
-            for name, n in counts.items():
-                launches[name] += n
-            split(cfg, source, stats)
+            yield modality, variant, fusion, None
+    yield "power_doppler", "dynamic", "fused", FUSION_BLOCK
+
+
+def phase_serve(source) -> dict:
+    launches = {name: 0 for name in kernels.launch_counts()}
+    for modality, variant, fusion, block in served_paths():
+        cfg = paper_config(variant=variant, modality=modality, fusion=fusion,
+                           fusion_block=block)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = serve_ultrasound_stream(
+            cfg, batch=BATCH, n_batches=N_BATCHES, depth=2, pool=2,
+            source=source)
+        counts = kernels.launch_counts()
+        setup = time.perf_counter() - t0 - stats["wall_s"]
+        plan = stats["plan"]
+        lat = stats["latency"]
+        peak = stats["resources"]["peak_memory_bytes"]
+        say(f"[serve] {stats['name']} fusion={fusion}"
+            + (f" fusion_block={block}" if block else "") + ": "
+            f"{stats['sustained_mbps']:.1f} MB/s, {stats['fps']:.1f} "
+            f"FPS, p50={lat.p50_s * 1e3:.3f} ms, "
+            f"p99={lat.p99_s * 1e3:.3f} ms, peak_mem={peak / 1e6:.1f} MB,"
+            f" lowerings={plan['stage_lowerings']}, launches={counts},"
+            f" setup {setup:.1f}s (constants, upload, warm-up)")
+        check(plan["backend"] == "cuda", f"plan backend {plan}")
+        check(plan["fusion_block"] == block, f"plan fusion_block {plan}")
+        want = "xla" if variant == "cnn" else "pallas"
+        check(plan["stage_lowerings"]["beamform"] == want,
+              f"beamform lowering {plan['stage_lowerings']}")
+        key = {"dynamic": ("das_beamform" if fusion == "none"
+                           else FUSED_KERNEL[modality]),
+               "sparse": "bsr_beamform", "cnn": None}[variant]
+        if key is None:
+            check(set(counts.values()) == {0},
+                  f"cnn launched a kernel: {counts}")
+        else:
+            check(counts[key] > 0,
+                  f"{key} never launched in {stats['name']}")
+        for name, n in counts.items():
+            launches[name] += n
+        split(cfg, source, stats)
     return launches
 
 
@@ -586,37 +681,38 @@ def split(cfg, source, stats) -> None:
 def phase_outputs(source) -> None:
     dev = torch.device("cuda")
     rf = source.next()
-    for modality in ("bmode", "power_doppler"):
-        for variant, fusion in PATHS:
-            cfg = paper_config(variant=variant, modality=modality,
-                               fusion=fusion)
-            engine = BatchedExecutor(cfg)
-            out = engine(rf)
-            ref = monolithic_pipeline_fn(engine.cfg)(
-                engine.consts, torch.as_tensor(rf).to(dev))
-            shape = (BATCH, cfg.nz, cfg.nx) + (
-                (cfg.n_f,) if modality == "bmode" else ())
-            check(tuple(out.shape) == shape, f"image shape {out.shape}")
-            check(bool(torch.isfinite(out).all()), "non-finite image")
-            check(out.min().item() >= 0.0 and out.max().item() <= 1.0,
-                  "image outside [0, 1]")
-            d = (out - ref).abs()
-            frac = (d > 1e-5).float().mean().item()
-            what = f"{modality}/{variant}/{fusion}"
-            say(f"[outputs] paper {what} vs plain on card: "
-                f"max|d|={d.max().item():.3e} (tol "
-                f"{IMAGE_TOL[modality]:.1e}), >1e-5: {frac:.5f}")
-            check(d.max().item() <= IMAGE_TOL[modality],
-                  f"{what} image disagrees with plain")
-            del engine, out, ref, d
-            small = tiny_config(variant=variant, modality=modality,
-                                fusion=fusion, n_c=16, n_f=8, nz=32, nx=32)
-            x = np.stack([synth_rf(small, seed=s) for s in (1, 2)])
-            got = BatchedExecutor(small)(x).cpu()
-            want = BatchedExecutor(small, device="cpu")(x)
-            err = (got - want).abs().max().item()
-            say(f"[outputs] small {what} card vs cpu: max|d|={err:.3e}")
-            check(err <= IMAGE_TOL[modality], "card disagrees with cpu")
+    for modality, variant, fusion, block in served_paths():
+        cfg = paper_config(variant=variant, modality=modality, fusion=fusion,
+                           fusion_block=block)
+        engine = BatchedExecutor(cfg)
+        out = engine(rf)
+        ref = monolithic_pipeline_fn(engine.cfg)(
+            engine.consts, torch.as_tensor(rf).to(dev))
+        shape = (BATCH, cfg.nz, cfg.nx) + (
+            (cfg.n_f,) if modality == "bmode" else ())
+        check(tuple(out.shape) == shape, f"image shape {out.shape}")
+        check(bool(torch.isfinite(out).all()), "non-finite image")
+        check(out.min().item() >= 0.0 and out.max().item() <= 1.0,
+              "image outside [0, 1]")
+        d = (out - ref).abs()
+        frac = (d > 1e-5).float().mean().item()
+        what = f"{modality}/{variant}/{fusion}" + (f"/bp{block}" if block
+                                                   else "")
+        say(f"[outputs] paper {what} vs plain on card: "
+            f"max|d|={d.max().item():.3e} (tol "
+            f"{IMAGE_TOL[modality]:.1e}), >1e-5: {frac:.5f}")
+        check(d.max().item() <= IMAGE_TOL[modality],
+              f"{what} image disagrees with plain")
+        del engine, out, ref, d
+        small = tiny_config(variant=variant, modality=modality,
+                            fusion=fusion, fusion_block=block, n_c=16,
+                            n_f=8, nz=32, nx=32)
+        x = np.stack([synth_rf(small, seed=s) for s in (1, 2)])
+        got = BatchedExecutor(small)(x).cpu()
+        want = BatchedExecutor(small, device="cpu")(x)
+        err = (got - want).abs().max().item()
+        say(f"[outputs] small {what} card vs cpu: max|d|={err:.3e}")
+        check(err <= IMAGE_TOL[modality], "card disagrees with cpu")
 
 
 def close_enough(name, out, ref, rtol, atol) -> float:
@@ -808,21 +904,79 @@ def phase_lm_serve() -> dict:
     return launches
 
 
-def phase_lm_launches() -> None:
-    """How many CUDA launches one call of each LM kernel makes, read by
-    torch.profiler after every timed phase, so that no profiler session
-    precedes the host-clock times of serving."""
+def phase_launches() -> None:
+    """How many CUDA launches one call of each multi-launch kernel makes,
+    and each launch's device time: the fused spans at the paper's geometry
+    (batch 4) and the LM kernels. torch.profiler, after every timed phase,
+    so that no profiler session precedes the host-clock times of serving."""
+    dev = torch.device("cuda")
+    cfg = paper_config(variant="dynamic", modality="power_doppler")
+    c = consts_from_numpy(init_pipeline(cfg), dev)
+    rf = torch.as_tensor(np.stack([synth_rf(cfg, seed=s)
+                                   for s in range(BATCH)])).to(dev)
+    ft = [c[n] for n in TABLES]
     (q, k, v), args, chunk = lm_kernel_inputs()
-    for name, fn in (("flash_attention", lambda: flash_attention(q, k, v)),
-                     ("ssd_scan", lambda: ssd_scan(*args, chunk=chunk))):
+    for name, fn in (
+            ("fused_rf_to_envelope",
+             lambda: fused_rf_to_envelope(*ft, rf, decim=cfg.decim)),
+            ("fused_rf_to_power",
+             lambda: fused_rf_to_power(*ft, c["wall_taps"], rf,
+                                       decim=cfg.decim)),
+            ("flash_attention", lambda: flash_attention(q, k, v)),
+            ("ssd_scan", lambda: ssd_scan(*args, chunk=chunk))):
         kern, _ = profiled(fn)
-        say(f"[lm] {name}: one call makes {sum(e.count for e in kern)} CUDA "
-            "launches (torch.profiler), its launch counter counts the call: "
+        say(f"[launches] {name}: one call makes "
+            f"{sum(e.count for e in kern)} CUDA launches (torch.profiler), "
+            "its launch counter counts the call: "
             + "; ".join(f"{e.key[:70]} x{e.count} "
                         f"{e.self_device_time_total / 1e3:.4f} ms"
                         for e in kern))
-    del q, k, v, args
+    for modality in ("bmode", "power_doppler"):
+        engine_trace(modality, rf)
+    del q, k, v, args, c, rf, ft
     torch.cuda.empty_cache()
+
+
+def engine_trace(modality, rf) -> None:
+    """Where the fused engine's time goes on a device-resident batch: its
+    time a call by CUDA events around 20 calls in a row, the host's time
+    to enqueue a call, and, for one call under torch.profiler, each
+    kernel's device time, their sum and its share of the event time (the
+    rest the device idles, waiting for the host)."""
+    cfg = paper_config(variant="dynamic", modality=modality, fusion="fused")
+    engine = BatchedExecutor(cfg)
+    engine(rf)
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    t0 = time.perf_counter()
+    s.record()
+    for _ in range(20):
+        engine(rf)
+    e.record()
+    host = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    ms = s.elapsed_time(e) / 20
+    kern, _ = profiled(lambda: engine(rf))
+    busy = sum(k.self_device_time_total for k in kern) / 1e3
+    if busy == 0:
+        say(f"[engine trace] {modality} fused: {ms:.4f} ms a call (CUDA "
+            f"events), host {host:.4f} ms to enqueue a call; the profiler "
+            "saw no device time: the idle share is not measured")
+        return
+    fused = sum(k.self_device_time_total for k in kern
+                if any(n in k.key for n in ("demod_kernel",
+                                            "das_head_kernel"))) / 1e3
+    say(f"[engine trace] {modality} fused: {ms:.4f} ms a call (CUDA events, "
+        f"20 calls), host {host:.4f} ms to enqueue a call; one call under "
+        f"torch.profiler: {sum(k.count for k in kern)} launches, kernels "
+        f"{busy:.4f} ms = {busy / ms:.1%} of the event time (device idle "
+        f"{1 - busy / ms:.1%}); the span's two {fused:.4f} ms, the "
+        f"epilogue's {busy - fused:.4f} ms: "
+        + "; ".join(f"{k.key[:60]} x{k.count} "
+                    f"{k.self_device_time_total / 1e3:.4f} ms"
+                    for k in sorted(kern,
+                                    key=lambda k: -k.self_device_time_total)))
 
 
 def device_split(name, fn, n_top=6) -> None:
@@ -921,7 +1075,7 @@ def main() -> None:
     rows.update(phase_lm_kernels())
     launches.update(phase_lm_serve())
     phase_lm_outputs()
-    phase_lm_launches()
+    phase_launches()
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": rows[n]["source"],

@@ -141,5 +141,26 @@ def bsr_operator(cfg: UltrasoundConfig, tables: DelayTables) -> BsrOperator:
     for c, p, s, v in taps:
         blocks[c, pb[p], slot[c, pb[p], s // bs], p % bp, s % bs] = v + 0.0
     nnz_ratio = float(occupied.sum()) / float(n_c * n_pb * n_sb)
+    check_skipped_slots(col_idx, blocks)
     return BsrOperator(blocks=blocks, col_idx=col_idx, bp=bp, bs=bs,
                        nnz_ratio=nnz_ratio)
+
+
+def check_skipped_slots(col_idx: np.ndarray, blocks: np.ndarray) -> None:
+    """Raise ValueError unless every K slot that ``bsr_beamform``'s kernel
+    skips holds an all-zero block.
+
+    The kernel keeps slot 0 and each slot k > 0 whose column is above
+    slot k - 1's (``kernels.bsr_spmm.kept_slots``); the plain version,
+    which CPU tensors run, sums every slot. The two agree exactly when
+    the skipped blocks are zero, as ``bsr_operator``'s format makes them.
+    """
+    skipped = np.zeros(col_idx.shape, dtype=bool)
+    skipped[..., 1:] = col_idx[..., 1:] <= col_idx[..., :-1]
+    for c in range(col_idx.shape[0]):         # one channel's blocks at once
+        bad = np.count_nonzero(blocks[c][skipped[c]])
+        if bad:
+            raise ValueError(
+                f"BSR operator: channel {c} holds {bad} non-zero values in "
+                "K slots that bsr_beamform's kernel skips (a column not "
+                "above the slot before it); the kernel would drop them")

@@ -227,7 +227,7 @@ def resolve_fused(cfg: UltrasoundConfig, backend: str) -> FusedLowering:
             f"fused lowering(s) {sorted(usable)} for {cell} are "
             f"registered but not available on backend {backend!r} for "
             "this geometry (capability predicate failed: the CUDA fused "
-            "kernel reads int16 RF and takes no fusion_block)")
+            "kernel reads int16 RF and takes fusion_block in (64, 128, 256))")
     return live[sorted(live)[0]]
 
 
@@ -255,7 +255,7 @@ def _fused_dynamic_bmode_kernel(cfg, consts, rf):
     env = fused_rf_to_envelope(
         consts["carrier"], consts["lpf"], consts["idx"], consts["frac"],
         consts["apod"], consts["rot"], rf, decim=cfg.decim,
-        precision=cfg.precision)
+        bp=cfg.fusion_block, precision=cfg.precision)
     return bmode.compress_envelope(cfg, env)
 
 
@@ -264,14 +264,15 @@ def _fused_dynamic_power_kernel(cfg, consts, rf):
     r0 = fused_rf_to_power(
         consts["carrier"], consts["lpf"], consts["idx"], consts["frac"],
         consts["apod"], consts["rot"], consts["wall_taps"], rf,
-        decim=cfg.decim, precision=cfg.precision)
+        decim=cfg.decim, bp=cfg.fusion_block, precision=cfg.precision)
     return doppler.power_compress(cfg, consts, r0)
 
 
 def _fused_available(cfg: UltrasoundConfig, backend: str) -> bool:
-    # The CUDA demod reads int16 RF; its block shape is fixed, so an
-    # explicit fusion_block (a TPU tile size) cannot be honored.
-    if cfg.fusion_block is not None:
+    # The CUDA demod reads int16 RF; fusion_block is the DAS loop's pixel
+    # tile, which the kernel is built for in PIXEL_TILES only.
+    from repro_torch.kernels.fused_pipeline.ops import PIXEL_TILES
+    if cfg.fusion_block is not None and cfg.fusion_block not in PIXEL_TILES:
         return False
     return backend == "cpu" or cfg.rf_dtype == "int16"
 

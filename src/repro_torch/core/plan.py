@@ -58,14 +58,16 @@ class PipelinePlan:
     fusion: str = "none"
     precision: str = "f32"
     fusion_group: Optional[str] = None
+    # the fused kernel's pixel tile: cfg.fusion_block (None: its default)
+    fusion_block: Optional[int] = None
 
     def __post_init__(self):
         assert self.variant.concrete, "plan must carry a concrete variant"
         if self.fusion == "fused":
             assert self.fusion_group, "a fused plan must name its group"
         else:
-            assert self.fusion_group is None, \
-                "an unfused plan cannot carry a fusion_group"
+            assert self.fusion_group is None and self.fusion_block is None, \
+                "an unfused plan cannot carry fusion_group/fusion_block"
 
     def concretize(self, cfg: UltrasoundConfig) -> UltrasoundConfig:
         """The requested config with every planned decision applied."""
@@ -87,7 +89,7 @@ class PipelinePlan:
             "fusion": self.fusion,
             "precision": self.precision,
             "fusion_group": self.fusion_group,
-            "fusion_block": None,
+            "fusion_block": self.fusion_block,
             "config_key": self.config_key,
             "geometry_key": self.geometry_key,
             "provenance": self.provenance,
@@ -196,4 +198,5 @@ def plan_pipeline(cfg: UltrasoundConfig, policy: str = "fixed", *,
         policy=policy, config_key=config_hash(cfg),
         geometry_key=_geometry_key(cfg), provenance=provenance,
         stage_lowerings=stage_lowerings, fusion=cfg.fusion,
-        precision=cfg.precision, fusion_group=fusion_group)
+        precision=cfg.precision, fusion_group=fusion_group,
+        fusion_block=cfg.fusion_block)

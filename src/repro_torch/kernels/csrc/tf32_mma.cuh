@@ -1,5 +1,6 @@
 // Split-precision TF32 tensor-core products (3xTF32) and cp.async helpers
-// for flash_attention.cu, ssd_scan.cu and bsr_spmm.cu (sm_90a).
+// for flash_attention.cu, ssd_scan.cu and bsr_spmm.cu (sm_90a); the DAS
+// loop (das_common.cuh) takes the cp.async helpers.
 //
 // A TF32 operand keeps 10 of f32's 23 mantissa bits. Each f32 operand is
 // split as hi = tf32(a), lo = tf32(a - hi), and a product is accumulated

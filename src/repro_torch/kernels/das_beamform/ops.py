@@ -15,6 +15,21 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 6 + [_I] * 7 + [_P]
 
 
+def tile_plan() -> dict:
+    """The tile the kernel library is built for (it builds the library,
+    so it needs nvcc): ``bp`` pixels per tile, ``block_acqs``
+    acquisitions per thread block and ``stage_rows`` IQ rows (one
+    channel's frames of one sample) per stage buffer; a channel whose
+    window x acquisitions exceeds ``stage_rows`` is read from global
+    memory instead."""
+    fn = cuda_lib.kernel_fn("das_beamform", "das_tile_plan",
+                            [ctypes.POINTER(_I)] * 3, restype=None)
+    vals = [_I() for _ in range(3)]
+    fn(*map(ctypes.byref, vals))
+    return dict(zip(("bp", "block_acqs", "stage_rows"),
+                    (v.value for v in vals)))
+
+
 def das_beamform(idx, frac, apod, rot, iq, *, precision: str = "f32"):
     """Delay-and-sum beamform of a batch of acquisitions.
 
@@ -29,6 +44,12 @@ def das_beamform(idx, frac, apod, rot, iq, *, precision: str = "f32"):
     Returns:
       (B, n_pix, n_f, 2) f32. A CPU ``iq`` runs the plain version
       (``das_beamform_ref``); a CUDA ``iq`` launches the kernel or raises.
+
+    Precondition of the kernel: ``iq``, ``frac`` and ``rot`` are finite.
+    It leaves out the terms whose ``apod`` is exactly 0 (skipped, or
+    multiplied by 0 from a sample of another pixel's window), which is
+    exact only then (the plain version adds 0 * inf = nan there); IQ
+    demodulated from int16 RF is always finite.
     """
     if precision not in PRECISION_CODES:
         raise ValueError(f"unknown precision {precision!r}")

@@ -196,3 +196,29 @@ def test_kept_slots_rule_on_edge_rows():
                          [1, 1, 0]], dtype=torch.bool)
     assert torch.equal(kept_slots(cols), want)
     assert torch.equal(kept_slots(cols[None]), want[None])
+
+
+def _tiny_operator():
+    cfg = tcfg.tiny_config(variant="sparse", **SKIP_GEOMS["wide"])
+    return tdelays.bsr_operator(cfg, tdelays.compute_delay_tables(cfg))
+
+
+def test_operator_check_passes_the_built_operator():
+    """``bsr_operator`` runs ``check_skipped_slots`` on what it builds;
+    the tiny config's operator has skipped slots, and passes."""
+    op = _tiny_operator()
+    assert not kept_slots(torch.as_tensor(op.col_idx)).all()
+    tdelays.check_skipped_slots(op.col_idx, op.blocks)
+
+
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_operator_check_refuses_a_value_in_a_skipped_slot(where):
+    """One non-zero value in a slot the kernel skips: the CPU path would
+    add it and the kernel drop it, so the check raises."""
+    op = _tiny_operator()
+    skipped = np.argwhere(~kept_slots(torch.as_tensor(op.col_idx)).numpy())
+    c, pb, k = skipped[0 if where == "first" else -1]
+    blocks = op.blocks.copy()
+    blocks[c, pb, k, 0, 0, 1] = 1e-3
+    with pytest.raises(ValueError, match=f"channel {c} holds 1 non-zero"):
+        tdelays.check_skipped_slots(op.col_idx, blocks)

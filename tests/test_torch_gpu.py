@@ -32,7 +32,7 @@ import torch  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import (BatchedExecutor, consts_from_numpy,  # noqa: E402
-                              init_pipeline, tiny_config)
+                              init_pipeline, paper_config, tiny_config)
 from repro_torch.core.cnn_ops import sqrt_rn  # noqa: E402
 from repro_torch.data import synth_rf  # noqa: E402
 from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
@@ -45,11 +45,13 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.fused_pipeline import (  # noqa: E402
     fused_ref, fused_rf_to_envelope, fused_rf_to_power)
+from repro_torch.kernels.fused_pipeline.ref import demod_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
 TABLES = ("carrier", "lpf", "idx", "frac", "apod", "rot")
+DAS_TABLES = ("idx", "frac", "apod", "rot")
 
 
 @pytest.fixture
@@ -97,6 +99,115 @@ def test_fused_kernels_match_plain(cuda, kw, precision):
     _close(fused_rf_to_power(*tabs, c["wall_taps"], rf, **p),
            fused_ref(*tabs, rf, head="power_doppler", wall=c["wall_taps"],
                      **p))
+
+
+@pytest.fixture(scope="module")
+def paper():
+    """The paper's geometry on the card: its delay tables (real windows,
+    37 % of (pixel, channel) pairs of zero apodization), carrier, taps
+    and wall filter, two seeded RF acquisitions and their IQ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    cfg = paper_config(variant="dynamic", modality="power_doppler")
+    c = consts_from_numpy(init_pipeline(cfg), dev)
+    rf = torch.as_tensor(np.stack([synth_rf(cfg, seed=s)
+                                   for s in (1, 2)])).to(dev)
+    iq = demod_ref(c["carrier"], c["lpf"], rf, cfg.decim)
+    return cfg, c, rf, iq
+
+
+def _fused_pair(cfg, c, rf, n_pix=None, **kw):
+    """(kernel, plain) envelope and R0 on the first n_pix pixels."""
+    tabs = [c[k][:n_pix] if k in DAS_TABLES else c[k] for k in TABLES]
+    p = dict(decim=cfg.decim, **kw)
+    q = {k: v for k, v in p.items() if k != "bp"}
+    return ((fused_rf_to_envelope(*tabs, rf, **p), fused_ref(*tabs, rf, **q)),
+            (fused_rf_to_power(*tabs, c["wall_taps"], rf, **p),
+             fused_ref(*tabs, rf, head="power_doppler", wall=c["wall_taps"],
+                       **q)))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])
+def test_das_kernel_on_paper_tables(paper, precision):
+    cfg, c, _, iq = paper
+    tabs = [c[k] for k in DAS_TABLES]
+    assert (c["apod"] == 0).float().mean().item() > 0.3
+    _close(das_beamform(*tabs, iq, precision=precision),
+           das_beamform_ref(*tabs, iq, precision=precision))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])
+def test_fused_kernels_on_paper_tables(paper, precision):
+    cfg, c, rf, _ = paper
+    for out, ref in _fused_pair(cfg, c, rf, precision=precision):
+        _close(out, ref)
+
+
+@pytest.mark.parametrize("bp", [64, 128, 256])
+def test_fused_kernels_at_each_tile_on_a_ragged_pixel_count(paper, bp):
+    """Each pixel tile against the plain version, on the paper's tables cut
+    to 16,336 pixels: no multiple of 64, so every tile size ends ragged."""
+    cfg, c, rf, _ = paper
+    kernels.reset_launch_counts()
+    for out, ref in _fused_pair(cfg, c, rf, n_pix=16336, bp=bp):
+        _close(out, ref)
+    counts = kernels.launch_counts()
+    assert counts["fused_rf_to_envelope"] == counts["fused_rf_to_power"] == 1
+
+
+def test_kernels_are_bit_identical_run_to_run(paper):
+    cfg, c, rf, iq = paper
+    tabs = [c[k] for k in DAS_TABLES]
+    for prec in ("f32", "bf16"):
+        assert torch.equal(das_beamform(*tabs, iq, precision=prec),
+                           das_beamform(*tabs, iq, precision=prec))
+        first = _fused_pair(cfg, c, rf, precision=prec)
+        second = _fused_pair(cfg, c, rf, precision=prec)
+        for (a, _), (b, _) in zip(first, second):
+            assert torch.equal(a, b)
+
+
+def test_das_library_reports_its_tile_and_scratch(cuda):
+    """The constants that counts made outside the libraries read from them:
+    the DAS tile (each thread holds 32 complex sums: bp / 8 pixels x
+    block_acqs acquisitions) and the power head's scratch, none up to one
+    warp's 32 frames, the beamformed samples past them."""
+    import ctypes
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.das_beamform.ops import tile_plan
+    plan = tile_plan()
+    assert plan["bp"] in (64, 128, 256)
+    assert plan["bp"] // 8 * plan["block_acqs"] == 32
+    assert plan["stage_rows"] > 0
+    scratch = cuda_lib.kernel_fn(
+        "fused_pipeline", "fused_power_scratch_floats", [ctypes.c_int] * 3,
+        restype=ctypes.c_longlong)
+    assert scratch(4, 100, 32) == 0
+    assert scratch(4, 100, 33) == 2 * 4 * 100 * 33
+
+
+@pytest.mark.parametrize("bp", [64, 256])
+@pytest.mark.parametrize("n_f", [1, 33])
+def test_fused_kernels_on_wide_windows(cuda, n_f, bp):
+    """Random delays over all of n_s (windows wider than the stage: the
+    loop's path from global memory), a quarter of zero apodization, and
+    n_f of 1 and 33 (past one warp's frames: the power head's scratch)."""
+    cfg = tiny_config(variant="dynamic", n_c=8, n_f=n_f, nz=24, nx=13)
+    c = consts_from_numpy(init_pipeline(cfg), cuda)
+    g = torch.Generator().manual_seed(n_f)
+    n_pix = cfg.n_pix
+    c["idx"] = torch.randint(0, cfg.n_s - 1, (n_pix, cfg.n_c), generator=g,
+                             dtype=torch.int32).to(cuda)
+    c["frac"] = torch.rand(n_pix, cfg.n_c, generator=g).to(cuda)
+    apod = torch.rand(n_pix, cfg.n_c, generator=g)
+    c["apod"] = torch.where(apod < 0.25, 0.0, apod).to(cuda)
+    c["wall_taps"] = torch.tensor([0.5, -1.0, 0.5][:n_f], device=cuda)
+    rf = torch.randint(-2000, 2000, (3, cfg.n_l, cfg.n_c, n_f), generator=g,
+                       dtype=torch.int16).to(cuda)
+    for out, ref in _fused_pair(cfg, c, rf, bp=bp):
+        _close(out, ref)
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])

@@ -138,6 +138,45 @@ def test_fused_ref_reduced_precision_matches_reference_kernel(real,
     _close(out[0], ref)
 
 
+@pytest.mark.parametrize("head", ["bmode", "power_doppler"])
+@pytest.mark.parametrize("bp", [64, 128, 256])
+def test_fused_wrappers_match_reference_kernel_at_each_tile(real, bp, head):
+    """The wrappers take the reference's pixel tiles: on CPU tensors the
+    port's result (the plain version, which ignores ``bp``) matches the
+    reference kernel run with the same ``bp``. This pins the reference's
+    tiling, not the port's: the CUDA kernel's tiles are held to the plain
+    version by the card tests (test_torch_gpu.py)."""
+    jc, consts, rf = real
+    t = _args(consts, TABLES, torch.as_tensor)
+    wall = np.array(consts["wall_taps"])
+    if head == "bmode":
+        out = fused_rf_to_envelope(*t, torch.as_tensor(rf[:1]),
+                                   decim=jc.decim, bp=bp)
+        ref = j_env(*_args(consts, TABLES, jnp.asarray), jnp.asarray(rf[0]),
+                    decim=jc.decim, bp=bp)
+    else:
+        out = fused_rf_to_power(*t, torch.as_tensor(wall),
+                                torch.as_tensor(rf[:1]), decim=jc.decim,
+                                bp=bp)
+        ref = j_pow(*_args(consts, TABLES, jnp.asarray), jnp.asarray(wall),
+                    jnp.asarray(rf[0]), decim=jc.decim, bp=bp)
+    _close(out[0], ref)
+
+
+@pytest.mark.parametrize("bp", [32, 100, 512, True])
+def test_fused_wrappers_refuse_a_tile_the_kernel_lacks(real, bp):
+    """A ``bp`` outside (64, 128, 256) raises on either device: the tile
+    is never changed quietly."""
+    jc, consts, rf = real
+    t = _args(consts, TABLES, torch.as_tensor)
+    x = torch.as_tensor(rf[:1])
+    with pytest.raises(ValueError, match="pixel tile"):
+        fused_rf_to_envelope(*t, x, decim=jc.decim, bp=bp)
+    with pytest.raises(ValueError, match="pixel tile"):
+        fused_rf_to_power(*t, torch.as_tensor(np.array(consts["wall_taps"])),
+                          x, decim=jc.decim, bp=bp)
+
+
 def test_wrappers_route_cpu_tensors_to_plain_version(real):
     jc, consts, rf = real
     t = {k: torch.as_tensor(np.array(v)) for k, v in consts.items()}

@@ -307,12 +307,34 @@ def test_cuda_plan_operator_variants():
                 .stage_lowerings)["beamform"] == "pallas"
 
 
+@pytest.mark.parametrize("modality", ["bmode", "power_doppler"])
+@pytest.mark.parametrize("fusion_block", [64, 128, 256])
+def test_fusion_block_matches_reference_fused(modality, fusion_block):
+    """A fusion_block the CUDA kernel takes plans its fused lowering on
+    the card, stamps the block in the plan, and on the CPU matches the
+    reference's fused pipeline at the same block (interpret mode). The
+    plain version does not tile, so only the reference's tiling varies."""
+    jc = jcfg.tiny_config(variant=jcfg.Variant.DYNAMIC,
+                          modality=jcfg.Modality(modality), fusion="fused",
+                          fusion_block=fusion_block, **WIDE)
+    rf = synth_rf(jc, seed=SEEDS[0])
+    ref = np.asarray(jpipe.UltrasoundPipeline(jc)(jnp.asarray(rf)))
+    cfg = tiny_config(variant="dynamic", modality=modality, fusion="fused",
+                      fusion_block=fusion_block, **WIDE)
+    card = plan_pipeline(cfg, backend="cuda")
+    assert set(dict(card.stage_lowerings).values()) == {"pallas"}
+    assert card.json_dict()["fusion_block"] == fusion_block
+    pipe = UltrasoundPipeline(cfg, device="cpu")
+    assert dict(pipe.plan.stage_lowerings)["beamform"] == "pallas"
+    _check_image(modality, pipe(rf), ref)
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(variant="cnn", fusion="fused"), "no fused lowering is registered"),
     (dict(variant="auto"), "cannot resolve"),
     (dict(variant="dynamic", modality="doppler", fusion="fused"),
      "no fused lowering is registered"),
-    (dict(variant="dynamic", fusion="fused", fusion_block=64),
+    (dict(variant="dynamic", fusion="fused", fusion_block=100),
      "not available"),
     (dict(variant="dynamic", precision="bf16"), "no available lowering"),
     (dict(variant="dynamic", fusion="fused",
