@@ -25,14 +25,29 @@ last line):
                need beside the all-terms bound and the no-FMA instruction
                floor, and two runs bit-equal;
   4. serve   — `serve_ultrasound_stream` at the paper's geometry for
-               B-mode and power Doppler: the dynamic variant per stage
+               B-mode and power Doppler (pinned source, H2D on the
+               executor's copy stream): the dynamic variant per stage
                and fused (power also with fusion_block 128), the cnn and
                sparse variants per stage, with the
                launch counters zeroed before and read after each run;
-               then the split of one batch: host-to-device copy, and each
-               stage of the engine on a device-resident batch;
+               then the split of one batch: the pinned host-to-device
+               copy on the copy stream (CUDA events), and each stage of
+               the engine on a device-resident batch;
   5. outputs — images from the card against the plain pipeline (paper
                geometry, on the card) and against the CPU (small input);
+  5b. multitenant — `serve_multitenant` at the paper's geometry, B-mode
+               and colour Doppler tenants, heuristic plan: a warm pool of
+               the groups (one CUDA graph each; capture and warm-up
+               times; replay against the eager engine on the same staged
+               batch, bit for bit; replay and pinned H2D times), then
+               windows at the reference CLI's defaults (async and block
+               drain), one with arrivals faster than the card serves, a
+               replay of a generated burst trace, and one of at least 2 s
+               for energy; each prints rates, latencies, occupancy,
+               overlap, transfer times, peak memory and NVML energy, and
+               checks its bounds and sampled frames against the lone
+               frame (bit for bit through the engine, within the image
+               tolerance of the plain pipeline);
   6. lm kernels — the ultrasound tensors freed, `flash_attention` at
                zamba2's prefill shape and `ssd_scan` at its scoring shape,
                f32, each against its plain version, timed as in 3, with
@@ -83,11 +98,17 @@ from repro_torch.core import (BatchedExecutor, PRECISION_TOLERANCES,  # noqa: E4
                               Modality, consts_from_numpy, init_pipeline,
                               monolithic_pipeline_fn, paper_config,
                               stage_fns, tiny_config)
+from repro_torch.bench.resources import (NvmlEnergyMeter,  # noqa: E402
+                                        nvml_indices_for_local_gpus)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import demod  # noqa: E402
+from repro_torch.core.aot import warm_pool  # noqa: E402
+from repro_torch.core.executor import _pad_rows  # noqa: E402
+from repro_torch.core.staging import StagingRing  # noqa: E402
 from repro_torch.core.delays import check_skipped_slots  # noqa: E402
 from repro_torch.data import synth_train_batch  # noqa: E402
 from repro_torch.data import synth_rf  # noqa: E402
+from repro_torch.data.traces import generate_trace, mixed_rate  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
                                           bsr_beamform, bsr_beamform_ref,
@@ -100,6 +121,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.fused_pipeline import (  # noqa: E402
     fused_ref, fused_rf_to_envelope, fused_rf_to_power)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref  # noqa: E402
+from repro_torch.launch.scheduler import (BatchPolicy,  # noqa: E402
+                                          make_mixed_streams,
+                                          make_trace_streams,
+                                          serve_multitenant)
 from repro_torch.launch.serve import (SyntheticAcquisitionSource,  # noqa: E402
                                       _grow_cache, serve_session,
                                       serve_ultrasound_stream)
@@ -122,7 +147,8 @@ NO_FMA_INSTR_PER_S = PEAK_F32_FLOP_PER_S / 2
 BATCH = 4
 N_BATCHES = 16
 F32_TOL = 1e-5          # max|kernel - plain| / max|plain|, see test_torch_gpu
-IMAGE_TOL = {"bmode": 1.2e-3, "power_doppler": 1e-4}   # test_torch_slice
+IMAGE_TOL = {"bmode": 1.2e-3, "power_doppler": 1e-4,   # test_torch_slice
+             "doppler": 1e-4}
 TABLES = ("carrier", "lpf", "idx", "frac", "apod", "rot")
 DAS_TABLES = ("idx", "frac", "apod", "rot")
 # (variant, fusion) of each served path; the kernel each must launch
@@ -131,6 +157,16 @@ PATHS = (("dynamic", "none"), ("dynamic", "fused"), ("cnn", "none"),
 FUSION_BLOCK = 128      # a fused run with the pixel tile set, not default
 FUSED_KERNEL = {"bmode": "fused_rf_to_envelope",
                 "power_doppler": "fused_rf_to_power"}
+
+# Multi-tenant serving at the paper's geometry: the reference CLI's
+# defaults (4 clients, 24 frames each at base 120 fps, max batch 4, 5 ms
+# queue delay, 2 in flight)
+MT_CLIENTS, MT_FRAMES, MT_BASE_FPS = 4, 24, 120.0
+MT_POLICY = BatchPolicy(max_batch=4, max_queue_delay_ms=5.0)
+MT_IN_FLIGHT = 2
+MT_OVERLOAD = 2.0        # offered load over the measured service rate
+MT_ENERGY_S = 2.5        # the energy window: its slowest client's span
+MT_SAMPLE = (0, 1, -1)   # frames of each stream held to the lone frame
 
 # LM half: zamba2-1.2b, served and scored at full width and depth
 ARCH = "zamba2-1.2b"
@@ -272,7 +308,21 @@ def phase_device() -> str:
         capture_output=True, text=True, timeout=60, check=True)
     for line in smi.stdout.strip().splitlines():
         say(line.strip())
+    # the NVML idle baseline, before any work heats the board: every
+    # energy meter of this process subtracts this first reading
+    idle = NvmlEnergyMeter(
+        device_indices=nvml_indices_for_local_gpus([0])).idle_w
+    say(f"[device] idle board power {idle} W (NVML, before any work)")
+    check(idle is not None, "NVML gives no board power: energy unmeasured")
     return name
+
+
+def path_counts() -> dict:
+    """Launches since the last reset: the wrappers' own and those of the
+    CUDA graphs replayed (each replay runs the wrappers' kernels it
+    captured)."""
+    replayed = kernels.replayed_launch_counts()
+    return {k: n + replayed[k] for k, n in kernels.launch_counts().items()}
 
 
 def phase_build() -> None:
@@ -605,7 +655,7 @@ def phase_serve(source) -> dict:
         stats = serve_ultrasound_stream(
             cfg, batch=BATCH, n_batches=N_BATCHES, depth=2, pool=2,
             source=source)
-        counts = kernels.launch_counts()
+        counts = path_counts()
         setup = time.perf_counter() - t0 - stats["wall_s"]
         plan = stats["plan"]
         lat = stats["latency"]
@@ -637,19 +687,34 @@ def phase_serve(source) -> dict:
     return launches
 
 
+def h2d_ms(engine, host, n=5) -> tuple:
+    """Device time of ``engine.place(host)``: CUDA events on the
+    executor's copy stream around the copy, ``n`` copies after one
+    untimed, with nothing else queued on the card; returns (mean ms, the
+    last device batch)."""
+    engine.place(host)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record(engine.copy_stream)
+        x = engine.place(host)
+        e.record(engine.copy_stream)
+        times.append((s, e))
+    torch.cuda.synchronize()
+    return float(np.mean([s.elapsed_time(e) for s, e in times])), x
+
+
 def split(cfg, source, stats) -> None:
-    """Where one batch's time goes: host->device copy of the pageable RF
-    batch (host clock), then each schedulable unit of the engine on a
-    device-resident batch, and the whole engine (CUDA events)."""
-    dev = torch.device("cuda")
+    """Where one batch's time goes: the host->device copy of the pinned
+    RF batch on the executor's copy stream, then each schedulable unit of
+    the engine on a device-resident batch, and the whole engine (CUDA
+    events)."""
     engine = BatchedExecutor(cfg)
     host = source.next()
-    t = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        x = torch.as_tensor(host).to(dev)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter() - t0)
+    check(torch.from_numpy(host).is_pinned(), "the source is not pinned")
+    h2d, x = h2d_ms(engine, host)
     fns = stage_fns(engine.cfg, "cuda")
     engine(x)
     events = {name: [] for name in fns}
@@ -673,7 +738,8 @@ def split(cfg, source, stats) -> None:
         f"{name} {np.mean([a.elapsed_time(z) for a, z in ev]):.3f} ms"
         for name, ev in events.items())
     say(f"[split] {stats['name']} fusion={cfg.fusion}: per batch of "
-        f"{BATCH}: h2d {np.mean(t) * 1e3:.3f} ms, engine on device "
+        f"{BATCH}: h2d {h2d:.3f} ms (pinned, copy stream, CUDA events; "
+        f"{BATCH * cfg.input_bytes / h2d / 1e6:.1f} GB/s), engine on device "
         f"{s.elapsed_time(e) / 5:.3f} ms ({stages}), served "
         f"{stats['wall_s'] / N_BATCHES * 1e3:.3f} ms")
 
@@ -713,6 +779,174 @@ def phase_outputs(source) -> None:
         err = (got - want).abs().max().item()
         say(f"[outputs] small {what} card vs cpu: max|d|={err:.3e}")
         check(err <= IMAGE_TOL[modality], "card disagrees with cpu")
+
+
+def mt_frames(streams, modality, n=BATCH) -> list:
+    """``n`` frames of the tenants of ``modality``, cycling their pools."""
+    specs = [s for s in streams if s.cfg.modality.value == modality]
+    return [specs[i % len(specs)].frame_rf(i // len(specs))
+            for i in range(n)]
+
+
+def mt_pool(streams) -> tuple:
+    """The warm pool of the tenants' groups: capture and warm-up times,
+    replay against the eager engine on the same staged batch (bit for
+    bit), and per group the replay's and the pinned H2D's device times.
+    Returns (pool, mean of max(replay, H2D) ms over the groups)."""
+    pool = warm_pool(streams, max_batch=MT_POLICY.max_batch,
+                     plan_policy="heuristic")
+    check(len(pool) == 2, f"{len(pool)} groups, want 2")
+    service = []
+    for key in pool.keys():
+        entry = pool.get(key)
+        eng, prog = entry.engine, entry.program
+        what = eng.cfg.modality.value
+        check(eng.plan.backend == "cuda" and prog.compile_s > 0
+              and prog.launches, f"{what}: no graph captured ({prog})")
+        ring = StagingRing(MT_POLICY.max_batch, eng.cfg.rf_shape,
+                           eng.cfg.rf_dtype, depth=1, pin_memory=True)
+        buf, _ = ring.stage(mt_frames(streams, what))
+        staged = eng.place(buf)
+        replay = eng.dispatch_staged(staged, MT_POLICY.max_batch)
+        eager = eng.run(staged)
+        check(torch.equal(replay, eager),
+              f"{what}: graph replay differs from the eager engine")
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        for _ in range(20):
+            eng.dispatch_staged(staged, MT_POLICY.max_batch)
+        e.record()
+        torch.cuda.synchronize()
+        replay_ms = s.elapsed_time(e) / 20
+        copy_ms, _ = h2d_ms(eng, buf, n=10)
+        service.append(max(replay_ms, copy_ms))
+        say(f"[multitenant] group {what} ({key[0]}): plan "
+            f"{eng.plan.variant.value} {dict(eng.plan.stage_lowerings)}; "
+            f"CUDA graph captured in compile_s={prog.compile_s:.4f}s, "
+            f"warmup_s={prog.warmup_s:.4f}s (warm-up run, capture, one "
+            f"replay); one replay runs {prog.launches}; replay == eager "
+            f"on the same staged batch: bit-equal; replay "
+            f"{replay_ms:.4f} ms, pinned H2D {copy_ms:.4f} ms a batch of "
+            f"{MT_POLICY.max_batch} ({MT_POLICY.max_batch * eng.cfg.input_bytes / copy_ms / 1e6:.1f} GB/s; CUDA events)")
+        del replay, eager, staged
+    return pool, float(np.mean(service))
+
+
+def mt_window(label, streams, pool, drain, profile) -> dict:
+    """One serving window, counts zeroed before and read after; prints
+    its numbers and checks its bounds, energy and sampled frames."""
+    kernels.reset_launch_counts()
+    st = serve_multitenant(streams, policy=MT_POLICY, in_flight=MT_IN_FLIGHT,
+                           drain=drain, pool=pool, plan_policy="heuristic",
+                           collect_outputs=True, load_profile=profile)
+    counts = path_counts()
+    lat, qd = st["latency"], st["queue_delay"]
+    occ, ifo, res = st["occupancy"], st["in_flight_occupancy"], \
+        st["resources"]
+    say(f"[multitenant] {label} ({st['name']}): {st['acquisitions']} "
+        f"acquisitions ({st['frames']} frames) in {st['wall_s']:.4f}s = "
+        f"{st['sustained_mbps']:.1f} MB/s, {st['fps']:.1f} FPS; queue "
+        f"delay p50 {qd['p50_s'] * 1e3:.3f} ms p99 "
+        f"{qd['p99_s'] * 1e3:.3f} ms; latency p50 {lat['p50_s'] * 1e3:.3f}"
+        f" ms p99 {lat['p99_s'] * 1e3:.3f} ms; occupancy mean "
+        f"{occ['mean_occupancy']:.2f} max {occ['max_occupancy']} of "
+        f"{occ['max_batch']} ({occ['batches']} batches); in flight mean "
+        f"{ifo['mean_depth']:.2f} max {ifo['max_depth']}; device_busy_frac "
+        f"{st['device_busy_frac']:.4f}, overlap_frac "
+        f"{st['overlap_frac']:.4f}; stage_copy_s {st['stage_copy_s']:.4f},"
+        f" h2d_s {st['h2d_s']:.4f}, d2h_s {st['d2h_s']:.4f}, "
+        f"transfer_frac {st['transfer_frac']:.4f}; peak_mem "
+        f"{res['peak_memory_bytes'] / 1e6:.1f} MB "
+        f"({res['memory_source']}); energy {res['energy_joules']} J above "
+        f"idle {res['idle_power_w']} W over {res['duration_s']:.3f}s, "
+        f"{res['energy_samples']} NVML samples (board counter "
+        f"{res['energy_counter_joules']} J, absolute); launches={counts}")
+    check(occ["max_occupancy"] <= MT_POLICY.max_batch,
+          f"{label}: occupancy past max_batch")
+    check(ifo["max_depth"] <= MT_IN_FLIGHT, f"{label}: ring past in_flight")
+    check(res["energy_joules"] is not None, f"{label}: energy not measured")
+    check(counts["das_beamform"] == occ["batches"]
+          and kernels.launch_counts()["das_beamform"] == 0,
+          f"{label}: das_beamform not replayed once a batch: {counts}")
+    dev = torch.device("cuda")
+    entries = {pool.get(k).engine.cfg.modality: pool.get(k).engine
+               for k in pool.keys()}
+    worst = {}
+    for spec in streams:
+        eng = entries[spec.cfg.modality]
+        outs = st["outputs"][spec.stream_id]
+        what = spec.cfg.modality.value
+        for k in sorted({k % len(outs) for k in MT_SAMPLE}):
+            rf = spec.frame_rf(k)
+            padded, _ = _pad_rows(rf[None], MT_POLICY.max_batch)
+            x = torch.as_tensor(padded).to(dev)
+            alone = eng.run(x)[0].cpu().numpy()
+            check(np.array_equal(outs[k], alone),
+                  f"{label}: {spec.stream_id}[{k}] differs from the lone "
+                  "frame through the engine")
+            plain = monolithic_pipeline_fn(eng.cfg)(eng.consts, x[:1])[0]
+            d = float(np.abs(outs[k] - plain.cpu().numpy()).max())
+            check(d <= IMAGE_TOL[what], f"{label}: {spec.stream_id}[{k}] "
+                  f"{d:.3e} from the plain pipeline")
+            worst[what] = max(worst.get(what, 0.0), d)
+    say(f"[multitenant] {label}: sampled frames {MT_SAMPLE} of each stream "
+        "equal the lone frame through the engine bit for bit; max|d| "
+        "against the plain monolithic pipeline "
+        + ", ".join(f"{m} {d:.3e} (tol {IMAGE_TOL[m]:.0e})"
+                    for m, d in worst.items()))
+    del st
+    return counts
+
+
+def phase_multitenant() -> dict:
+    """Multi-tenant serving at the paper's geometry: B-mode and colour
+    Doppler tenants, heuristic plan, through a warm pool of CUDA graphs."""
+    cfg_b = paper_config(variant="auto")
+    cfg_d = cfg_b.with_(modality=Modality.DOPPLER)
+
+    def mixed(base_fps, n_frames):
+        return make_mixed_streams(MT_CLIENTS, cfg_b, cfg_d,
+                                  base_fps=base_fps, n_frames=n_frames,
+                                  deadline_ms=None)
+
+    streams = mixed(MT_BASE_FPS, MT_FRAMES)
+    t0 = time.perf_counter()
+    n = sum(len({s.frame_rf(k).ctypes.data for k in range(s.n_frames)})
+            for s in streams)
+    say(f"[multitenant] {n} distinct paper-geometry frames of "
+        f"{MT_CLIENTS} tenants synthesized in {time.perf_counter() - t0:.1f}s"
+        " (shared by every window)")
+    pool, service_ms = mt_pool(streams)
+    # offered load MT_OVERLOAD times what the card serves: batches of
+    # max_batch, each taking the larger of its replay and its copy
+    capacity = MT_POLICY.max_batch / service_ms * 1e3
+    rate_sum = sum(mixed_rate(i, 1.0) for i in range(MT_CLIENTS))
+    over_fps = MT_OVERLOAD * capacity / rate_sum
+    say(f"[multitenant] measured service: {service_ms:.4f} ms a batch of "
+        f"{MT_POLICY.max_batch} = {capacity:.0f} acquisitions/s; the "
+        f"overload window's base rate {over_fps:.1f} fps offers "
+        f"{MT_OVERLOAD:g}x that")
+    n_energy = int(MT_ENERGY_S * mixed_rate(MT_CLIENTS - 1, MT_BASE_FPS)) + 1
+    burst = generate_trace("burst", n_streams=MT_CLIENTS, n_frames=MT_FRAMES,
+                           base_fps=MT_BASE_FPS)
+    windows = (
+        ("default", streams, "async", "steady"),
+        ("default", streams, "block", "steady"),
+        ("overload", mixed(over_fps, 4 * MT_FRAMES), "async", "overload"),
+        ("burst trace", make_trace_streams(burst, cfg_b, cfg_d,
+                                           deadline_ms=None),
+         "async", "burst"),
+        (f"energy ({n_energy} frames a client)",
+         mixed(MT_BASE_FPS, n_energy), "async", "steady"),
+    )
+    launches = {name: 0 for name in kernels.launch_counts()}
+    for label, ws, drain, profile in windows:
+        for name, k in mt_window(label, ws, pool, drain, profile).items():
+            launches[name] += k
+    del pool
+    torch.cuda.empty_cache()
+    return launches
 
 
 def close_enough(name, out, ref, rtol, atol) -> float:
@@ -1062,13 +1296,16 @@ def main() -> None:
     phase_build()
     t0 = time.perf_counter()
     source = SyntheticAcquisitionSource(
-        paper_config(variant="dynamic"), BATCH, pool=2, seed=0)
+        paper_config(variant="dynamic"), BATCH, pool=2, seed=0,
+        pin_memory=True)
     say(f"[source] {BATCH * 2} paper-geometry acquisitions in "
         f"{time.perf_counter() - t0:.1f}s")
     rows = phase_kernels(source)
     launches = phase_serve(source)
     phase_outputs(source)
     del source
+    for kernel, n in phase_multitenant().items():
+        launches[kernel] += n
     torch.cuda.empty_cache()
     say(f"[lm] ultrasound phases freed; "
         f"{torch.cuda.memory_allocated() / 1e6:.1f} MB still allocated")

@@ -1,7 +1,8 @@
 """repro_torch.core — the ultrasound pipelines in PyTorch.
 
 Module map, as in the reference package: config -> stages (via the
-lowering registry) -> plan -> pipeline / executor.
+lowering registry) -> plan -> pipeline / executor; staging rings and
+warm pools (CUDA-graph capture) feed the serving schedulers.
 """
 
 from repro_torch.core.config import (  # noqa: F401
@@ -15,6 +16,12 @@ from repro_torch.core.config import (  # noqa: F401
     config_hash,
     paper_config,
     tiny_config,
+)
+from repro_torch.core.aot import (  # noqa: F401
+    AotProgram,
+    WarmPool,
+    aot_warm,
+    warm_pool,
 )
 from repro_torch.core.pipeline import (  # noqa: F401
     UltrasoundPipeline,
@@ -32,3 +39,4 @@ from repro_torch.core.stages import (  # noqa: F401
     stage_fns,
 )
 from repro_torch.core.executor import BatchedExecutor  # noqa: F401
+from repro_torch.core.staging import StagingRing  # noqa: F401

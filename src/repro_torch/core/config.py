@@ -214,6 +214,10 @@ class UltrasoundConfig:
         return self.nz * self.nx
 
     @property
+    def rf_shape(self) -> Tuple[int, int, int]:
+        return (self.n_l, self.n_c, self.n_f)
+
+    @property
     def input_bytes(self) -> int:
         """B_in for the throughput metric (paper eq. 2)."""
         itemsize = 2 if self.rf_dtype == "int16" else 4

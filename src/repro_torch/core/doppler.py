@@ -49,13 +49,24 @@ def apply_wall_filter(consts, bf: torch.Tensor) -> torch.Tensor:
 def _smooth(cfg: UltrasoundConfig, consts, img: torch.Tensor) -> torch.Tensor:
     """(B, nz, nx) -> (B, nz, nx) box smoothing, SAME padding (2-D conv).
 
-    TF32 must be off for this conv on the card (repro_torch sets it).
+    Every tap's product in one elementwise op over the windows, then the
+    products summed in a pinned order (row by row), each sum its own
+    rounded op: every pixel is computed the same way whatever the batch
+    size or its row in the batch. ``F.conv2d`` is not — on the CPU its
+    result for a frame in a batch of 2 or more differs in the last bit
+    from the frame alone — so a batched frame would not equal the lone
+    frame bit for bit.
     """
     k = consts["smooth"]                              # (k, k)
-    lo_h, hi_h = _same(k.shape[0])
-    lo_w, hi_w = _same(k.shape[1])
-    x = F.pad(img[:, None], (lo_w, hi_w, lo_h, hi_h))
-    return F.conv2d(x, k[None, None])[:, 0]
+    kh, kw = k.shape
+    lo_h, hi_h = _same(kh)
+    lo_w, hi_w = _same(kw)
+    x = F.pad(img, (lo_w, hi_w, lo_h, hi_h))
+    prod = x.unfold(1, kh, 1).unfold(2, kw, 1) * k    # (B, nz, nx, kh, kw)
+    acc = prod[..., 0, 0]
+    for t in range(1, kh * kw):
+        acc = acc + prod[..., t // kw, t % kw]
+    return acc
 
 
 def _same(k: int):

@@ -60,6 +60,11 @@ class PipelinePlan:
     fusion_group: Optional[str] = None
     # the fused kernel's pixel tile: cfg.fusion_block (None: its default)
     fusion_block: Optional[int] = None
+    # serving context (`with_serving`): how the program was warmed
+    # ("aot" / "pool") and the scheduler's in-flight bound; None outside
+    # a serving window
+    warm_start: Optional[str] = None
+    in_flight: Optional[int] = None
 
     def __post_init__(self):
         assert self.variant.concrete, "plan must carry a concrete variant"
@@ -69,21 +74,35 @@ class PipelinePlan:
             assert self.fusion_group is None and self.fusion_block is None, \
                 "an unfused plan cannot carry fusion_group/fusion_block"
 
+    @property
+    def donate(self) -> bool:
+        """The port never donates an input buffer to the engine."""
+        return False
+
+    def with_serving(self, *, warm_start: Optional[str],
+                     in_flight: Optional[int]) -> "PipelinePlan":
+        """This plan, stamped with its serving context (a telemetry stamp;
+        the decision axes are unchanged)."""
+        if in_flight is not None and in_flight < 1:
+            raise ValueError(f"in_flight must be >= 1 (got {in_flight})")
+        return dataclasses.replace(self, warm_start=warm_start,
+                                   in_flight=in_flight)
+
     def concretize(self, cfg: UltrasoundConfig) -> UltrasoundConfig:
         """The requested config with every planned decision applied."""
         return cfg.with_(variant=self.variant, exec_map=self.exec_map,
                          stage_lowerings=self.stage_lowerings)
 
     def json_dict(self) -> dict:
-        """The reference's plan stamp. The port compiles nothing ahead of
-        time (``jit_stages`` all False), donates no buffer and runs on
-        one device."""
+        """The reference's plan stamp. The port compiles no stage
+        (``jit_stages`` all False), donates no buffer and runs on one
+        device."""
         return {
             "policy": self.policy,
             "backend": self.backend,
             "variant": self.variant.value,
             "exec_map": self.exec_map,
-            "donate": False,
+            "donate": self.donate,
             "jit_stages": {k: False for k, _ in self.stage_lowerings},
             "stage_lowerings": {k: v for k, v in self.stage_lowerings},
             "fusion": self.fusion,
@@ -95,8 +114,8 @@ class PipelinePlan:
             "provenance": self.provenance,
             "devices": 1,
             "mesh_shape": None,
-            "warm_start": None,
-            "in_flight": None,
+            "warm_start": self.warm_start,
+            "in_flight": self.in_flight,
         }
 
 

@@ -11,6 +11,11 @@ Each wrapper counts its launches in a plain int attribute
 (``das_beamform.launches``), so a run can show that the main path went
 through the kernel. `launch_counts` / `reset_launch_counts` read and
 zero them all.
+
+A CUDA graph replay (`repro_torch.core.aot`) runs the kernels it
+captured without calling their wrappers, so it adds to no wrapper's
+count: it adds the launches it captured to `replayed_launch_counts`
+instead, which `reset_launch_counts` zeroes as well.
 """
 
 from repro_torch.kernels.bsr_spmm import bsr_beamform, bsr_spmm  # noqa: F401
@@ -26,10 +31,26 @@ WRAPPERS = (das_beamform, fused_rf_to_envelope, fused_rf_to_power,
             bsr_spmm, bsr_beamform, flash_attention, ssd_scan)
 
 
+_REPLAYED = {w.__name__: 0 for w in WRAPPERS}
+
+
 def launch_counts() -> dict:
     return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def replayed_launch_counts() -> dict:
+    """Wrapper calls run by CUDA graph replays since the last reset."""
+    return dict(_REPLAYED)
+
+
+def count_replay(captured: dict) -> None:
+    """One replay of a graph that captured ``captured`` wrapper calls."""
+    for name, n in captured.items():
+        _REPLAYED[name] += n
 
 
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
+    for name in _REPLAYED:
+        _REPLAYED[name] = 0

@@ -22,8 +22,9 @@ from repro_torch.kernels.das_beamform.ops import PRECISION_CODES
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # bsr_beamform's arrival counters, per (device, stream): zero between
-# calls (each call leaves them so), made once from host zeros (a copy, no
-# kernel launch)
+# calls (each call leaves them so), zeroed once on the device when made
+# (a memset, which a CUDA graph capture may record; a copy from pageable
+# host memory it may not)
 _ARRIVALS: dict = {}
 
 
@@ -135,7 +136,8 @@ def bsr_beamform(cols, blocks, iq_b, *, precision: str = "f32"):
     stream = cuda_lib.stream_of(dev)
     arrivals = _ARRIVALS.get((dev.index, stream))
     if arrivals is None or arrivals.numel() < n_arr:
-        arrivals = torch.zeros(max(n_arr, 1), dtype=torch.int32).to(dev)
+        arrivals = torch.zeros(max(n_arr, 1), dtype=torch.int32,
+                               device=dev)
         _ARRIVALS[(dev.index, stream)] = arrivals
     fn = cuda_lib.kernel_fn("bsr_spmm", "bsr_beamform_launch",
                             [_P] * 5 + [_L, _P, _L] + [_I] * 10 + [_P])

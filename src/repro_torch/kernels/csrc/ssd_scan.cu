@@ -61,7 +61,8 @@
 // which (a) needs most of: Q (Q + 4) for G, Q (64 N tiles + 8) for B,
 // one or two x tiles of Q x 72. Every chunk up to 128 steps that the
 // SIMT kernel before this one took fits, at a wider N; chunks past 128
-// fit up to 160 steps at N <= 64 and 144 at N <= 128.
+// fit up to 160 steps at N <= 64 and 144 at N <= 128. A longer chunk is
+// run at the longest that fits (ssd_scan_max_chunk).
 
 #include <cuda_runtime.h>
 
@@ -633,6 +634,17 @@ extern "C" long long ssd_scan_scratch_floats(int batch, int L, int H, int P,
                                              int N, int Q) {
   if (batch <= 0 || L <= 0 || H <= 0 || P <= 0 || N <= 0 || Q <= 0) return 0;
   return (long long)scratch_floats(batch, dims_of(L, H, P, N, Q));
+}
+
+// The largest chunk, at most Q steps, whose tiles fit shared memory at
+// state width N (0 if none does): the wrapper launches at this chunk
+// rather than refuse a longer one. The scan's result does not depend on
+// the chunk but through rounding.
+extern "C" int ssd_scan_max_chunk(int N, int Q) {
+  if (N <= 0) return 0;
+  for (int q = Q; q > 0; --q)
+    if (fits(dims_of(q, 1, 1, N, q))) return q;
+  return 0;
 }
 
 // Launches of one call: 1 for a single chunk, else 3.

@@ -30,7 +30,9 @@ _ARGTYPES = [_P] * 6 + [_LL] + [_I] * 7 + [_P]
 
 
 def ssd_scan(log_a, x, b, c, *, chunk: int = DEFAULT_CHUNK):
-    """Batched multi-head SSD scan in chunks of ``min(chunk, L)`` steps.
+    """Batched multi-head SSD scan in chunks of ``min(chunk, L)`` steps
+    (on the card: at most the longest chunk the kernel's tiles fit at
+    this N, which the library reports).
 
     Args:
       log_a: (batch, L, H) log decays (<= 0).
@@ -39,7 +41,7 @@ def ssd_scan(log_a, x, b, c, *, chunk: int = DEFAULT_CHUNK):
     Returns:
       y (batch, L, H, P), dtype of ``x``. A CPU ``x`` runs the plain step
       recurrence (``ssd_scan_ref``); a CUDA ``x`` launches the kernel or
-      raises (a chunk whose tiles pass shared memory, for one).
+      raises (a state width N at which no chunk fits, for one).
     """
     bsz, length, heads, p = x.shape
     n = b.shape[-1]
@@ -60,7 +62,14 @@ def ssd_scan(log_a, x, b, c, *, chunk: int = DEFAULT_CHUNK):
     for t, name in ((la, "log_a"), (bf, "b"), (cf, "c")):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    q = min(chunk, length)
+    # the longest chunk up to the one asked for whose tiles fit shared
+    # memory at this N: past it the kernel runs shorter chunks, which
+    # changes the result only through rounding
+    q = cuda_lib.kernel_fn("ssd_scan", "ssd_scan_max_chunk", [_I] * 2,
+                           restype=_I)(n, min(chunk, length))
+    if q < 1:
+        raise RuntimeError(f"ssd_scan: no chunk fits shared memory at "
+                           f"state width N={n}")
     y = torch.empty((bsz, length, heads, p), dtype=torch.float32,
                     device=dev)
     sizes = (bsz, length, heads, p, n, q)

@@ -9,18 +9,27 @@ greedily (`serve_session`). zamba2-1.2b is the ported architecture:
       [--device cpu]
 
 Ultrasound half — `serve_ultrasound_stream` feeds RF batches from a
-synthetic acquisition source through a `BatchedExecutor`, keeps up to
-``depth`` batches in flight on the device's stream, and reports
-sustained MB/s / FPS and the completion-interval latency distribution
-with the reference's stats keys. Peak memory is
-``torch.cuda.max_memory_allocated`` over the timed window; energy is not
-measured (None).
+synthetic acquisition source (pinned host memory on the card) through a
+`BatchedExecutor`: each batch is copied H2D anew on the executor's copy
+stream (`place`) and launched after that copy's event
+(`dispatch_staged`), so batch i+1's copy overlaps batch i's compute; up
+to ``depth`` batches are in flight. It reports sustained MB/s / FPS,
+the completion-interval latency distribution and the window's measured
+resources (`repro_torch.bench.resources`: peak memory, NVML energy)
+with the reference's stats keys.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --ultrasound \\
-      --batch 4 --batches 32 --depth 2 [--variant dynamic|cnn|sparse|auto] \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --ultrasound \
+      --batch 4 --batches 32 --depth 2 [--variant dynamic|cnn|sparse|auto] \
       [--device cpu]
 
-Both run on the card unless ``--device cpu`` is given.
+``--multitenant`` serves N mixed-modality clients through the
+dynamic-batching scheduler (`repro_torch.launch.scheduler`):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --ultrasound \
+      --multitenant --clients 4 --max-batch 4 --queue-delay-ms 5 \
+      --frames 24 --in-flight 2 --drain async [--device cpu]
+
+Everything runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -113,20 +122,27 @@ class SyntheticAcquisitionSource:
 
     Pre-generates a pool of distinct (batch, n_l, n_c, n_f) acquisitions
     and cycles it, so generation stays out of the streaming window while
-    every dispatch still uploads a host buffer. Frame seeds come from
-    `seed_space`, as in the reference, so both packages stream the same
-    bytes for the same seed.
+    every dispatch still uploads a host buffer. With ``pin_memory`` the
+    pool lives in page-locked memory (numpy views of pinned tensors), so
+    the upload is an asynchronous DMA; a source that serves the card
+    should pin. Frame seeds come from `seed_space`, as in the reference,
+    so both packages stream the same bytes for the same seed.
     """
 
-    def __init__(self, cfg, batch: int, *, pool: int = 4, seed: int = 0):
+    def __init__(self, cfg, batch: int, *, pool: int = 4, seed: int = 0,
+                 pin_memory: bool = False):
         from repro_torch.data import seed_space, synth_rf
         self.cfg = cfg
         self.batch = batch
-        self._pool = [
-            np.stack([synth_rf(
+        self._pool = []
+        for b in range(pool):
+            rf = np.stack([synth_rf(
                 cfg, seed=seed_space("source", seed, b * batch + i))
                 for i in range(batch)])
-            for b in range(pool)]
+            if pin_memory:
+                t = torch.from_numpy(rf).pin_memory()
+                rf = t.numpy()
+            self._pool.append(rf)
         self._i = 0
 
     def next(self) -> np.ndarray:
@@ -141,12 +157,17 @@ def serve_ultrasound_stream(cfg, *, batch: int = 4, n_batches: int = 32,
                             device=None) -> dict:
     """Stream RF batches through the stage-graph engine, `depth` in flight.
 
-    The loop blocks on the oldest in-flight batch (a CUDA event recorded
-    after its work) once `depth` are queued. Completion-to-completion
+    Each batch is placed (H2D on the executor's copy stream, never
+    cached on the device) and dispatched behind its copy event; the loop
+    blocks on the oldest in-flight batch (a CUDA event recorded after
+    its work) once `depth` are queued. Completion-to-completion
     intervals are the latency samples; the per-batch deadline budget is
-    ``batch * deadline_s``. Returns the reference's stats dict.
+    ``batch * deadline_s``. The resource meter is built before warm-up
+    (the NVML idle baseline sees the board cold). Returns the
+    reference's stats dict.
     """
     from repro_torch.bench.harness import latency_stats
+    from repro_torch.bench.resources import ResourceMeter
     from repro_torch.core.executor import BatchedExecutor
 
     if batch < 1 or n_batches < 1 or depth < 1:
@@ -159,7 +180,12 @@ def serve_ultrasound_stream(cfg, *, batch: int = 4, n_batches: int = 32,
     dev = engine.device
     on_cuda = dev.type == "cuda"
     if source is None:
-        source = SyntheticAcquisitionSource(cfg, batch, pool=pool, seed=seed)
+        source = SyntheticAcquisitionSource(cfg, batch, pool=pool, seed=seed,
+                                            pin_memory=on_cuda)
+    meter = ResourceMeter(dev)
+
+    def dispatch():
+        return engine.dispatch_staged(engine.place(source.next()), batch)
 
     def completion():
         if not on_cuda:
@@ -169,11 +195,8 @@ def serve_ultrasound_stream(cfg, *, batch: int = 4, n_batches: int = 32,
         return ev
 
     # warm-up (kernel build and first launch) outside the timed window
-    engine(source.next())
-    if on_cuda:
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-
+    dispatch()
+    meter.start()
     in_flight: collections.deque = collections.deque()
     intervals = []
     t0 = time.perf_counter()
@@ -187,9 +210,10 @@ def serve_ultrasound_stream(cfg, *, batch: int = 4, n_batches: int = 32,
         now = time.perf_counter()
         intervals.append(now - last)
         last = now
+        meter.sample()
 
     for _ in range(n_batches):
-        out = engine(source.next())
+        out = dispatch()
         in_flight.append((out, completion()))
         while len(in_flight) >= depth:
             retire()
@@ -210,17 +234,62 @@ def serve_ultrasound_stream(cfg, *, batch: int = 4, n_batches: int = 32,
         "fps": acqs * cfg.n_f / wall,
         "acq_per_s": acqs / wall,
         "latency": latency_stats(intervals, budget_s=budget),
-        "resources": {
-            "peak_memory_bytes": (int(torch.cuda.max_memory_allocated(dev))
-                                  if on_cuda else None),
-            "memory_source": ("torch.cuda.max_memory_allocated"
-                              if on_cuda else None),
-            "energy_joules": None,
-            "energy_source": None,
-            "devices": 1,
-            "duration_s": wall,
-        },
+        "resources": meter.stop().json_dict(),
     }
+
+
+def _print_resources(res: dict) -> None:
+    peak = res["peak_memory_bytes"]
+    energy = res["energy_joules"]
+    print("resources: "
+          + (f"peak_mem={peak / 1e6:.1f}MB ({res['memory_source']})"
+             if peak is not None else "peak_mem=not measured")
+          + (f" energy={energy:.3f}J above idle "
+             f"{res['idle_power_w']:.1f}W over {res['duration_s']:.2f}s "
+             f"({res['energy_samples']} NVML samples)"
+             if energy is not None else " energy=not measured"))
+
+
+def _serve_multitenant_cli(args, ap) -> None:
+    from repro_torch.core import Modality, Variant, tiny_config
+    from repro_torch.launch.scheduler import (BatchPolicy,
+                                              make_mixed_streams,
+                                              serve_multitenant)
+    if args.clients < 1:
+        ap.error(f"--clients must be >= 1 (got {args.clients})")
+    cfg = tiny_config(nz=32, nx=32, n_f=8, n_c=16,
+                      variant=Variant(args.variant))
+    streams = make_mixed_streams(
+        args.clients, cfg, cfg.with_(modality=Modality.DOPPLER),
+        n_frames=args.frames, deadline_ms=args.deadline_ms)
+    stats = serve_multitenant(
+        streams, policy=BatchPolicy(args.max_batch, args.queue_delay_ms),
+        in_flight=args.in_flight, drain=args.drain,
+        plan_policy=args.plan, device=args.device)
+    lat, qd = stats["latency"], stats["queue_delay"]
+    occ, ifo = stats["occupancy"], stats["in_flight_occupancy"]
+    print(f"{stats['name']}: {stats['acquisitions']} acquisitions "
+          f"({stats['frames']} frames) from {stats['clients']} clients in "
+          f"{stats['wall_s']:.2f}s = {stats['sustained_mbps']:.2f} MB/s, "
+          f"{stats['fps']:.1f} FPS (warm-up {stats['warmup_s']:.2f}s "
+          "ahead of window)")
+    print(f"overlap: in_flight={stats['in_flight']} "
+          f"mean_depth={ifo['mean_depth']:.2f} "
+          f"device_busy={stats['device_busy_frac']:.2f} "
+          f"overlap_frac={stats['overlap_frac']:.2f}")
+    print(f"transfer: drain={stats['drain']} "
+          f"stage_copy={stats['stage_copy_s'] * 1e3:.2f}ms "
+          f"h2d={stats['h2d_s'] * 1e3:.2f}ms "
+          f"d2h={stats['d2h_s'] * 1e3:.2f}ms "
+          f"transfer_frac={stats['transfer_frac']:.3f}")
+    print(f"latency: p50={lat['p50_s'] * 1e3:.2f}ms "
+          f"p95={lat['p95_s'] * 1e3:.2f}ms p99={lat['p99_s'] * 1e3:.2f}ms; "
+          f"queue delay p50={qd['p50_s'] * 1e3:.2f}ms "
+          f"p95={qd['p95_s'] * 1e3:.2f}ms; "
+          f"occupancy={occ['mean_occupancy']:.2f}/{occ['max_batch']} "
+          f"(fill {occ['mean_fill']:.2f}); "
+          f"miss_rate={stats['deadline_miss_rate']:.3f}")
+    _print_resources(stats["resources"])
 
 
 def main() -> None:
@@ -248,9 +317,29 @@ def main() -> None:
                     help="operator variant (auto = planner)")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cuda (fails without a CUDA device)")
+    ap.add_argument("--multitenant", action="store_true",
+                    help="ultrasound: N mixed-modality clients through the "
+                         "dynamic-batching scheduler")
+    ap.add_argument("--clients", type=int, default=4,
+                    help="multitenant: number of probe clients")
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="multitenant: coalescing ceiling (padded "
+                         "dispatch shape)")
+    ap.add_argument("--queue-delay-ms", type=float, default=5.0,
+                    help="multitenant: max wait of the oldest queued "
+                         "frame before a partial batch flushes")
+    ap.add_argument("--frames", type=int, default=24,
+                    help="multitenant: acquisitions per client")
+    ap.add_argument("--in-flight", type=int, default=2,
+                    help="multitenant: dispatch-pipelining depth (1 = "
+                         "synchronous launch-block-retire)")
+    ap.add_argument("--drain", default="async", choices=["async", "block"],
+                    help="multitenant: D2H retirement mode (async = "
+                         "pinned copy on the copy stream at detection, "
+                         "block = synchronous copy)")
     args = ap.parse_args()
 
-    if not args.ultrasound:
+    if not (args.ultrasound or args.multitenant):
         from repro_torch.configs import get_config, get_smoke
         cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
         _, stats = serve_session(
@@ -268,6 +357,9 @@ def main() -> None:
         return
     if args.variant == "auto" and args.plan == "fixed":
         ap.error("--variant auto needs --plan heuristic")
+    if args.multitenant:
+        _serve_multitenant_cli(args, ap)
+        return
 
     from repro_torch.core import Variant, tiny_config
     cfg = tiny_config(nz=32, nx=32, n_f=8, n_c=16,
@@ -288,11 +380,7 @@ def main() -> None:
           f"p50={lat.p50_s * 1e3:.2f}ms p95={lat.p95_s * 1e3:.2f}ms "
           f"p99={lat.p99_s * 1e3:.2f}ms jitter={lat.jitter_s * 1e3:.2f}ms "
           f"miss_rate={lat.miss_rate:.3f}")
-    peak = stats["resources"]["peak_memory_bytes"]
-    print("resources: " + (f"peak_mem={peak / 1e6:.1f}MB "
-                           f"({stats['resources']['memory_source']})"
-                           if peak is not None else "peak_mem=not measured")
-          + " energy=not measured")
+    _print_resources(stats["resources"])
 
 
 if __name__ == "__main__":

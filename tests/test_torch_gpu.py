@@ -32,7 +32,8 @@ import torch  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import (BatchedExecutor, consts_from_numpy,  # noqa: E402
-                              init_pipeline, paper_config, tiny_config)
+                              init_pipeline, monolithic_pipeline_fn,
+                              paper_config, tiny_config)
 from repro_torch.core.cnn_ops import sqrt_rn  # noqa: E402
 from repro_torch.data import synth_rf  # noqa: E402
 from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
@@ -528,11 +529,30 @@ def test_ssd_kernel_from_bf16(cuda):
 
 
 def test_ssd_kernel_refuses_a_chunk_past_shared_memory(cuda):
-    args = _ssd_args(cuda, 1, 512, 1, 64, 64)
+    """A chunk past what the tiles fit runs at the longest chunk that
+    fits (see the next test); a state so wide that no chunk's tiles fit
+    (N 4096: 16 steps of B alone pass shared memory) is refused."""
+    args = _ssd_args(cuda, 1, 64, 1, 64, 4096)
     before = ssd_scan.launches
     with pytest.raises(RuntimeError, match="ssd_scan"):
-        ssd_scan(*args, chunk=512)
+        ssd_scan(*args, chunk=16)
     assert ssd_scan.launches == before
+
+
+@pytest.mark.parametrize("N", [64, 128])
+@pytest.mark.parametrize("chunk", [200, 228, 512])
+def test_ssd_kernel_runs_chunks_past_its_tiles(cuda, N, chunk):
+    """Chunks the reference computes but the tiles do not fit (past 160
+    steps at N 64, past 144 at N 128) run at the longest chunk that fits,
+    within the chunked-scan tolerance (rtol = atol = 2e-4) of the plain
+    recurrence."""
+    args = _ssd_args(cuda, 2, 600, 3, 64, N)
+    before = ssd_scan.launches
+    out = ssd_scan(*args, chunk=chunk)
+    assert ssd_scan.launches == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ssd_scan_ref(*args), rtol=2e-4,
+                               atol=2e-4)
 
 
 def test_zamba2_smoke_on_card_matches_cpu(cuda):
@@ -569,3 +589,149 @@ def test_zamba2_smoke_on_card_matches_cpu(cuda):
     want, _ = serve_session(cfg, params=params, device="cpu", **kw)
     np.testing.assert_array_equal(got, want)
     assert stats["peak_memory_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The serving path: pinned staging, the copy stream, CUDA-graph replay and
+# the multi-tenant scheduler
+# ---------------------------------------------------------------------------
+
+SERVE_SMALL = dict(n_c=16, n_f=8, nz=32, nx=32)
+
+
+def _serve_cfg(variant, modality, fusion="none"):
+    return tiny_config(variant=variant, modality=modality, fusion=fusion,
+                       **SERVE_SMALL)
+
+
+@pytest.mark.parametrize("modality", ["bmode", "power_doppler"])
+@pytest.mark.parametrize("variant,fusion", [("dynamic", "none"),
+                                            ("dynamic", "fused"),
+                                            ("sparse", "none")])
+def test_graph_replay_is_bit_equal_to_eager(cuda, variant, fusion,
+                                            modality):
+    """The captured engine replays the same kernels on the same inputs:
+    bit-equal to the eager dispatch, and it counts each replay's
+    launches (the wrappers' own counters do not move)."""
+    from repro_torch.core.aot import aot_warm
+
+    cfg = _serve_cfg(variant, modality, fusion)
+    rf = np.stack([synth_rf(cfg, seed=s) for s in range(3)])
+    want = BatchedExecutor(cfg).dispatch_padded(rf, 4).cpu()
+    ex = BatchedExecutor(cfg)
+    prog = aot_warm(ex, 4)
+    assert prog.compile_s > 0.0 and prog.warmup_s > prog.compile_s
+    assert prog.launches and set(prog.launches.values()) == {1}
+    kernels.reset_launch_counts()
+    outs = [ex.dispatch_padded(rf, 4) for _ in range(3)]
+    assert set(kernels.launch_counts().values()) == {0}
+    assert kernels.replayed_launch_counts() == {
+        k: 3 * prog.launches.get(k, 0) for k in kernels.launch_counts()}
+    for out in outs:                       # each replay its own output
+        assert torch.equal(out.cpu(), want)
+
+
+def test_place_and_dispatch_staged_equal_call(cuda):
+    cfg = _serve_cfg("dynamic", "bmode")
+    rf = np.stack([synth_rf(cfg, seed=s) for s in range(4)])
+    ex = BatchedExecutor(cfg)
+    want = ex(rf).cpu()
+    staged = ex.place(rf)
+    assert staged.device.type == "cuda" and staged.h2d_event is not None
+    assert torch.equal(ex.dispatch_staged(staged, 4).cpu(), want)
+    pinned = torch.from_numpy(rf).pin_memory()
+    assert torch.equal(ex.dispatch_staged(ex.place(pinned), 4).cpu(), want)
+    on_card = torch.from_numpy(rf).to(cuda)
+    assert ex.place(on_card) is on_card
+    assert torch.equal(ex(on_card).cpu(), want)
+
+
+def test_staging_slots_and_source_pool_are_pinned(cuda):
+    from repro_torch.core.staging import StagingRing
+    from repro_torch.launch.serve import SyntheticAcquisitionSource
+
+    cfg = _serve_cfg("dynamic", "bmode")
+    ring = StagingRing(4, cfg.rf_shape, cfg.rf_dtype, depth=2,
+                       pin_memory=True)
+    frames = [synth_rf(cfg, seed=s) for s in range(3)]
+    for _ in range(ring.slots):
+        buf, _ = ring.stage(frames)
+        assert torch.from_numpy(buf).is_pinned()
+        assert np.array_equal(buf[:3], np.stack(frames))
+        assert not buf[3:].any()
+    source = SyntheticAcquisitionSource(cfg, 2, pool=2, pin_memory=True)
+    for _ in range(2):
+        assert torch.from_numpy(source.next()).is_pinned()
+
+
+def test_slot_rewrite_waits_for_the_copy(cuda):
+    """A pinned slot whose copy is still queued (held back by a sleep
+    kernel on the copy stream) must not be rewritten; the scheduler's
+    rule — rewrite only once the batch's compute event, which waits on
+    the copy, has completed — is safe: the batch still computes from
+    the bytes staged, though the slot is rewritten at once after."""
+    from repro_torch.core.staging import StagingRing
+
+    cfg = _serve_cfg("dynamic", "power_doppler")
+    frames = [synth_rf(cfg, seed=s) for s in range(4)]
+    ex = BatchedExecutor(cfg)
+    want = ex(np.stack(frames)).cpu()
+    ring = StagingRing(4, cfg.rf_shape, cfg.rf_dtype, depth=1,
+                       pin_memory=True)
+    buf, _ = ring.stage(frames)
+    with torch.cuda.stream(ex.copy_stream):
+        torch.cuda._sleep(500_000_000)     # about 0.25 s at 2 GHz
+    staged = ex.place(buf)
+    assert not staged.h2d_event.query()    # the copy has not run yet
+    out = ex.dispatch_staged(staged, 4)
+    done = torch.cuda.Event()
+    done.record()
+    assert not done.query()
+    done.synchronize()                     # the batch has settled ...
+    assert staged.h2d_event.query()        # ... so its copy has too
+    ring.stage([np.full(cfg.rf_shape, 1234, np.int16)] * 4)
+    buf2, _ = ring.stage([np.full(cfg.rf_shape, 77, np.int16)] * 2)
+    assert buf2 is buf                     # the slot came round again
+    assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.parametrize("drain", ["async", "block"])
+def test_serve_multitenant_on_card_passes_the_oracle(cuda, drain):
+    """A short window on the card: every served frame equals the frame
+    alone through the same engine (eager, at the padded shape) bit for
+    bit, and the plain monolithic pipeline within the image tolerances
+    (the kernels sum the channels in another order); the window has
+    pinned rings, graph replays and measured energy."""
+    from repro_torch.core.aot import warm_pool
+    from repro_torch.launch.scheduler import (BatchPolicy,
+                                              make_mixed_streams,
+                                              serve_multitenant)
+
+    cfg = _serve_cfg("dynamic", "bmode")
+    streams = make_mixed_streams(3, cfg,
+                                 cfg.with_(modality="doppler"),
+                                 base_fps=400.0, n_frames=6)
+    pool = warm_pool(streams, max_batch=4)
+    kernels.reset_launch_counts()
+    stats = serve_multitenant(streams, policy=BatchPolicy(4, 2.0),
+                              in_flight=2, drain=drain, pool=pool,
+                              collect_outputs=True)
+    assert set(kernels.launch_counts().values()) == {0}
+    assert kernels.replayed_launch_counts()["das_beamform"] == \
+        stats["occupancy"]["batches"]
+    assert stats["in_flight_occupancy"]["max_depth"] <= 2
+    assert stats["occupancy"]["max_occupancy"] <= 4
+    assert stats["resources"]["energy_joules"] is not None
+    assert stats["resources"]["memory_source"] == \
+        "torch.cuda.max_memory_allocated"
+    for spec in streams:
+        eager = BatchedExecutor(spec.cfg)
+        consts = consts_from_numpy(init_pipeline(eager.cfg), cuda)
+        plain = monolithic_pipeline_fn(eager.cfg)
+        tol = 1.2e-3 if spec.cfg.modality.value == "bmode" else 1e-4
+        for k, out in enumerate(stats["outputs"][spec.stream_id]):
+            rf = synth_rf(spec.cfg, seed=spec.frame_seed(k))
+            alone = eager.call_padded(rf[None], 4)[0].cpu().numpy()
+            assert np.array_equal(out, alone), (spec.stream_id, k)
+            ref = plain(consts, torch.from_numpy(rf)[None].to(cuda))[0]
+            assert np.abs(out - ref.cpu().numpy()).max() <= tol

@@ -259,7 +259,10 @@ def test_serve_stream_cpu_stats_pass_reference_schema():
     assert validate_record(rec) == "stream"
     assert stats["acquisitions"] == 6 and stats["latency"].n == 3
     assert stats["plan"]["backend"] == "cpu"
-    assert stats["resources"]["peak_memory_bytes"] is None  # not measured
+    # the CPU has no allocator telemetry: the meter samples the process's
+    # resident set and names that source; no NVML, so no energy
+    assert stats["resources"]["peak_memory_bytes"] > 0
+    assert stats["resources"]["memory_source"] == "process_rss_sampled"
     assert stats["resources"]["energy_joules"] is None
 
 
