@@ -47,7 +47,29 @@ last line):
                overlap, transfer times, peak memory and NVML energy, and
                checks its bounds and sampled frames against the lone
                frame (bit for bit through the engine, within the image
-               tolerance of the plain pipeline);
+               tolerance of the plain pipeline); last, one short window
+               of B-mode tenants pinned to the cnn variant and
+               colour-Doppler tenants pinned to sparse (one CUDA graph
+               each), through the same oracle;
+  5c. plan and shards — `plan_pipeline(policy="autotune")` at the
+               paper's geometry, B-mode and power Doppler, unfused and
+               fused: each variant's time and the fused probes at pixel
+               tiles 64 / 128 / 256, each a served batch of 4 (graph
+               replays, CUDA events), the pick (its own argmin, no
+               kernel-bearing stage on its plain version), a second call
+               from the memo, the device memory before and after; the
+               constants' disk tier in a fresh directory under build/
+               (a disk hit, bit-equal; the cnn and sparse operators past
+               the per-file cap; outside this phase the disk tier is
+               off); `serve_ultrasound_sharded` on the one card
+               (per-device latency, speedup and scale efficiency; counts
+               zeroed just before, read just after: das_beamform only);
+               `ShardedExecutor` over [cuda:0, cuda:0] on a batch of 5
+               against `BatchedExecutor`, bit for bit (dynamic, fused,
+               cnn, sparse); one multitenant window of AUTO tenants
+               planned by autotune, through the 5b oracle. The kernels
+               line adds the counts of the sharded stream and of that
+               window only, not the planner's probes or the comparisons;
   6. lm kernels — the ultrasound tensors freed, `flash_attention` at
                zamba2's prefill shape and `ssd_scan` at its scoring shape,
                f32, each against its plain version, timed as in 3, with
@@ -94,14 +116,17 @@ import torch  # noqa: E402
 
 import repro_torch  # noqa: E402,F401  (sets the TF32 switches)
 from repro_torch import kernels  # noqa: E402
-from repro_torch.core import (BatchedExecutor, PRECISION_TOLERANCES,  # noqa: E402
-                              Modality, consts_from_numpy, init_pipeline,
-                              monolithic_pipeline_fn, paper_config,
-                              stage_fns, tiny_config)
+from repro_torch.core import (BatchedExecutor, CONSTS_CACHE_STATS,  # noqa: E402
+                              PRECISION_TOLERANCES, Modality,
+                              ShardedExecutor, clear_consts_cache,
+                              consts_cache_dir, consts_from_numpy,
+                              init_pipeline, monolithic_pipeline_fn,
+                              paper_config, plan_pipeline,
+                              set_consts_cache_dir, stage_fns, tiny_config)
 from repro_torch.bench.resources import (NvmlEnergyMeter,  # noqa: E402
                                         nvml_indices_for_local_gpus)
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import demod  # noqa: E402
+from repro_torch.core import demod, lowering  # noqa: E402
 from repro_torch.core.aot import warm_pool  # noqa: E402
 from repro_torch.core.executor import _pad_rows  # noqa: E402
 from repro_torch.core.staging import StagingRing  # noqa: E402
@@ -127,6 +152,7 @@ from repro_torch.launch.scheduler import (BatchPolicy,  # noqa: E402
                                           serve_multitenant)
 from repro_torch.launch.serve import (SyntheticAcquisitionSource,  # noqa: E402
                                       _grow_cache, serve_session,
+                                      serve_ultrasound_sharded,
                                       serve_ultrasound_stream)
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.common import logits_from_hidden  # noqa: E402
@@ -788,13 +814,13 @@ def mt_frames(streams, modality, n=BATCH) -> list:
             for i in range(n)]
 
 
-def mt_pool(streams) -> tuple:
+def mt_pool(streams, plan_policy="heuristic") -> tuple:
     """The warm pool of the tenants' groups: capture and warm-up times,
     replay against the eager engine on the same staged batch (bit for
     bit), and per group the replay's and the pinned H2D's device times.
     Returns (pool, mean of max(replay, H2D) ms over the groups)."""
     pool = warm_pool(streams, max_batch=MT_POLICY.max_batch,
-                     plan_policy="heuristic")
+                     plan_policy=plan_policy)
     check(len(pool) == 2, f"{len(pool)} groups, want 2")
     service = []
     for key in pool.keys():
@@ -802,7 +828,8 @@ def mt_pool(streams) -> tuple:
         eng, prog = entry.engine, entry.program
         what = eng.cfg.modality.value
         check(eng.plan.backend == "cuda" and prog.compile_s > 0
-              and prog.launches, f"{what}: no graph captured ({prog})")
+              and (prog.launches or eng.cfg.variant.value == "cnn"),
+              f"{what}: no graph captured ({prog})")
         ring = StagingRing(MT_POLICY.max_batch, eng.cfg.rf_shape,
                            eng.cfg.rf_dtype, depth=1, pin_memory=True)
         buf, _ = ring.stage(mt_frames(streams, what))
@@ -833,12 +860,24 @@ def mt_pool(streams) -> tuple:
     return pool, float(np.mean(service))
 
 
-def mt_window(label, streams, pool, drain, profile) -> dict:
+def group_kernel(plan: dict):
+    """The kernel one replay of a served group's engine must launch (None:
+    the cnn engine launches no kernel of ours)."""
+    if plan["variant"] == "cnn":
+        return None
+    if plan["fusion"] == "fused":
+        return FUSED_KERNEL[plan["fusion_group"].rsplit("+", 1)[1]]
+    return {"dynamic": "das_beamform",
+            "sparse": "bsr_beamform"}[plan["variant"]]
+
+
+def mt_window(label, streams, pool, drain, profile,
+              plan_policy="heuristic") -> dict:
     """One serving window, counts zeroed before and read after; prints
     its numbers and checks its bounds, energy and sampled frames."""
     kernels.reset_launch_counts()
     st = serve_multitenant(streams, policy=MT_POLICY, in_flight=MT_IN_FLIGHT,
-                           drain=drain, pool=pool, plan_policy="heuristic",
+                           drain=drain, pool=pool, plan_policy=plan_policy,
                            collect_outputs=True, load_profile=profile)
     counts = path_counts()
     lat, qd = st["latency"], st["queue_delay"]
@@ -866,12 +905,18 @@ def mt_window(label, streams, pool, drain, profile) -> dict:
           f"{label}: occupancy past max_batch")
     check(ifo["max_depth"] <= MT_IN_FLIGHT, f"{label}: ring past in_flight")
     check(res["energy_joules"] is not None, f"{label}: energy not measured")
-    check(counts["das_beamform"] == occ["batches"]
-          and kernels.launch_counts()["das_beamform"] == 0,
-          f"{label}: das_beamform not replayed once a batch: {counts}")
+    want = {name: 0 for name in counts}
+    for g in st["groups"].values():
+        name = group_kernel(g["plan"])
+        if name is not None:
+            want[name] += g["batches"]
+    check(counts == want and set(kernels.launch_counts().values()) == {0},
+          f"{label}: not one graph replay of each group's kernel a batch: "
+          f"{counts}, want {want}")
     dev = torch.device("cuda")
     entries = {pool.get(k).engine.cfg.modality: pool.get(k).engine
-               for k in pool.keys()}
+               for k in pool.keys()
+               if k[0] in st["groups"]}
     worst = {}
     for spec in streams:
         eng = entries[spec.cfg.modality]
@@ -890,7 +935,9 @@ def mt_window(label, streams, pool, drain, profile) -> dict:
             check(d <= IMAGE_TOL[what], f"{label}: {spec.stream_id}[{k}] "
                   f"{d:.3e} from the plain pipeline")
             worst[what] = max(worst.get(what, 0.0), d)
+    variants = {g["plan"]["variant"] for g in st["groups"].values()}
     say(f"[multitenant] {label}: sampled frames {MT_SAMPLE} of each stream "
+        f"({'/'.join(sorted(variants))} engines) "
         "equal the lone frame through the engine bit for bit; max|d| "
         "against the plain monolithic pipeline "
         + ", ".join(f"{m} {d:.3e} (tol {IMAGE_TOL[m]:.0e})"
@@ -944,6 +991,220 @@ def phase_multitenant() -> dict:
     for label, ws, drain, profile in windows:
         for name, k in mt_window(label, ws, pool, drain, profile).items():
             launches[name] += k
+    del pool
+    torch.cuda.empty_cache()
+    # the scheduler's oracle through the cnn and sparse engines: B-mode
+    # tenants pinned to cnn, colour-Doppler tenants to sparse, one CUDA
+    # graph a group, one short window at the default rates
+    op_streams = make_mixed_streams(
+        MT_CLIENTS, cfg_b.with_(variant="cnn"), cfg_d.with_(variant="sparse"),
+        base_fps=MT_BASE_FPS, n_frames=MT_FRAMES, deadline_ms=None)
+    pool, _ = mt_pool(op_streams)
+    for name, k in mt_window("cnn + sparse", op_streams, pool, "async",
+                             "steady").items():
+        launches[name] += k
+    del pool
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fail_probe(*args, **kwargs):
+    raise AssertionError("probe called: the autotune memo missed")
+
+
+def kernel_stages_on_xla(cfg, plan) -> list:
+    """Stages of ``plan`` that resolved to the plain version though their
+    op has a kernel lowering on the card."""
+    c = plan.concretize(cfg)
+    return [stage for stage, name in plan.stage_lowerings
+            if name == "xla" and set(lowering.available_lowerings(
+                c, stage, "cuda")) - {"xla"}]
+
+
+def plan_autotune() -> None:
+    """`plan_pipeline(policy="autotune", backend="cuda")` at the paper's
+    geometry, B-mode and power Doppler, unfused and fused: each variant's
+    time and the fused probes' pixel tiles (each a served dispatch of
+    MT_POLICY.max_batch rows, CUDA graph replays between CUDA events),
+    the pick and its provenance; the pick is its own argmin, no
+    kernel-bearing stage is plain, a second call hits the memo, and the
+    probes leave nothing allocated."""
+    dev = torch.device("cuda")
+    # cuBLAS keeps a 32 MiB workspace per stream once it has run (the cnn
+    # probe's products); make it before reading the baseline
+    torch.ones(8, 8, device=dev) @ torch.ones(8, 8, device=dev)
+    torch.cuda.synchronize()
+    before = (torch.cuda.memory_allocated(dev),
+              torch.cuda.memory_reserved(dev))
+    for modality in ("bmode", "power_doppler"):
+        for fusion in ("none", "fused"):
+            cfg = paper_config(variant="auto", modality=modality,
+                               fusion=fusion)
+            t0 = time.perf_counter()
+            plan = plan_pipeline(cfg, policy="autotune", backend="cuda",
+                                 autotune_batch=MT_POLICY.max_batch)
+            took = time.perf_counter() - t0
+            t = dict(plan.autotune_t_s)
+            bp = {k.rsplit("@bp", 1)[1]: v
+                  for k, v in dict(plan.lowering_t_s or {}).items()
+                  if "@bp" in k}
+            say(f"[plan] autotune {modality}/{fusion} in {took:.1f}s, a "
+                f"served batch of {MT_POLICY.max_batch} (graph replay): "
+                + ", ".join(f"{v} {ms * 1e3:.4f} ms" for v, ms in t.items())
+                + (" | fused bp " + ", ".join(
+                    f"{b} {ms * 1e3:.4f} ms" for b, ms in bp.items())
+                   if bp else "")
+                + f" -> {plan.variant.value}"
+                + (f" bp {plan.fusion_block}" if fusion == "fused" else "")
+                + f", lowerings {dict(plan.stage_lowerings)} "
+                f"({plan.provenance})")
+            check(plan.variant.value == min(t, key=t.get),
+                  f"autotune pick {plan.variant.value} is not the argmin "
+                  f"of {t}")
+            if fusion == "fused":
+                check(len(bp) == 3 and str(plan.fusion_block)
+                      == min(bp, key=bp.get),
+                      f"fused pick bp {plan.fusion_block} of {bp}")
+            plain = kernel_stages_on_xla(cfg, plan)
+            check(not plain, f"kernel stages resolved to xla: {plain}")
+            again = plan_pipeline(cfg, policy="autotune", backend="cuda",
+                                  autotune_batch=MT_POLICY.max_batch,
+                                  measure=fail_probe,
+                                  measure_stage=fail_probe)
+            check(again == plan, "the memoized plan differs")
+    torch.cuda.synchronize()
+    after = (torch.cuda.memory_allocated(dev),
+             torch.cuda.memory_reserved(dev))
+    say(f"[plan] device memory allocated / reserved before planning "
+        f"{before[0] / 1e6:.3f} / {before[1] / 1e6:.3f} MB, after "
+        f"{after[0] / 1e6:.3f} / {after[1] / 1e6:.3f} MB; second calls hit "
+        "the memo (no probe ran)")
+    # the smallest probe's constants (dynamic) are 20 MB
+    check(after[0] - before[0] < 1e6,
+          "the probes left device memory allocated")
+
+
+def disk_tier() -> None:
+    """The constants' disk tier in a fresh directory: the dynamic
+    constants at the paper's geometry built, the memory tier cleared,
+    built again from disk, bit-equal; the cnn and sparse operators are
+    past the per-file cap and not stored."""
+    import shutil
+
+    from repro_torch.core import pipeline as tpipe
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"consts_smoke_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    prev = consts_cache_dir()
+    set_consts_cache_dir(root)
+    try:
+        clear_consts_cache()
+        CONSTS_CACHE_STATS.reset()
+        cfg = paper_config(variant="dynamic")
+        t0 = time.perf_counter()
+        first = init_pipeline(cfg)
+        t_build = time.perf_counter() - t0
+        clear_consts_cache()
+        t0 = time.perf_counter()
+        second = init_pipeline(cfg)
+        t_disk = time.perf_counter() - t0
+        files = os.listdir(root)
+        size = sum(os.path.getsize(os.path.join(root, f)) for f in files)
+        check(CONSTS_CACHE_STATS.misses == 1
+              and CONSTS_CACHE_STATS.disk_hits == 1,
+              f"disk tier: {CONSTS_CACHE_STATS}")
+        check(sorted(first) == sorted(second) and all(
+            first[k].dtype == second[k].dtype
+            and first[k].tobytes() == second[k].tobytes() for k in first),
+            "constants read from disk differ from those built")
+        say(f"[consts] dynamic paper constants: built in {t_build:.3f}s, "
+            f"read back from the disk tier in {t_disk:.3f}s, bit-equal "
+            f"({files}, {size / 1e6:.1f} MB; {CONSTS_CACHE_STATS})")
+        for variant in ("cnn", "sparse"):
+            nbytes = tpipe._consts_nbytes(
+                init_pipeline(paper_config(variant=variant)))
+            check(nbytes > tpipe.DISK_CACHE_MAX_BYTES
+                  and len(os.listdir(root)) == 1,
+                  f"{variant} constants written to the disk tier")
+            say(f"[consts] {variant} paper constants {nbytes / 1e9:.3f} GB "
+                f"> the {tpipe.DISK_CACHE_MAX_BYTES / 2 ** 20:.0f} MiB "
+                "per-file cap: not stored (rebuilt by every engine)")
+    finally:
+        set_consts_cache_dir(prev)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def sharded(source) -> dict:
+    """`serve_ultrasound_sharded` on the one card, counts zeroed just
+    before and read just after (the main path: das_beamform and nothing
+    else), then `ShardedExecutor` over [cuda:0, cuda:0] on an uneven
+    batch of 5 against `BatchedExecutor`, bit for bit. Returns the
+    sharded stream's counts."""
+    cfg = paper_config(variant="dynamic")
+    base = serve_ultrasound_stream(cfg, batch=BATCH, n_batches=N_BATCHES,
+                                   depth=2, source=source)
+    kernels.reset_launch_counts()
+    st = serve_ultrasound_sharded(cfg, batch_per_device=BATCH,
+                                  n_batches=N_BATCHES, depth=2,
+                                  devices=["cuda:0"], source=source,
+                                  baseline_fps=base["fps"])
+    counts = path_counts()
+    lat = st["latency"]
+    per_dev = ", ".join(f"{d} p50 {v['p50_s'] * 1e3:.3f} ms p99 "
+                        f"{v['p99_s'] * 1e3:.3f} ms"
+                        for d, v in st["per_device_latency"].items())
+    say(f"[sharded] {st['name']}: {st['sustained_mbps']:.1f} MB/s, "
+        f"{st['fps']:.1f} FPS, p50={lat.p50_s * 1e3:.3f} ms, "
+        f"p99={lat.p99_s * 1e3:.3f} ms; per device: {per_dev}; baseline "
+        f"(serve_ultrasound_stream, same source) {st['baseline_fps']:.1f} "
+        f"FPS, speedup_vs_single {st['speedup_vs_single']:.4f}, "
+        f"scale_efficiency {st['scale_efficiency']:.4f}; plan devices "
+        f"{st['plan']['devices']} mesh {st['plan']['mesh_shape']}; "
+        f"launches={counts}")
+    check(st["plan"]["devices"] == 1 and st["devices"] == 1,
+          f"sharded plan on one card: {st['plan']}")
+    check(counts["das_beamform"] > 0
+          and all(n == 0 for k, n in counts.items() if k != "das_beamform"),
+          f"sharded dynamic stream launched {counts}")
+    rf = np.concatenate([source.next(), source.next()])[:5]
+    for variant, fusion in PATHS:
+        c = paper_config(variant=variant, fusion=fusion)
+        eng = ShardedExecutor(c, devices=["cuda:0", "cuda:0"])
+        got = eng(rf)
+        want = BatchedExecutor(c)(rf)
+        check(eng.plan.devices == 2 and tuple(got.shape) == tuple(
+            want.shape), f"sharded {variant}/{fusion}: {got.shape}")
+        same = torch.equal(got, want)
+        say(f"[sharded] ShardedExecutor over [cuda:0, cuda:0], batch 5 "
+            f"(shards of 3, padded to 6), {variant}/{fusion}: "
+            + ("bit-equal to BatchedExecutor" if same else
+               f"max|d| {(got - want).abs().max().item():.3e} from "
+               "BatchedExecutor"))
+        check(same, f"sharded {variant}/{fusion} differs from batched")
+        del eng, got, want
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_plan_shards(source) -> dict:
+    """Plan and shards: autotune at the paper's geometry, the disk tier,
+    sharded serving on the card, and one multitenant window of AUTO
+    tenants planned by autotune. The launches returned are those of the
+    two served paths, the sharded stream and the autotuned window, each
+    counted from zero; the planner's probes and the comparison calls
+    are left out."""
+    plan_autotune()
+    disk_tier()
+    launches = sharded(source)
+    cfg_b = paper_config(variant="auto")
+    streams = make_mixed_streams(
+        MT_CLIENTS, cfg_b, cfg_b.with_(modality=Modality.DOPPLER),
+        base_fps=MT_BASE_FPS, n_frames=MT_FRAMES, deadline_ms=None)
+    pool, _ = mt_pool(streams, plan_policy="autotune")
+    for name, k in mt_window("autotuned tenants", streams, pool, "async",
+                             "steady", plan_policy="autotune").items():
+        launches[name] += k
     del pool
     torch.cuda.empty_cache()
     return launches
@@ -1292,6 +1553,9 @@ def phase_lm_outputs() -> None:
 
 def main() -> None:
     t_start = time.perf_counter()
+    # constants are built afresh: the disk tier is on only in its own
+    # phase, in a directory of the checkout
+    set_consts_cache_dir(None)
     name = phase_device()
     phase_build()
     t0 = time.perf_counter()
@@ -1303,9 +1567,11 @@ def main() -> None:
     rows = phase_kernels(source)
     launches = phase_serve(source)
     phase_outputs(source)
-    del source
     for kernel, n in phase_multitenant().items():
         launches[kernel] += n
+    for kernel, n in phase_plan_shards(source).items():
+        launches[kernel] += n
+    del source
     torch.cuda.empty_cache()
     say(f"[lm] ultrasound phases freed; "
         f"{torch.cuda.memory_allocated() / 1e6:.1f} MB still allocated")

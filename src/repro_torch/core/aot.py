@@ -19,7 +19,9 @@ host enqueues one by one:
     captures nothing (``compile_s`` 0).
   * `WarmPool` / `warm_pool(specs, ...)` — one warm executor per config
     group of a stream set, keyed as the scheduler groups:
-    ``(canonical config hash, pad_to, n_devices, donate)``.
+    ``(canonical config hash, pad_to, n_devices, donate)``. Over two or
+    more devices a group's executor is a `ShardedExecutor`, warmed with
+    one graph per device shard.
 
 A replay writes the graph's one static output; each dispatch copies it
 out on the compute stream right after the replay, so a batch still in
@@ -52,33 +54,40 @@ class GraphProgram:
         from repro_torch import kernels
 
         dev = engine.device
-        compute = torch.cuda.current_stream(dev)
-        self.x = torch.zeros(shape, dtype=dtype, device=dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(compute)
-        with torch.cuda.stream(side):
-            engine.run(self.x)
-        compute.wait_stream(side)
-        torch.cuda.synchronize(dev)
-        self.graph = torch.cuda.CUDAGraph()
-        before = kernels.launch_counts()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph):
-            self.y = engine.run(self.x)
-        self.capture_s = time.perf_counter() - t0
+        # capture on a stream of the shard's own device, under that
+        # device (torch.cuda.graph's default capture stream is one stream
+        # of whichever device made it first)
+        with torch.cuda.device(dev):
+            compute = torch.cuda.current_stream(dev)
+            self.x = torch.zeros(shape, dtype=dtype, device=dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(compute)
+            with torch.cuda.stream(side):
+                engine.run(self.x)
+            compute.wait_stream(side)
+            torch.cuda.synchronize(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            with torch.cuda.graph(self.graph, stream=side):
+                self.y = engine.run(self.x)
+            self.capture_s = time.perf_counter() - t0
         after = kernels.launch_counts()
         # wrapper calls inside the graph: what one replay launches
         self.captured = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}
 
     def __call__(self, dev_batch: torch.Tensor) -> torch.Tensor:
-        """Replay on the current stream; a fresh copy of the output."""
+        """Replay on the current stream of the graph's device; a fresh
+        copy of the output."""
         from repro_torch import kernels
 
-        self.x.copy_(dev_batch)
-        self.graph.replay()
+        with torch.cuda.device(self.x.device):
+            self.x.copy_(dev_batch)
+            self.graph.replay()
+            out = self.y.clone()
         kernels.count_replay(self.captured)
-        return self.y.clone()
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,32 +104,44 @@ class AotProgram:
 
 
 def aot_warm(engine, pad_to: int) -> AotProgram:
-    """Capture ``engine``'s ``(pad_to, *rf_shape)`` program as a CUDA graph,
-    install it and replay it once on a zero batch, so the window's first
+    """Capture ``engine``'s ``(pad_to, *rf_shape)`` program as CUDA graphs,
+    install them and replay once on a zero batch, so the window's first
     dispatch pays no first-launch cost either (on the CPU: run the zero
     batch, capture nothing).
+
+    A `ShardedExecutor` gets one graph per device shard, each of its
+    shard's ``pad_to / n_devices`` rows, captured from that shard's
+    executor and replayed on the shard's own compute stream.
     """
     from repro_torch.core.config import config_hash
     from repro_torch.kernels import cuda_lib
 
-    if pad_to < 1:
-        raise ValueError(f"pad_to must be >= 1 (got {pad_to})")
+    shards = getattr(engine, "shards", None) or [engine]
+    if pad_to < 1 or pad_to % len(shards):
+        raise ValueError(f"pad_to must be a positive multiple of the "
+                         f"{len(shards)} device shard(s) (got {pad_to})")
+    rows = pad_to // len(shards)
     shape = (pad_to,) + tuple(engine.cfg.rf_shape)
     zeros = np.zeros(shape, np.dtype(engine.cfg.rf_dtype))
     cuda = engine.device.type == "cuda"
     t0 = time.perf_counter()
     compile_s, launches, cache_dir = 0.0, None, None
     if cuda:
-        program = GraphProgram(engine, shape,
-                               torch.from_numpy(zeros[:0]).dtype)
-        engine.install_aot(pad_to, program)
-        compile_s, launches = program.capture_s, program.captured
+        launches = {}
+        dtype = torch.from_numpy(zeros[:0]).dtype
+        for shard in shards:
+            program = GraphProgram(shard, (rows,) + shape[1:], dtype)
+            shard.install_aot(rows, program)
+            compile_s += program.capture_s
+            for k, n in program.captured.items():
+                launches[k] = launches.get(k, 0) + n
         cache_dir = str(cuda_lib.BUILD_DIR)
     engine.dispatch_padded(zeros, pad_to)
     if cuda:
-        torch.cuda.synchronize(engine.device)
-    return AotProgram(key=config_hash(engine.cfg), pad_to=pad_to, devices=1,
-                      compile_s=compile_s,
+        for d in set(getattr(engine, "devices", (engine.device,))):
+            torch.cuda.synchronize(d)
+    return AotProgram(key=config_hash(engine.cfg), pad_to=pad_to,
+                      devices=len(shards), compile_s=compile_s,
                       warmup_s=time.perf_counter() - t0,
                       cache_dir=cache_dir, launches=launches)
 
@@ -170,30 +191,15 @@ class WarmPool:
         return sum(e.program.warmup_s for e in self._entries.values())
 
 
-def single_device(devices, device):
-    """The one device a serving window runs on. ``devices`` of more than
-    one device raises: sharded serving is not ported yet."""
-    if devices is not None:
-        devices = list(devices)
-        if len(devices) > 1:
-            raise NotImplementedError(
-                f"{len(devices)} devices: sharded serving (ShardedExecutor) "
-                "is not ported yet (ROADMAP queue A, item 6)")
-        if devices:
-            if device is not None and torch.device(devices[0]) != \
-                    torch.device(device):
-                raise ValueError(f"devices={devices} and device={device}")
-            device = devices[0]
-    return device
-
-
-def pool_key(cfg, max_batch: int, plan, donate: Optional[bool]) -> PoolKey:
+def pool_key(cfg, max_batch: int, plan, donate: Optional[bool],
+             n_devices: int = 1) -> PoolKey:
     """The pool key of ``cfg`` under ``plan``; the port never donates."""
     from repro_torch.core.config import config_hash
 
     if donate:
         raise ValueError("the port does not donate input buffers")
-    return (config_hash(plan.concretize(cfg)), max_batch, 1, plan.donate)
+    return (config_hash(plan.concretize(cfg)), max_batch, n_devices,
+            plan.donate)
 
 
 def warm_pool(specs: Sequence, *, max_batch: int, devices=None,
@@ -205,22 +211,27 @@ def warm_pool(specs: Sequence, *, max_batch: int, devices=None,
     ``specs`` are `repro_torch.launch.scheduler.StreamSpec`s (anything
     with a ``.cfg``); grouping matches `serve_multitenant`: the
     plan-resolved canonical hash, at the padded shape ``max_batch``, on
-    ``device`` (the card unless ``"cpu"``). Pass an existing ``pool`` to
-    extend it; groups already in it are not warmed again.
+    ``devices`` (two or more: a `ShardedExecutor`, one graph a shard;
+    ``max_batch`` must divide evenly) or the one ``device`` (the card
+    unless ``"cpu"``). Pass an existing ``pool`` to extend it; groups
+    already in it are not warmed again.
     """
-    from repro_torch.core.executor import BatchedExecutor
-    from repro_torch.core.pipeline import _plan, resolve_device
+    from repro_torch.core.executor import (check_shards, resolve_devices,
+                                           serve_engine)
+    from repro_torch.core.pipeline import _resolve_plan
 
     if max_batch < 1:
         raise ValueError(f"max_batch must be >= 1 (got {max_batch})")
-    dev = resolve_device(single_device(devices, device))
+    devs = resolve_devices(devices, device)
+    n = check_shards(max_batch, devs)
     pool = pool if pool is not None else WarmPool()
     for spec in specs:
-        plan = _plan(spec.cfg, plan_policy, dev.type)
-        key = pool_key(spec.cfg, max_batch, plan, donate)
+        plan = _resolve_plan(spec.cfg, None, plan_policy, devs[0].type,
+                             batch=max_batch // n)
+        key = pool_key(spec.cfg, max_batch, plan, donate, n)
         if key in pool:
             continue
-        engine = BatchedExecutor(spec.cfg, policy=plan_policy, device=dev)
+        engine = serve_engine(spec.cfg, devs, plan)
         pool.put(key, WarmEntry(engine=engine,
                                 program=aot_warm(engine, max_batch)))
     return pool

@@ -134,6 +134,23 @@ def apply_stage(cfg: UltrasoundConfig, stage: str, consts: Dict, x):
     return resolve_apply(cfg, stage)(cfg, consts, x)
 
 
+def supported_subset(cfg: UltrasoundConfig,
+                     backend: str) -> Tuple[Tuple[str, str], ...]:
+    """``cfg.stage_lowerings`` pruned to the entries this variant
+    registers and that are available on ``backend``: an explicit pallas
+    beamform must not crash the cnn probe of an AUTO config (the final
+    plan still validates every entry against the resolved variant)."""
+    return tuple((stage, name) for stage, name in cfg.stage_lowerings
+                 if name in available_lowerings(cfg, stage, backend))
+
+
+def supports_explicit(cfg: UltrasoundConfig, backend: str) -> bool:
+    """True iff every explicit ``cfg.stage_lowerings`` entry is registered
+    for this variant and available on ``backend`` (the planner's variant
+    filter: AUTO never resolves to a variant that would refuse a pin)."""
+    return supported_subset(cfg, backend) == cfg.stage_lowerings
+
+
 # ---------------------------------------------------------------------------
 # Fused (stage-span) lowerings
 # ---------------------------------------------------------------------------
@@ -229,6 +246,16 @@ def resolve_fused(cfg: UltrasoundConfig, backend: str) -> FusedLowering:
             "this geometry (capability predicate failed: the CUDA fused "
             "kernel reads int16 RF and takes fusion_block in (64, 128, 256))")
     return live[sorted(live)[0]]
+
+
+def fused_supported(cfg: UltrasoundConfig, backend: str) -> bool:
+    """True iff `resolve_fused` would succeed (the planner's filter: AUTO
+    never resolves to a variant whose fused cell cannot run)."""
+    try:
+        resolve_fused(cfg, backend)
+        return True
+    except ValueError:
+        return False
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,8 @@ non-trivial. Deterministic given the seed.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from repro_torch.core import geometry
@@ -51,3 +53,27 @@ def synth_rf(cfg: UltrasoundConfig, seed: int = 0, n_scatter: int = 24,
         scale = 30000.0 / max(np.abs(rf).max(), 1e-9)
         return (rf * scale).astype(np.int16)
     return rf.astype(np.float32)
+
+
+# Config fields that choose the program, not the acquisition: `synth_rf`
+# reads none of them.
+_PROGRAM_AXES = ("variant", "modality", "exec_map", "stage_lowerings",
+                 "fusion", "precision", "fusion_block")
+
+
+@functools.lru_cache(maxsize=32)
+def _shared_rf(cfg: UltrasoundConfig, seed: int) -> np.ndarray:
+    rf = synth_rf(cfg, seed=seed)
+    rf.flags.writeable = False
+    return rf
+
+
+def shared_rf(cfg: UltrasoundConfig, seed: int = 0) -> np.ndarray:
+    """``synth_rf(cfg, seed=seed)``, made once per process for each
+    acquisition geometry and seed (a paper-geometry acquisition takes
+    seconds): the scheduler's tenants and the planner's probes of one
+    geometry share it, whatever their variant, modality or lowerings.
+    Read-only, since every caller gets the same array."""
+    base = UltrasoundConfig()
+    return _shared_rf(cfg.with_(**{f: getattr(base, f)
+                                   for f in _PROGRAM_AXES}), seed)

@@ -24,7 +24,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # bsr_beamform's arrival counters, per (device, stream): zero between
 # calls (each call leaves them so), zeroed once on the device when made
 # (a memset, which a CUDA graph capture may record; a copy from pageable
-# host memory it may not)
+# host memory it may not). A call under capture makes its own, in the
+# graph's pool: graphs replayed on two streams at once never share them.
 _ARRIVALS: dict = {}
 
 
@@ -135,7 +136,10 @@ def bsr_beamform(cols, blocks, iq_b, *, precision: str = "f32"):
                            device=dev)
     stream = cuda_lib.stream_of(dev)
     arrivals = _ARRIVALS.get((dev.index, stream))
-    if arrivals is None or arrivals.numel() < n_arr:
+    if torch.cuda.is_current_stream_capturing():
+        arrivals = torch.zeros(max(n_arr, 1), dtype=torch.int32,
+                               device=dev)
+    elif arrivals is None or arrivals.numel() < n_arr:
         arrivals = torch.zeros(max(n_arr, 1), dtype=torch.int32,
                                device=dev)
         _ARRIVALS[(dev.index, stream)] = arrivals

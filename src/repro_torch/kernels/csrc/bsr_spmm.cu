@@ -59,9 +59,12 @@
 // - Channel groups balance the card. At the paper's geometry a pixel
 //   block holds 64 to 116 kept units (chip_smoke.py prints them), so with
 //   one block per tile the SMs that draw heavy tiles finish far behind
-//   the rest (256 tiles on 132 SMs). Where the tiles alone give
-//   fewer than 1024 blocks, the channels are split into up to 4 groups
-//   (blockIdx.z); each group writes its sums to a partial tile, and the
+//   the rest (256 tiles on 132 SMs). Where the tiles of one column
+//   tile give fewer than 1024 blocks, the channels are split into up to
+//   4 groups (blockIdx.z). The batch does not enter that count, so an
+//   acquisition is summed in the same order whatever batch it is served
+//   in (a sharded batch equals the whole one bit for bit). Each group
+//   writes its sums to a partial tile, and the
 //   block that arrives last at a tile (an atomic count of arrivals, reset
 //   by that block) adds the groups' partial tiles in ascending order. No
 //   sum is atomic, so the output does not depend on which block is last.
@@ -251,7 +254,9 @@ BfGrid bf_grid(int batch, int n_c, int n_pb, int bp, int n_f) {
   BfGrid g;
   g.col_tiles = (batch * n_f + kBfCols - 1) / kBfCols;
   g.row_tiles = (bp + kBfRows - 1) / kBfRows;
-  const long long base = g.tiles() * n_pb;
+  // the groups are counted from one column tile, never from the batch:
+  // an acquisition's sums then run in the same order in any batch
+  const long long base = (long long)g.row_tiles * n_pb;
   long long parts = base > 0 ? (kTargetBlocks + base - 1) / base : 1;
   if (parts > kMaxParts) parts = kMaxParts;
   if (parts > n_c) parts = n_c;

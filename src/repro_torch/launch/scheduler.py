@@ -61,7 +61,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import functools
 import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -71,6 +70,7 @@ import torch
 
 from repro_torch.core.config import UltrasoundConfig
 from repro_torch.core.staging import StagingRing
+from repro_torch.data.rf_data import shared_rf
 from repro_torch.data.traces import (ArrivalProcess, StreamTrace, Trace,
                                      TraceArrival, mixed_phase, mixed_rate,
                                      seed_space)
@@ -182,26 +182,14 @@ class StreamSpec:
                           k % min(self.pool, self.n_frames))
 
     def frame_rf(self, k: int) -> np.ndarray:
-        """The RF of frame k (read-only; see `_frame_rf`)."""
-        return _frame_rf(self.cfg, self.frame_seed(k))
+        """The RF of frame k (read-only; see
+        `repro_torch.data.shared_rf`)."""
+        return shared_rf(self.cfg, self.frame_seed(k))
 
     def in_window(self, t: float) -> bool:
         """Is the probe connected at window-clock time t?"""
         return t >= self.start_s and (self.stop_s is None
                                       or t < self.stop_s)
-
-
-@functools.lru_cache(maxsize=32)
-def _frame_rf(cfg: UltrasoundConfig, seed: int) -> np.ndarray:
-    """``synth_rf(cfg, seed=seed)``, made once per process: windows that
-    replay the same tenants share their frames (a paper-geometry
-    acquisition takes seconds to synthesize). Read-only, since every
-    caller gets the same array."""
-    from repro_torch.data import synth_rf
-
-    rf = synth_rf(cfg, seed=seed)
-    rf.flags.writeable = False
-    return rf
 
 
 def make_mixed_streams(n_clients: int, cfg_bmode: UltrasoundConfig,
@@ -329,34 +317,37 @@ def _ready(p: _Pending) -> bool:
 
 
 def _build_groups(specs: Sequence[StreamSpec], policy: BatchPolicy, *,
-                  device, plan_policy, pool=None, donate=None
+                  devices: list, plan_policy, pool=None, donate=None
                   ) -> Tuple[List["_Group"], List["_Group"]]:
     """Group specs by plan-resolved config hash, one executor each.
 
     Returns (groups, group_of_stream). `Variant.AUTO` tenants resolve
-    through ``plan_policy`` first, so an AUTO probe and an explicit one
-    share a group when the planner agrees. A `WarmPool` hit (same key:
-    hash, padded shape, device count, donation) reuses the pooled
-    engine, graph installed, and the group is ``warm_source="pool"``
-    with no warm cost charged to this window.
+    through ``plan_policy`` first (``"autotune"``: the memoized search),
+    so an AUTO probe and an explicit one share a group when the planner
+    agrees. Two or more ``devices`` make each group's executor a
+    `ShardedExecutor` (``max_batch`` must divide evenly). A `WarmPool`
+    hit (same key: hash, padded shape, device count, donation) reuses
+    the pooled engine, graphs installed, and the group is
+    ``warm_source="pool"`` with no warm cost charged to this window.
     """
     from repro_torch.core.aot import pool_key
-    from repro_torch.core.executor import BatchedExecutor
-    from repro_torch.core.pipeline import _plan
+    from repro_torch.core.executor import check_shards, serve_engine
+    from repro_torch.core.pipeline import _resolve_plan
 
+    n_devices = check_shards(policy.max_batch, devices)
     groups: Dict[str, _Group] = {}
     group_of_stream: List[_Group] = []
     for spec in specs:
-        plan = _plan(spec.cfg, plan_policy, device.type)
-        key = pool_key(spec.cfg, policy.max_batch, plan, donate)
+        plan = _resolve_plan(spec.cfg, None, plan_policy, devices[0].type,
+                             batch=policy.max_batch // n_devices)
+        key = pool_key(spec.cfg, policy.max_batch, plan, donate, n_devices)
         if key[0] not in groups:
             entry = pool.get(key) if pool is not None else None
             if entry is not None:
                 g = _Group(key[0], entry.engine.cfg, entry.engine)
                 g.warm_source = "pool"
             else:
-                engine = BatchedExecutor(spec.cfg, policy=plan_policy,
-                                         device=device)
+                engine = serve_engine(spec.cfg, devices, plan)
                 g = _Group(key[0], engine.cfg, engine)
             groups[key[0]] = g
         groups[key[0]].stream_ids.append(spec.stream_id)
@@ -368,7 +359,7 @@ def _make_frames(specs: Sequence[StreamSpec]
                  ) -> Tuple[List[_Frame], List[int]]:
     """Pre-generate every in-window frame (arrival-sorted) + drops.
 
-    Synthesis is untimed (and shared across windows: `_frame_rf`).
+    Synthesis is untimed (and shared across windows: `shared_rf`).
     Frames arriving outside the stream's connect
     window are dropped here, by timestamp alone. The sort key
     ``(t_arrival, stream, seq)`` admits simultaneous arrivals in spec
@@ -483,12 +474,15 @@ def serve_multitenant(streams: Sequence[StreamSpec], *,
     harvests the images on a later pass, ``"block"`` waits for them at
     once.
 
-    ``device`` is the card unless ``"cpu"``; ``devices`` of more than
-    one device raises (sharded serving is not ported). ``donate`` must
-    be None or False: the port donates no buffer. ``plan_policy``
-    resolves `Variant.AUTO` tenants. ``collect_outputs=True`` adds every
-    served image (``outputs[stream_id][seq]``, numpy) to the stats, for
-    the determinism oracle.
+    ``device`` is the card unless ``"cpu"``. ``devices``: two or more
+    route every group through a `ShardedExecutor` (each batch split over
+    the devices, one CUDA graph a shard; ``max_batch`` must divide
+    evenly), the images gathered on the first, which the window meters.
+    ``donate`` must be None or False: the port donates no buffer.
+    ``plan_policy`` resolves `Variant.AUTO` tenants (``"autotune"``
+    probes each group at its rows per device). ``collect_outputs=True``
+    adds every served image (``outputs[stream_id][seq]``, numpy) to the
+    stats, for the determinism oracle.
 
     Returns the reference's stats dict (schema: `repro_torch.bench.schema`,
     kind "multitenant" once stamped).
@@ -497,8 +491,8 @@ def serve_multitenant(streams: Sequence[StreamSpec], *,
                                            occupancy_stats)
     from repro_torch.bench.resources import ResourceMeter
     from repro_torch.bench.stats import bootstrap_ci
-    from repro_torch.core.aot import WarmEntry, aot_warm, single_device
-    from repro_torch.core.pipeline import resolve_device
+    from repro_torch.core.aot import WarmEntry, aot_warm
+    from repro_torch.core.executor import resolve_devices
 
     if not streams:
         raise ValueError("serve_multitenant needs at least one stream")
@@ -511,11 +505,13 @@ def serve_multitenant(streams: Sequence[StreamSpec], *,
     if len(set(ids)) != len(ids):
         raise ValueError(f"duplicate stream_id in {ids}")
 
-    dev = resolve_device(single_device(devices, device))
+    devs = resolve_devices(devices, device)
+    dev = devs[0]
     cuda = dev.type == "cuda"
+    sharded = len(devs) > 1
     specs = list(streams)
     groups, group_of_stream = _build_groups(
-        specs, policy, device=dev, plan_policy=plan_policy, pool=pool,
+        specs, policy, devices=devs, plan_policy=plan_policy, pool=pool,
         donate=donate)
     frames, dropped_per_stream = _make_frames(specs)
     if not frames:
@@ -533,7 +529,7 @@ def serve_multitenant(streams: Sequence[StreamSpec], *,
         prog = aot_warm(g.engine, policy.max_batch)
         g.warmup_s = prog.warmup_s
         if pool is not None:
-            pool.put((g.key, policy.max_batch, 1, g.engine.donate),
+            pool.put((g.key, policy.max_batch, len(devs), g.engine.donate),
                      WarmEntry(engine=g.engine, program=prog))
     warmup_s = sum(g.warmup_s for g in groups)
 
@@ -650,6 +646,8 @@ def serve_multitenant(streams: Sequence[StreamSpec], *,
                 staged = g.engine.place(buf)
                 h2d_s += time.perf_counter() - t
                 out = g.engine.dispatch_staged(staged, policy.max_batch)
+                if sharded:
+                    out = g.engine.gather(out)
                 ev = None
                 if cuda:
                     ev = torch.cuda.Event()

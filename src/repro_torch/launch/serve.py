@@ -20,7 +20,12 @@ with the reference's stats keys.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --ultrasound \
       --batch 4 --batches 32 --depth 2 [--variant dynamic|cnn|sparse|auto] \
-      [--device cpu]
+      [--plan fixed|heuristic|autotune] [--device cpu]
+
+``--devices N`` streams through `serve_ultrasound_sharded` instead: each
+dispatch is N shards of ``--batch`` acquisitions, one a device, with
+per-device in-flight queues and the scale efficiency against one device
+(``--device cpu --devices 2``: two shards on the CPU).
 
 ``--multitenant`` serves N mixed-modality clients through the
 dynamic-batching scheduler (`repro_torch.launch.scheduler`):
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import time
 
 import numpy as np
@@ -153,8 +159,8 @@ class SyntheticAcquisitionSource:
 
 def serve_ultrasound_stream(cfg, *, batch: int = 4, n_batches: int = 32,
                             depth: int = 2, pool: int = 4, seed: int = 0,
-                            deadline_s=None, source=None, policy=None,
-                            device=None) -> dict:
+                            deadline_s=None, source=None, plan=None,
+                            policy=None, device=None) -> dict:
     """Stream RF batches through the stage-graph engine, `depth` in flight.
 
     Each batch is placed (H2D on the executor's copy stream, never
@@ -169,13 +175,17 @@ def serve_ultrasound_stream(cfg, *, batch: int = 4, n_batches: int = 32,
     from repro_torch.bench.harness import latency_stats
     from repro_torch.bench.resources import ResourceMeter
     from repro_torch.core.executor import BatchedExecutor
+    from repro_torch.core.pipeline import _resolve_plan, resolve_device
 
     if batch < 1 or n_batches < 1 or depth < 1:
         raise ValueError(
             f"batch, n_batches, depth must be >= 1 "
             f"(got {batch}, {n_batches}, {depth})")
 
-    engine = BatchedExecutor(cfg, policy=policy, device=device)
+    if plan is None:            # autotune probes the batch served here
+        plan = _resolve_plan(cfg, None, policy, resolve_device(device).type,
+                             batch=batch)
+    engine = BatchedExecutor(cfg, plan=plan, device=device)
     cfg = engine.cfg
     dev = engine.device
     on_cuda = dev.type == "cuda"
@@ -238,6 +248,144 @@ def serve_ultrasound_stream(cfg, *, batch: int = 4, n_batches: int = 32,
     }
 
 
+def serve_ultrasound_sharded(cfg, *, batch_per_device: int = 4,
+                             n_batches: int = 32, depth: int = 2,
+                             pool: int = 4, seed: int = 0,
+                             deadline_s=None, devices=None, source=None,
+                             plan=None, policy=None,
+                             baseline_fps=None) -> dict:
+    """Stream RF through the `ShardedExecutor`, per-device in-flight queues.
+
+    Every dispatch carries ``batch_per_device * n_devices`` acquisitions,
+    split into contiguous shards, one a device (``devices=None``: every
+    CUDA device). Each shard's output, with the event recorded after it
+    on its shard's stream, goes onto that device's in-flight queue; once
+    ``depth`` dispatches are queued the loop retires the oldest shard of
+    each device, polling the events, so per-device completion intervals
+    (and stragglers) are observable one by one.
+
+    Scale efficiency: ``baseline_fps`` is the one-device sustained FPS at
+    the same per-device batch (measured with `serve_ultrasound_stream` on
+    the first device when not given);
+    ``speedup_vs_single = fps / baseline_fps`` and ``scale_efficiency =
+    speedup_vs_single / n_devices``, both None without a baseline.
+
+    Returns the stats of `serve_ultrasound_stream` plus ``devices``,
+    ``batch_per_device``, ``per_device_latency`` (keyed
+    ``"<shard>:<device>"``, since a device may repeat),
+    ``baseline_fps``, ``speedup_vs_single`` and ``scale_efficiency``;
+    ``plan`` carries the device topology, ``resources`` the first
+    device's peak memory and energy.
+    """
+    from repro_torch.bench.harness import latency_stats
+    from repro_torch.bench.resources import ResourceMeter
+    from repro_torch.core.executor import ShardedExecutor, resolve_devices
+    from repro_torch.core.pipeline import _resolve_plan
+
+    if batch_per_device < 1 or n_batches < 1 or depth < 1:
+        raise ValueError(
+            f"batch_per_device, n_batches, depth must be >= 1 "
+            f"(got {batch_per_device}, {n_batches}, {depth})")
+
+    if plan is None:            # autotune probes one device's shard
+        kind = (resolve_devices(devices)[0].type if devices is not None
+                else "cuda")
+        plan = _resolve_plan(cfg, None, policy, kind,
+                             batch=batch_per_device)
+    engine = ShardedExecutor(cfg, devices=devices, plan=plan)
+    cfg = engine.cfg
+    n_dev = engine.n_devices
+    batch = batch_per_device * n_dev
+    on_cuda = engine.device.type == "cuda"
+    # built before the baseline and the warm-up heat the board, so the
+    # NVML idle baseline sees it cold
+    meter = ResourceMeter(engine.device)
+
+    if baseline_fps is None:
+        # the same decisions, stamped with the one device it runs on
+        baseline_plan = dataclasses.replace(engine.plan, devices=1,
+                                            mesh_shape=None)
+        baseline_fps = serve_ultrasound_stream(
+            cfg, batch=batch_per_device, n_batches=n_batches, depth=depth,
+            pool=pool, seed=seed, deadline_s=deadline_s,
+            plan=baseline_plan, device=engine.device)["fps"]
+
+    if source is None:
+        source = SyntheticAcquisitionSource(cfg, batch, pool=pool, seed=seed,
+                                            pin_memory=on_cuda)
+
+    # warm-up (kernel build, first launch): one round trip, untimed
+    engine.gather(engine.dispatch(source.next()))
+    for d in set(engine.devices) if on_cuda else ():
+        torch.cuda.synchronize(d)
+
+    queues = [collections.deque() for _ in engine.devices]
+    dev_intervals = [[] for _ in engine.devices]
+    intervals = []                     # global: all shards of a dispatch
+
+    meter.start()
+    t0 = time.perf_counter()
+    last_dev = [t0] * n_dev
+    last_global = t0
+
+    def drain_one():
+        """Retire the oldest in-flight shard of every device, by polling
+        their events: a straggler stretches its own interval only."""
+        nonlocal last_global
+        pending = {i: q.popleft() for i, q in enumerate(queues)}
+        while pending:
+            for i in list(pending):
+                ev = pending[i].done_event
+                if ev is None or ev.query():
+                    now = time.perf_counter()
+                    dev_intervals[i].append(now - last_dev[i])
+                    last_dev[i] = now
+                    del pending[i]
+            if pending:
+                time.sleep(1e-4)
+        now = time.perf_counter()
+        intervals.append(now - last_global)
+        last_global = now
+        meter.sample()
+
+    for _ in range(n_batches):
+        for i, shard in enumerate(engine.dispatch(source.next())):
+            queues[i].append(shard)
+        while len(queues[0]) >= depth:
+            drain_one()
+    while queues[0]:
+        drain_one()
+    wall = time.perf_counter() - t0
+
+    acqs = n_batches * batch
+    fps = acqs * cfg.n_f / wall
+    budget = batch * deadline_s if deadline_s is not None else None
+    speedup = fps / baseline_fps if baseline_fps else None
+    return {
+        "name": (f"stream/{cfg.name}/{cfg.variant.value}"
+                 f"/b{batch_per_device}xd{n_dev}"),
+        "devices": n_dev,
+        "batch_per_device": batch_per_device,
+        "batch": batch, "n_batches": n_batches, "depth": depth,
+        "plan": engine.plan.json_dict(),
+        "wall_s": wall,
+        "acquisitions": acqs,
+        "frames": acqs * cfg.n_f,
+        "sustained_mbps": acqs * cfg.input_bytes / (wall * 1e6),
+        "fps": fps,
+        "acq_per_s": acqs / wall,
+        "latency": latency_stats(intervals, budget_s=budget),
+        "per_device_latency": {
+            f"{i}:{d}": latency_stats(dev_intervals[i]).json_dict()
+            for i, d in enumerate(engine.devices)},
+        "baseline_fps": baseline_fps,
+        "speedup_vs_single": speedup,
+        "scale_efficiency": (speedup / n_dev
+                             if speedup is not None else None),
+        "resources": meter.stop().json_dict(),
+    }
+
+
 def _print_resources(res: dict) -> None:
     peak = res["peak_memory_bytes"]
     energy = res["energy_joules"]
@@ -248,6 +396,23 @@ def _print_resources(res: dict) -> None:
              f"{res['idle_power_w']:.1f}W over {res['duration_s']:.2f}s "
              f"({res['energy_samples']} NVML samples)"
              if energy is not None else " energy=not measured"))
+
+
+def _cli_devices(args, ap):
+    """``--devices N`` as a device list (None: unset): the first N CUDA
+    devices, or with ``--device cpu`` the CPU N times (N shards of one
+    batch on the CPU)."""
+    if args.devices is None:
+        return None
+    if args.devices < 1:
+        ap.error(f"--devices must be >= 1 (got {args.devices})")
+    if args.device == "cpu":
+        return ["cpu"] * args.devices
+    have = torch.cuda.device_count()
+    if args.devices > have:
+        ap.error(f"--devices {args.devices} > {have} CUDA devices "
+                 "(--device cpu runs N shards on the CPU)")
+    return [f"cuda:{i}" for i in range(args.devices)]
 
 
 def _serve_multitenant_cli(args, ap) -> None:
@@ -265,7 +430,8 @@ def _serve_multitenant_cli(args, ap) -> None:
     stats = serve_multitenant(
         streams, policy=BatchPolicy(args.max_batch, args.queue_delay_ms),
         in_flight=args.in_flight, drain=args.drain,
-        plan_policy=args.plan, device=args.device)
+        devices=_cli_devices(args, ap), plan_policy=args.plan,
+        device=args.device)
     lat, qd = stats["latency"], stats["queue_delay"]
     occ, ifo = stats["occupancy"], stats["in_flight_occupancy"]
     print(f"{stats['name']}: {stats['acquisitions']} acquisitions "
@@ -310,7 +476,13 @@ def main() -> None:
                     help="max batches in flight")
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="per-acquisition frame budget")
-    ap.add_argument("--plan", default=None, choices=["fixed", "heuristic"],
+    ap.add_argument("--devices", type=int, default=None,
+                    help="ultrasound: shard each batch over N devices "
+                         "(--batch becomes per-device; with "
+                         "--multitenant, --max-batch must divide by N; "
+                         "with --device cpu, N shards on the CPU)")
+    ap.add_argument("--plan", default=None,
+                    choices=["fixed", "heuristic", "autotune"],
                     help="variant-resolution policy")
     ap.add_argument("--variant", default="dynamic",
                     choices=["dynamic", "cnn", "sparse", "auto"],
@@ -356,7 +528,7 @@ def main() -> None:
                  else "peak_mem=not measured"))
         return
     if args.variant == "auto" and args.plan == "fixed":
-        ap.error("--variant auto needs --plan heuristic")
+        ap.error("--variant auto needs --plan heuristic or autotune")
     if args.multitenant:
         _serve_multitenant_cli(args, ap)
         return
@@ -366,9 +538,16 @@ def main() -> None:
                       variant=Variant(args.variant))
     deadline_s = (args.deadline_ms / 1e3
                   if args.deadline_ms is not None else None)
-    stats = serve_ultrasound_stream(
-        cfg, batch=args.batch, n_batches=args.batches, depth=args.depth,
-        policy=args.plan, deadline_s=deadline_s, device=args.device)
+    devices = _cli_devices(args, ap)
+    if devices is not None:
+        stats = serve_ultrasound_sharded(
+            cfg, batch_per_device=args.batch, n_batches=args.batches,
+            depth=args.depth, policy=args.plan, devices=devices,
+            deadline_s=deadline_s)
+    else:
+        stats = serve_ultrasound_stream(
+            cfg, batch=args.batch, n_batches=args.batches, depth=args.depth,
+            policy=args.plan, deadline_s=deadline_s, device=args.device)
     lat = stats["latency"]
     plan = stats["plan"]
     print(f"plan: policy={plan['policy']} backend={plan['backend']} "
@@ -380,6 +559,14 @@ def main() -> None:
           f"p50={lat.p50_s * 1e3:.2f}ms p95={lat.p95_s * 1e3:.2f}ms "
           f"p99={lat.p99_s * 1e3:.2f}ms jitter={lat.jitter_s * 1e3:.2f}ms "
           f"miss_rate={lat.miss_rate:.3f}")
+    if devices is not None:
+        eff = stats["scale_efficiency"]
+        print(f"sharded over {stats['devices']} device(s): baseline "
+              f"{stats['baseline_fps']:.1f} FPS on one, speedup "
+              f"{stats['speedup_vs_single']:.2f}x, scale efficiency "
+              f"{eff:.2f}; per device p50 "
+              + ", ".join(f"{d} {v['p50_s'] * 1e3:.2f}ms" for d, v in
+                          stats["per_device_latency"].items()))
     _print_resources(stats["resources"])
 
 

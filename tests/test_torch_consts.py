@@ -183,3 +183,134 @@ def test_synth_rf_byte_equal(seed):
 def test_seed_space_equal():
     for parts in (("source", 0, 0), ("source", 3, 17), ("mt", "a", 1.5)):
         assert seed_space(*parts) == j_seed_space(*parts)
+
+
+# ---------------------------------------------------------------------------
+# The disk tier (the reference's two-tier cache, with the port's own tag)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def disk_dir(tmp_path):
+    """Both packages' disk tiers pointed at one fresh directory, their
+    memory tiers empty; restored afterwards."""
+    from repro.core import pipeline as jpipe
+
+    prev = (tpipe.consts_cache_dir(), jpipe.consts_cache_dir())
+    tpipe.set_consts_cache_dir(str(tmp_path))
+    jpipe.set_consts_cache_dir(str(tmp_path))
+    tpipe.clear_consts_cache()
+    jpipe.clear_consts_cache()
+    tpipe.CONSTS_CACHE_STATS.reset()
+    yield tmp_path
+    tpipe.set_consts_cache_dir(prev[0])
+    jpipe.set_consts_cache_dir(prev[1])
+    tpipe.clear_consts_cache()
+
+
+@pytest.mark.parametrize("variant", ("dynamic", "cnn", "sparse"))
+def test_disk_tier_round_trip_is_bit_equal(disk_dir, variant):
+    stats = tpipe.CONSTS_CACHE_STATS
+    cfg = tcfg.tiny_config(variant=variant, nz=20)
+    fresh = init_pipeline(cfg)
+    assert (stats.misses, stats.mem_hits, stats.disk_hits) == (1, 0, 0)
+    files = [p.name for p in disk_dir.iterdir()]
+    assert len(files) == 1 and files[0].startswith("consts-torch-v1-")
+    init_pipeline(cfg.with_(exec_map="map"))          # same constants
+    assert (stats.misses, stats.mem_hits, stats.disk_hits) == (1, 1, 0)
+    tpipe.clear_consts_cache()                        # a restart
+    cached = init_pipeline(cfg)
+    assert (stats.misses, stats.mem_hits, stats.disk_hits) == (1, 1, 1)
+    assert sorted(cached) == sorted(fresh)
+    for k in fresh:
+        assert _bits_equal(cached[k], fresh[k]), k
+        assert not cached[k].flags.writeable
+    out = consts_from_numpy(cached, "cpu")            # copies, no warning
+    assert out[k].numpy().flags.writeable
+
+
+def test_disk_tier_recomputes_a_corrupt_entry(disk_dir):
+    stats = tpipe.CONSTS_CACHE_STATS
+    cfg = tcfg.tiny_config(variant="dynamic", nz=20)
+    fresh = init_pipeline(cfg)
+    (path,) = disk_dir.iterdir()
+    path.write_bytes(path.read_bytes()[:100])         # a torn file
+    tpipe.clear_consts_cache()
+    again = init_pipeline(cfg)
+    assert (stats.misses, stats.disk_hits) == (2, 0)
+    for k in fresh:
+        assert _bits_equal(again[k], fresh[k]), k
+    tpipe.clear_consts_cache()                        # rewritten whole
+    init_pipeline(cfg)
+    assert stats.disk_hits == 1
+
+
+def test_disk_tier_skips_an_entry_over_its_cap(disk_dir, monkeypatch):
+    cfg = tcfg.tiny_config(variant="cnn", nz=20)
+    size = tpipe._consts_nbytes(init_pipeline(cfg, cache=False))
+    monkeypatch.setattr(tpipe, "DISK_CACHE_MAX_BYTES", size - 1)
+    init_pipeline(cfg)
+    assert list(disk_dir.iterdir()) == []
+    assert tpipe.CONSTS_CACHE_STATS.misses == 1
+    monkeypatch.setattr(tpipe, "DISK_CACHE_MAX_BYTES", size)
+    tpipe.clear_consts_cache()
+    init_pipeline(cfg)
+    assert len(list(disk_dir.iterdir())) == 1
+
+
+def test_disk_tier_keys_follow_the_constants_sources(disk_dir, monkeypatch):
+    """A file written by a tree whose constant-building sources differ is
+    never read: the key carries their digest."""
+    stats = tpipe.CONSTS_CACHE_STATS
+    cfg = tcfg.tiny_config(variant="dynamic", nz=20)
+    init_pipeline(cfg)
+    (path,) = disk_dir.iterdir()
+    assert f"-{tpipe._sources_digest()}-" in path.name
+    monkeypatch.setattr(tpipe, "_sources_digest", lambda: "0" * 12)
+    tpipe.clear_consts_cache()
+    init_pipeline(cfg)
+    assert (stats.misses, stats.disk_hits) == (2, 0)
+    assert len(list(disk_dir.iterdir())) == 2
+    tpipe.clear_consts_cache(disk=True)               # both are the port's
+    assert list(disk_dir.iterdir()) == []
+
+
+def test_disk_tier_never_reads_the_reference_files(disk_dir):
+    """One directory, one config hash in both packages: each reads only
+    the files it wrote, and the port's clear leaves the reference's."""
+    from repro.core import pipeline as jpipe
+
+    j, t = _pair("tiny", variant="dynamic", nz=20)
+    assert tcfg.config_hash(t) == jcfg.config_hash(j)
+    jstats = jpipe.CONSTS_CACHE_STATS
+    jstats.reset()
+    jpipe.init_pipeline(j)
+    assert jstats.misses == 1 and len(list(disk_dir.iterdir())) == 1
+    init_pipeline(t)
+    assert tpipe.CONSTS_CACHE_STATS.misses == 1        # not read
+    assert tpipe.CONSTS_CACHE_STATS.disk_hits == 0
+    names = sorted(p.name for p in disk_dir.iterdir())
+    assert len(names) == 2
+    assert names[0].startswith("consts-torch-v1-")
+    assert names[1].startswith("consts-v1-")
+    jpipe.clear_consts_cache()
+    jpipe.init_pipeline(j)
+    assert jstats.disk_hits == 1 and jstats.misses == 1
+    tpipe.clear_consts_cache(disk=True)
+    assert [p.name for p in disk_dir.iterdir()] == names[1:]
+
+
+def test_cache_bypass_and_settings_match_the_reference(disk_dir):
+    from repro.core import pipeline as jpipe
+
+    cfg = tcfg.tiny_config(variant="dynamic", nx=20)
+    init_pipeline(cfg, cache=False)
+    init_pipeline(cfg, cache=False)
+    stats = tpipe.CONSTS_CACHE_STATS
+    assert (stats.misses, stats.mem_hits, stats.disk_hits) == (0, 0, 0)
+    assert list(disk_dir.iterdir()) == []
+    assert tpipe.DISK_CACHE_MAX_BYTES == jpipe.DISK_CACHE_MAX_BYTES
+    assert tpipe.MEM_CACHE_MAX_BYTES == jpipe.MEM_CACHE_MAX_BYTES
+    tpipe.set_consts_cache_dir(None)                  # disk tier off
+    init_pipeline(cfg)
+    assert stats.misses == 1 and list(disk_dir.iterdir()) == []

@@ -248,16 +248,17 @@ def test_dispatch_padded_after_aot_warm_equals_unwarmed(variant):
 
 def test_serving_refuses_what_the_port_does_not_do():
     streams = _streams("dynamic", n_clients=1, n_frames=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_multitenant(streams, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="multiple of n_devices"):
+        serve_multitenant(streams, policy=BatchPolicy(3, 5.0),
+                          devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="donate"):
         serve_multitenant(streams, donate=True, device="cpu")
     with pytest.raises(ValueError, match="drain"):
         serve_multitenant(streams, drain="later", device="cpu")
     with pytest.raises(ValueError, match="in_flight"):
         serve_multitenant(streams, in_flight=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        warm_pool(streams, max_batch=4, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="multiple of n_devices"):
+        warm_pool(streams, max_batch=3, devices=["cpu", "cpu"])
     assert isinstance(WarmPool().keys(), tuple)
 
 
