@@ -74,19 +74,30 @@ last line):
                zamba2's prefill shape and `ssd_scan` at its scoring shape,
                f32, each against its plain version, timed as in 3, with
                bounds for their 3xTF32 tensor-core route beside the f32
-               SIMT bound;
+               SIMT bound; then the same at the new models' shapes
+               (`[lm]` lines): flash at seamless-m4t's decoder
+               self-attention (4, 2048, 16 heads, d 64), the SSD at
+               mamba2-130m's scoring forward (N 128, chunk 64);
   7. lm serve — zamba2-1.2b at full width and depth in bf16, random
                weights from a seed: `serve_session` with the flash kernel
                (8 requests, slot batch 4, prompt 1024, 32 new tokens),
                then scoring (`loss_fn`, forward at (4, 2048)) with the SSD
                kernel, each with the launch counters zeroed before and
-               read after;
-     then `[lm split]`: torch.profiler over one prefill, one decode step
-               and one scoring forward, for the device's busy share and
-               the kernels that take the device time;
-  8. lm outputs — full width in f32: the kernel path's logits against the
-               plain path's, and prefill and decode logits against
-               forward's;
+               read after; then mamba2-130m, gemma3-1b and
+               seamless-m4t-large-v2 the same way with both kernel flags
+               set (seamless's prompt is 1024 encoder frames): serving
+               launches no kernel; scoring launches `ssd_scan` once a
+               layer (mamba2), `flash_attention` once a decoder layer
+               (seamless), neither (gemma3: its window is a tensor, the
+               reference's condition); peak memory of each;
+     each model then `[lm split]`: torch.profiler over one prefill, one
+               decode step and one scoring forward, for the device's busy
+               share, the kernels that take the device time, and the
+               "other" kernels' time by the ATen op that launched them;
+  8. lm outputs — full width in f32, each model: the kernel path's logits
+               against the plain path's, and prefill and decode logits
+               against forward's (gemma3 also at prompt 640, where its
+               local window bites);
   9. launches — how many CUDA launches one call of each multi-launch
                kernel makes, and the device time of each (torch.profiler,
                after every timed phase): the fused spans at the paper's
@@ -194,10 +205,30 @@ MT_OVERLOAD = 2.0        # offered load over the measured service rate
 MT_ENERGY_S = 2.5        # the energy window: its slowest client's span
 MT_SAMPLE = (0, 1, -1)   # frames of each stream held to the lone frame
 
-# LM half: zamba2-1.2b, served and scored at full width and depth
+# LM half: zamba2-1.2b, served and scored at full width and depth, then
+# the three models of the dense, ssm and enc-dec families the same way
 ARCH = "zamba2-1.2b"
 LM_REQUESTS, LM_BATCH, PROMPT_LEN, MAX_NEW = 8, 4, 1024, 32
 SCORE_SHAPE = (4, 2048)
+LM_FLAGS = dict(use_flash_kernel=True, use_ssd_kernel=True)
+# model: (serving flags, scoring flags, the kernels each run must launch,
+# any other 0). zamba2: flash in its 6 shared-attention calls of each of
+# 2 prefills, the SSD in its 38 layers. The new models serve with no
+# kernel (prefill asks for states; seamless's prefill is encode + decode;
+# gemma3's window is a tensor, so flash stays off, as the reference's)
+# and score with one launch a layer
+LM_MODELS = {
+    ARCH: (dict(use_flash_kernel=True), dict(use_ssd_kernel=True),
+           {"flash_attention": 12}, {"ssd_scan": 38}),
+    "mamba2-130m": (LM_FLAGS, LM_FLAGS, {}, {"ssd_scan": 24}),
+    "gemma3-1b": (LM_FLAGS, LM_FLAGS, {}, {}),
+    "seamless-m4t-large-v2": (LM_FLAGS, LM_FLAGS, {},
+                              {"flash_attention": 24}),
+}
+# phase 8's f32 checks: (model, prompt); gemma3's local window (512) bites
+# at 640
+OUTPUT_RUNS = ((ARCH, 256), ("mamba2-130m", 256), ("gemma3-1b", 256),
+               ("gemma3-1b", 640), ("seamless-m4t-large-v2", 256))
 FLASH_TOL = (2e-4, 2e-5)   # rtol, atol: test_torch_lm_kernels / _gpu
 SSD_TOL = (2e-4, 2e-4)
 LOGITS_TOL = 2e-3          # rtol = atol, tests/test_decode_consistency.py
@@ -254,8 +285,8 @@ def split_tf32_bound(nbytes: float, flops: float) -> tuple:
 def profiled(fn) -> tuple:
     """One call of ``fn`` under torch.profiler, after one warm call: the
     CUDA kernels' events (an empty list where the profiler sees no device
-    activity) and the call's wall time in ms (host clock; the profiler
-    adds host overhead)."""
+    activity), the call's wall time in ms (host clock; the profiler adds
+    host overhead) and the profile's events."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -271,7 +302,7 @@ def profiled(fn) -> tuple:
         wall = (time.perf_counter() - t0) * 1e3
     return ([e for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and "spin_kernel" not in e.key], wall)
+             and "spin_kernel" not in e.key], wall, prof.events())
 
 
 def check_precisions(name, kernel, plain) -> float:
@@ -295,7 +326,7 @@ def check_precisions(name, kernel, plain) -> float:
     return errs["f32"]
 
 
-def measure(rows: dict, flush: torch.Tensor) -> dict:
+def measure(rows: dict, flush: torch.Tensor, tag: str = "[kernels]") -> dict:
     """Time each row's kernel, plain version and library call, then drop
     the closures (and with them the tensors they hold)."""
     out = {}
@@ -314,7 +345,7 @@ def measure(rows: dict, flush: torch.Tensor) -> dict:
             simt += (f", all-terms bound {row['all_bound'][0]:.4f} ms "
                      f"({row['all_bound'][1]}), no-FMA floor "
                      f"{row['floor_ms']:.4f} ms")
-        say(f"[kernels] {name}: kernel {row['ms']:.4f} ms, plain "
+        say(f"{tag} {name}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
             f"({row['bound'][1]}){simt}, library: {lib}")
         out[name] = row
@@ -1221,47 +1252,50 @@ def close_enough(name, out, ref, rtol, atol) -> float:
     return err
 
 
-def lm_kernel_inputs() -> tuple:
-    """f32 inputs from seed 0: q, k, v at zamba2's served prefill shape
-    and (log_a, x, b, c) at its scoring shape, and the SSD chunk."""
+def ssd_dims(cfg) -> tuple:
+    """(H, P, N, chunk) of a Mamba2 config's SSD scan."""
+    return (cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim,
+            cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk)
+
+
+def lm_kernel_inputs(flash_shape=None, ssd_shape=None) -> tuple:
+    """f32 inputs from seed 0: q, k, v of flash shape (B, L, H, Hkv, d)
+    and (log_a, x, b, c) of SSD shape (B, L, H, P, N), and zamba2's SSD
+    chunk. The defaults are zamba2's served prefill and its scoring
+    forward."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    qkv = tuple(torch.randn(LM_BATCH, PROMPT_LEN, 32, 64, generator=g,
-                            device=dev) for _ in range(3))
-    bsz, length = SCORE_SHAPE
     cfg = get_config(ARCH)
-    heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
-    p, n = cfg.ssm_head_dim, cfg.ssm_state
+    heads, p, n, chunk = ssd_dims(cfg)
+    b, l, h, hkv, d = flash_shape or (LM_BATCH, PROMPT_LEN, cfg.n_heads,
+                                      cfg.n_kv_heads, cfg.head_dim)
+    bsz, length, heads, p, n = ssd_shape or SCORE_SHAPE + (heads, p, n)
+    qkv = tuple(torch.randn(b, l, hh, d, generator=g, device=dev)
+                for hh in (h, hkv, hkv))
     log_a = -torch.rand(bsz, length, heads, generator=g, device=dev) * 0.3
     x = torch.randn(bsz, length, heads, p, generator=g, device=dev)
     bm, cm = (torch.randn(bsz, length, n, generator=g, device=dev) * 0.3
               for _ in range(2))
-    return qkv, (log_a, x, bm, cm), cfg.ssm_chunk
+    return qkv, (log_a, x, bm, cm), chunk
 
 
-def phase_lm_kernels() -> dict:
-    """flash_attention at zamba2's served prefill shape and ssd_scan at
-    its scoring shape, f32, against their plain versions; then timed.
-    Both run their products as 3xTF32 on the tensor cores: the bound is
-    that route's (three TF32 products per f32 one at 495 TFLOP/s), with
-    the f32 FMA units' (SIMT) bound printed beside it."""
-    dev = torch.device("cuda")
-    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
-    rows = {}
-
-    (q, k, v), args, chunk = lm_kernel_inputs()
+def flash_row(q, k, v) -> dict:
+    """flash_attention (causal) against its plain version, and its row:
+    the 3xTF32 route's bound, the SIMT bound beside it, SDPA where it
+    agrees with the plain version."""
     b, l, h, d = q.shape
-    err = close_enough("flash_attention vs plain",
-                       flash_attention(q, k, v), flash_attention_ref(q, k, v),
-                       *FLASH_TOL)
+    err = close_enough(f"flash_attention vs plain at {tuple(q.shape)}, "
+                       f"Hkv {k.shape[2]}", flash_attention(q, k, v),
+                       flash_attention_ref(q, k, v), *FLASH_TOL)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     library = (lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
     ok = library_check("flash_attention", lambda: library().transpose(1, 2),
                        flash_attention_ref(q, k, v))
-    route, simt = split_tf32_bound(4.0 * 4 * b * l * h * d,
-                                   4.0 * b * h * d * l * (l + 1) / 2)
-    rows["flash_attention"] = dict(
+    route, simt = split_tf32_bound(
+        4.0 * (2 * q.numel() + k.numel() + v.numel()),
+        4.0 * b * h * d * l * (l + 1) / 2)
+    return dict(
         err=err,
         fn=lambda: flash_attention(q, k, v),
         plain=lambda: flash_attention_ref(q, k, v),
@@ -1273,10 +1307,15 @@ def phase_lm_kernels() -> dict:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:77")
 
-    log_a, x, bm, cm = args
+
+def ssd_row(log_a, x, bm, cm, chunk) -> dict:
+    """ssd_scan against its plain version, and its row (3xTF32 route's
+    bound, SIMT bound beside it; no single PyTorch call computes it)."""
+    args = (log_a, x, bm, cm)
     bsz, length, heads, p = x.shape
     n = bm.shape[-1]
-    err = close_enough("ssd_scan vs plain", ssd_scan(*args, chunk=chunk),
+    err = close_enough(f"ssd_scan vs plain at {tuple(x.shape)}, N {n}, "
+                       f"chunk {chunk}", ssd_scan(*args, chunk=chunk),
                        ssd_scan_ref(*args), *SSD_TOL)
     nc = -(-length // chunk)
     # C B^T once per (batch, chunk) (B and C are group-shared), the lower
@@ -1286,7 +1325,7 @@ def phase_lm_kernels() -> dict:
         1.0 * bsz * nc * (chunk * (chunk + 1) * n
                           + heads * (chunk * (chunk + 1) * p
                                      + 4 * chunk * n * p)))
-    rows["ssd_scan"] = dict(
+    return dict(
         err=err,
         fn=lambda: ssd_scan(*args, chunk=chunk),
         plain=lambda: ssd_scan_ref(*args),
@@ -1295,41 +1334,86 @@ def phase_lm_kernels() -> dict:
         bound=route, simt_bound=simt,
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:71")
-    say(f"[lm] shapes: flash (B {b}, L {l}, H {h}, d {d}) causal; ssd "
-        f"(B {bsz}, L {length}, H {heads}, P {p}, N {n}, Q {chunk}), B and "
-        "C group-shared")
-    rows = measure(rows, flush)
-    del flush, q, k, v, qt, kt, vt, x, log_a, bm, cm, args
+
+
+def phase_lm_kernels() -> dict:
+    """flash_attention and ssd_scan, f32, against their plain versions,
+    then timed: at zamba2's served prefill and scoring shapes (the rows of
+    the kernels line), and at the new models' shapes (`[lm]` lines):
+    flash at seamless-m4t's decoder self-attention, SSD at mamba2-130m's
+    scoring forward (N 128, chunk 64). Both run their products as 3xTF32
+    on the tensor cores: the bound is that route's (three TF32 products
+    per f32 one at 495 TFLOP/s), the f32 FMA units' (SIMT) beside it."""
+    dev = torch.device("cuda")
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    (q, k, v), args, chunk = lm_kernel_inputs()
+    say(f"[lm] shapes: flash (B, L, H, d) {tuple(q.shape)} causal; ssd "
+        f"(B, L, H, P) {tuple(args[1].shape)}, N {args[2].shape[-1]}, Q "
+        f"{chunk}, B and C group-shared")
+    rows = measure({"flash_attention": flash_row(q, k, v),
+                    "ssd_scan": ssd_row(*args, chunk)}, flush)
+    del q, k, v, args
+
+    seamless = get_config("seamless-m4t-large-v2")
+    mamba = get_config("mamba2-130m")
+    flash_shape = SCORE_SHAPE + (seamless.n_heads, seamless.n_kv_heads,
+                                 seamless.head_dim)
+    heads, p, n, chunk = ssd_dims(mamba)
+    (q, k, v), args, _ = lm_kernel_inputs(flash_shape,
+                                          SCORE_SHAPE + (heads, p, n))
+    new = {f"flash_attention at {seamless.name}'s decoder {flash_shape}":
+           flash_row(q, k, v),
+           f"ssd_scan at {mamba.name}'s scoring {tuple(args[1].shape)} N "
+           f"{n} chunk {chunk}": ssd_row(*args, chunk)}
+    for name, row in measure(new, flush, tag="[lm]").items():
+        t_bytes, t_ops = row["bound"], row["simt_bound"]
+        say(f"[lm] {name}: bound {t_bytes[0]:.4f} ms by {t_bytes[1]} "
+            f"(3xTF32), SIMT {t_ops[0]:.4f} ms by {t_ops[1]}; kernel / "
+            f"bound {row['ms'] / t_bytes[0]:.2f}")
+    del flush, q, k, v, args
     torch.cuda.empty_cache()
     return rows
 
 
-def phase_lm_serve() -> dict:
-    """zamba2-1.2b in bf16: serve_session with the flash kernel, then
-    scoring with the SSD kernel, each read from its own launch counts."""
+def lm_model(arch) -> dict:
+    """One model at full width and depth in bf16, random weights from
+    seed 0: serve_session with its serving flags, then scoring (loss_fn,
+    then forward by CUDA events) at SCORE_SHAPE with its scoring flags,
+    each from zeroed launch counters, checked against LM_MODELS; then
+    `[lm split]` of a prefill, a decode step and the scoring forward.
+    Returns the launches of both runs."""
     dev = torch.device("cuda")
-    cfg = get_config(ARCH, use_flash_kernel=True)
+    serve_flags, score_flags, serve_want, score_want = LM_MODELS[arch]
+    cfg = get_config(arch, **serve_flags)
+    model = get_model(cfg)
     t0 = time.perf_counter()
-    params = get_model(cfg).init_params(0)
+    params = model.init_params(0)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    say(f"[lm] {ARCH}: {cfg.n_layers} Mamba2 layers, d_model "
-        f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters in "
-        f"{cfg.param_dtype}, random from seed 0, made on the card in "
-        f"{time.perf_counter() - t0:.1f}s")
+    say(f"[lm] {arch} ({cfg.family}): {cfg.n_layers} layers"
+        + (f" + {cfg.n_enc_layers} encoder layers" if cfg.n_enc_layers
+           else "")
+        + f", d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e9:.3f} B parameters in {cfg.param_dtype}, random "
+        f"from seed 0, made on the card in {time.perf_counter() - t0:.1f}s")
+
+    def launched(what, want) -> dict:
+        counts = kernels.launch_counts()
+        want = {k: want.get(k, 0) for k in ("flash_attention", "ssd_scan")}
+        check({k: counts[k] for k in want} == want,
+              f"{arch} {what} launched {counts}, want {want}")
+        return counts
 
     kernels.reset_launch_counts()
     out, stats = serve_session(cfg, requests=LM_REQUESTS, batch=LM_BATCH,
                                prompt_len=PROMPT_LEN, max_new=MAX_NEW,
                                params=params)
-    counts = kernels.launch_counts()
-    n_prefill = -(-LM_REQUESTS // LM_BATCH)
-    n_inv = n_attn_invocations(cfg)
+    counts = launched("serving", serve_want)
     pre = np.array(stats["prefill_s"]) * 1e3
     dec = np.array(stats["decode_s"]) * 1e3
-    say(f"[lm] serve {ARCH} bf16 flash: {LM_REQUESTS} requests, slot batch "
-        f"{LM_BATCH}, prompt {PROMPT_LEN}, {MAX_NEW} new tokens: "
-        f"{stats['tokens']} tokens in {stats['wall_s']:.3f}s = "
+    say(f"[lm] serve {arch} bf16 {serve_flags}: {LM_REQUESTS} requests, "
+        f"slot batch {LM_BATCH}, prompt {PROMPT_LEN}, {MAX_NEW} new "
+        f"tokens: {stats['tokens']} tokens in {stats['wall_s']:.3f}s = "
         f"{stats['tok_per_s']:.1f} tok/s; prefill per slot batch "
         f"{', '.join(f'{t:.3f}' for t in pre)} ms; decode per step mean "
         f"{dec.mean():.3f} ms, p50 {np.median(dec):.3f} ms, max "
@@ -1338,27 +1422,25 @@ def phase_lm_serve() -> dict:
     check(out.shape == (LM_REQUESTS, MAX_NEW + 1), f"tokens {out.shape}")
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           "generated tokens outside the vocabulary")
-    check(counts["flash_attention"] == n_inv * n_prefill,
-          f"flash_attention launched {counts['flash_attention']} times, "
-          f"want {n_inv} per prefill x {n_prefill}")
-    check(counts["ssd_scan"] == 0, "ssd_scan on the serving path")
-    launches = {"flash_attention": counts["flash_attention"]}
 
-    model = get_model(cfg)
-    prompt = synth_train_batch(cfg, LM_BATCH, PROMPT_LEN, seed=0, device=dev)
+    prompt = synth_train_batch(cfg, LM_BATCH, PROMPT_LEN, seed=0,
+                               device=dev)
     with torch.no_grad():
-        device_split("prefill (flash)", lambda: model.prefill(params, prompt))
+        device_split(f"{arch} prefill",
+                     lambda: model.prefill(params, prompt))
         _, cache = model.prefill(params, prompt)
-        cache = _grow_cache(cache, PROMPT_LEN + MAX_NEW + 1)
+        if cfg.family == "audio":       # the prefill consumed BOS
+            lengths = torch.ones((LM_BATCH,), dtype=torch.int32, device=dev)
+        else:
+            cache = _grow_cache(model, cache, PROMPT_LEN + MAX_NEW + 1)
+            lengths = torch.full((LM_BATCH,), PROMPT_LEN,
+                                 dtype=torch.int32, device=dev)
         tok = prompt["tokens"][:, -1:]
-        lengths = torch.full((LM_BATCH,), PROMPT_LEN, dtype=torch.int32,
-                             device=dev)
-        device_split("decode step", lambda: model.decode_step(
+        device_split(f"{arch} decode step", lambda: model.decode_step(
             params, tok, cache, lengths))
     del cache, prompt
 
-    cfg = get_config(ARCH, use_ssd_kernel=True)
-    model = get_model(cfg)
+    model = get_model(get_config(arch, **score_flags))
     batch = synth_train_batch(cfg, *SCORE_SHAPE, seed=1, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1368,7 +1450,7 @@ def phase_lm_serve() -> dict:
         loss, _ = model.loss_fn(params, batch)
     loss = loss.item()
     wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    score_counts = launched("scoring", score_want)
     peak = torch.cuda.max_memory_allocated()
     s, e = (torch.cuda.Event(enable_timing=True),
             torch.cuda.Event(enable_timing=True))
@@ -1378,24 +1460,33 @@ def phase_lm_serve() -> dict:
         e.record()
     torch.cuda.synchronize()
     toks = SCORE_SHAPE[0] * SCORE_SHAPE[1]
-    say(f"[lm] score {ARCH} bf16 ssd: loss_fn at {SCORE_SHAPE}: loss "
-        f"{loss:.4f} (ln V = {np.log(cfg.vocab_size):.4f}), first call "
-        f"{wall * 1e3:.1f} ms, forward {s.elapsed_time(e):.3f} ms "
+    say(f"[lm] score {arch} bf16 {score_flags}: loss_fn at {SCORE_SHAPE}: "
+        f"loss {loss:.4f} (ln V = {np.log(cfg.vocab_size):.4f}), first "
+        f"call {wall * 1e3:.1f} ms, forward {s.elapsed_time(e):.3f} ms "
         f"(CUDA events) = {toks / s.elapsed_time(e) * 1e3:.0f} tok/s; "
-        f"peak_mem={peak / 1e6:.1f} MB; launches={counts}")
-    check(np.isfinite(loss), "non-finite loss")
+        f"peak_mem={peak / 1e6:.1f} MB (f32 logits alone "
+        f"{toks * cfg.vocab_size * 4 / 1e6:.1f} MB); "
+        f"launches={score_counts}")
+    check(np.isfinite(loss), f"{arch}: non-finite loss")
     check(tuple(h.shape) == SCORE_SHAPE + (cfg.d_model,)
-          and bool(torch.isfinite(h).all()), "forward hidden states")
-    check(counts["ssd_scan"] == cfg.n_layers,
-          f"ssd_scan launched {counts['ssd_scan']} times, want "
-          f"{cfg.n_layers}")
-    check(counts["flash_attention"] == 0, "flash on the scoring path")
-    launches["ssd_scan"] = counts["ssd_scan"]
+          and bool(torch.isfinite(h).all()), f"{arch}: forward hidden")
+    del h
     with torch.no_grad():
-        device_split("scoring forward (ssd)",
+        device_split(f"{arch} scoring forward {score_flags}",
                      lambda: model.forward(params, batch))
-    del params, batch, h
+    del params, batch
     torch.cuda.empty_cache()
+    return {k: counts[k] + score_counts[k]
+            for k in ("flash_attention", "ssd_scan")}
+
+
+def phase_lm_models() -> dict:
+    """Phase 7: each model of LM_MODELS; their launches, summed for the
+    kernels line."""
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    for arch in LM_MODELS:
+        for name, n in lm_model(arch).items():
+            launches[name] += n
     return launches
 
 
@@ -1419,7 +1510,7 @@ def phase_launches() -> None:
                                        decim=cfg.decim)),
             ("flash_attention", lambda: flash_attention(q, k, v)),
             ("ssd_scan", lambda: ssd_scan(*args, chunk=chunk))):
-        kern, _ = profiled(fn)
+        kern, _, _ = profiled(fn)
         say(f"[launches] {name}: one call makes "
             f"{sum(e.count for e in kern)} CUDA launches (torch.profiler), "
             "its launch counter counts the call: "
@@ -1452,7 +1543,7 @@ def engine_trace(modality, rf) -> None:
     host = (time.perf_counter() - t0) / 20 * 1e3
     torch.cuda.synchronize()
     ms = s.elapsed_time(e) / 20
-    kern, _ = profiled(lambda: engine(rf))
+    kern, _, _ = profiled(lambda: engine(rf))
     busy = sum(k.self_device_time_total for k in kern) / 1e3
     if busy == 0:
         say(f"[engine trace] {modality} fused: {ms:.4f} ms a call (CUDA "
@@ -1474,26 +1565,52 @@ def engine_trace(modality, rf) -> None:
                                     key=lambda k: -k.self_device_time_total)))
 
 
-def device_split(name, fn, n_top=6) -> None:
+OUR_KERNELS = ("flash_attention_kernel", "ssd_chunk_kernel",
+               "ssd_chain_kernel", "ssd_offdiag_kernel")
+
+
+def kernel_kind(name: str) -> str:
+    """"ours" (our CUDA kernels), "matmul" (cuBLAS) or "other"."""
+    if any(o in name for o in OUR_KERNELS):
+        return "ours"
+    if any(m in name.lower() for m in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matmul"
+    return "other"
+
+
+def other_by_op(events) -> dict:
+    """Device ms of the "other" kernels by the ATen op that launched each
+    (the profiler's CPU-side op that holds the kernel), keyed "op < the
+    outermost op of its call" where they differ."""
+    by_op = {}
+    for ev in events:
+        if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
+            continue
+        top = ev
+        while top.cpu_parent is not None:
+            top = top.cpu_parent
+        key = ev.name if top is ev else f"{ev.name} < {top.name}"
+        for k in ev.kernels:
+            if kernel_kind(k.name) == "other" and "spin_kernel" not in k.name:
+                by_op[key] = by_op.get(key, 0.0) + k.duration / 1e3
+    return by_op
+
+
+def device_split(name, fn, n_top=6, n_ops=8) -> None:
     """Profile one call of ``fn`` (``profiled``): its wall time to the
     last kernel's end, the summed time of its kernels, their busy share of
     the wall, the shares of our kernels, cuBLAS products and everything
-    else, and the kernels that take the most device time."""
-    kern, wall = profiled(fn)
+    else, the kernels that take the most device time, and the "other"
+    column by the ATen ops that launched its kernels."""
+    kern, wall, events = profiled(fn)
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     if busy == 0:
         say(f"[lm split] {name}: the profiler saw no device time; device "
             f"busy share not measured (wall {wall:.3f} ms)")
         return
-    ours = ("flash_attention_kernel", "ssd_chunk_kernel", "ssd_chain_kernel",
-            "ssd_offdiag_kernel")
     cats = {"ours": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kern:
-        key = ("ours" if any(o in e.key for o in ours) else "matmul"
-               if any(m in e.key.lower() for m in ("gemm", "nvjet", "xmma",
-                                                   "cutlass"))
-               else "other")
-        cats[key] += e.self_device_time_total / 1e3
+        cats[kernel_kind(e.key)] += e.self_device_time_total / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:n_top]
     say(f"[lm split] {name}: wall {wall:.3f} ms (profiled), kernels "
         f"{busy:.3f} ms = {busy / wall:.1%} busy, "
@@ -1502,6 +1619,12 @@ def device_split(name, fn, n_top=6) -> None:
         + "; top: " + "; ".join(
             f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms "
             f"x{e.count}" for e in top))
+    ops = other_by_op(events)
+    said = sum(ops.values())
+    say(f"[lm split] {name}: other {cats['other']:.3f} ms by op "
+        f"({said:.3f} ms attributed), top {n_ops}: " + "; ".join(
+            f"{op} {ms:.3f} ms" for op, ms in sorted(
+                ops.items(), key=lambda kv: -kv[1])[:n_ops]))
 
 
 def _leaves(tree):
@@ -1509,46 +1632,65 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def phase_lm_outputs() -> None:
-    """Full width in f32: the kernel path against the plain path, and
-    prefill then decode against forward, on the same tokens."""
-    cfg = get_config(ARCH, param_dtype="float32", compute_dtype="float32")
-    kcfg = cfg.with_(use_flash_kernel=True, use_ssd_kernel=True)
-    plain, kern = get_model(cfg), get_model(kcfg)
+def lm_outputs(arch, prompt, extra=4) -> None:
+    """Full width in f32, one model: the kernel path's logits (both flags
+    set) against the plain path's, then prefill and ``extra`` decode
+    steps against the kernel path's forward on the same tokens. For the
+    enc-dec model the prompt is the encoder's frames and the decoder's
+    tokens start with BOS (id 0), which its prefill consumes; the kernel
+    path's launches are checked against the model's scoring kernels."""
+    cfg = get_config(arch, param_dtype="float32", compute_dtype="float32")
+    plain, kern = get_model(cfg), get_model(cfg.with_(**LM_FLAGS))
     params = plain.init_params(1)
-    prompt, extra = 256, 4
-    batch = synth_train_batch(cfg, 2, prompt + extra, seed=2,
-                              device=plain.device)
+    dev = plain.device
+    batch = synth_train_batch(cfg, 2, prompt + extra, seed=2, device=dev)
+    audio = cfg.family == "audio"
+    if audio:
+        batch["tokens"][:, 0] = 0
+    tag = f"{arch} f32, prompt {prompt}"
     kernels.reset_launch_counts()
     with torch.no_grad():
         full = {m: logits_from_hidden(params["embed"], cfg,
                                       model.forward(params, batch)[0])
                 for m, model in (("plain", plain), ("kernel", kern))}
         check(all(bool(torch.isfinite(t).all()) for t in full.values()),
-              "non-finite logits")
-        close_enough("f32 forward logits, kernels vs plain", full["kernel"],
-                     full["plain"], LOGITS_TOL, LOGITS_TOL)
-        logits, cache = kern.prefill(params,
-                                     {"tokens": batch["tokens"][:, :prompt]})
-        close_enough("f32 prefill logits vs forward", logits[:, 0],
-                     full["kernel"][:, prompt - 1], LOGITS_TOL, LOGITS_TOL)
-        cache = _grow_cache(cache, prompt + extra + 1)
-        lengths = torch.full((2,), prompt, dtype=torch.int32,
-                             device=plain.device)
+              f"{tag}: non-finite logits")
+        close_enough(f"{tag}: forward logits, kernels vs plain",
+                     full["kernel"], full["plain"], LOGITS_TOL, LOGITS_TOL)
+        if audio:
+            logits, cache = kern.prefill(
+                params, {"enc_embeds": batch["enc_embeds"]})
+            first = 1
+        else:
+            logits, cache = kern.prefill(
+                params, {"tokens": batch["tokens"][:, :prompt]})
+            cache = _grow_cache(kern, cache, prompt + extra + 1)
+            first = prompt
+        close_enough(f"{tag}: prefill logits vs forward", logits[:, 0],
+                     full["kernel"][:, first - 1], LOGITS_TOL, LOGITS_TOL)
+        lengths = torch.full((2,), first, dtype=torch.int32, device=dev)
         for t in range(extra):
             logits, cache = kern.decode_step(
-                params, batch["tokens"][:, prompt + t:prompt + t + 1],
-                cache, lengths)
-            close_enough(f"f32 decode step {t} logits vs forward",
-                         logits[:, 0], full["kernel"][:, prompt + t],
+                params, batch["tokens"][:, first + t:first + t + 1], cache,
+                lengths)
+            close_enough(f"{tag}: decode step {t} logits vs forward",
+                         logits[:, 0], full["kernel"][:, first + t],
                          LOGITS_TOL, LOGITS_TOL)
             lengths = lengths + 1
     counts = kernels.launch_counts()
-    check(counts["flash_attention"] == 2 * n_attn_invocations(cfg)
-          and counts["ssd_scan"] == cfg.n_layers,
-          f"kernel path of the f32 check: {counts}")
-    del params, cache, full
+    # the scoring launches, and zamba2's prefill takes flash too
+    want = {"flash_attention": 0, "ssd_scan": 0, **LM_MODELS[arch][3]}
+    if cfg.family == "hybrid":
+        want["flash_attention"] = 2 * n_attn_invocations(cfg)
+    check({k: counts[k] for k in want} == want,
+          f"{tag}: kernel path launched {counts}, want {want}")
+    del params, cache, full, batch
     torch.cuda.empty_cache()
+
+
+def phase_lm_outputs() -> None:
+    for arch, prompt in OUTPUT_RUNS:
+        lm_outputs(arch, prompt)
 
 
 def main() -> None:
@@ -1576,7 +1718,7 @@ def main() -> None:
     say(f"[lm] ultrasound phases freed; "
         f"{torch.cuda.memory_allocated() / 1e6:.1f} MB still allocated")
     rows.update(phase_lm_kernels())
-    launches.update(phase_lm_serve())
+    launches.update(phase_lm_models())
     phase_lm_outputs()
     phase_launches()
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")

@@ -2,7 +2,8 @@
 
 `get_config(name)` returns the full published config, `get_smoke(name)`
 a reduced same-family config for CPU tests. Only the architectures whose
-family is ported are here (zamba2-1.2b); ROADMAP A lists the others.
+family is ported are here (dense, ssm, hybrid, audio); ROADMAP A lists
+the others (MoE, MLA, the VLM).
 """
 
 from __future__ import annotations
@@ -12,10 +13,26 @@ from typing import Dict, List
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-ARCHS: List[str] = ["zamba2_1p2b"]
+ARCHS: List[str] = [
+    "zamba2_1p2b",
+    "qwen3_8b",
+    "gemma3_1b",
+    "granite_3_8b",
+    "llama3_405b",
+    "mamba2_130m",
+    "seamless_m4t_large_v2",
+]
 
 # CLI ids (dashes) -> module names
-_ALIASES: Dict[str, str] = {"zamba2-1.2b": "zamba2_1p2b"}
+_ALIASES: Dict[str, str] = {
+    "zamba2-1.2b": "zamba2_1p2b",
+    "qwen3-8b": "qwen3_8b",
+    "gemma3-1b": "gemma3_1b",
+    "granite-3-8b": "granite_3_8b",
+    "llama3-405b": "llama3_405b",
+    "mamba2-130m": "mamba2_130m",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+}
 
 
 def _module(name: str):

@@ -1,0 +1,30 @@
+"""granite-3-8b [dense]: 40L d_model=4096 32H (GQA kv=8) d_ff=12800
+vocab=49155. [hf:ibm-granite family]
+
+The same numbers as the reference's ``repro/configs/granite_3_8b.py``,
+without ``remat``.
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="granite-3-8b",
+        family="dense",
+        n_layers=40,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=8,
+        d_head=128,
+        d_ff=12800,
+        vocab_size=49155,
+        rope_theta=1e4,
+    )
+
+
+def smoke() -> ModelConfig:
+    return config().with_(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
+        d_ff=128, vocab_size=256, param_dtype="float32",
+        compute_dtype="float32")

@@ -2,9 +2,11 @@
 
 LM half — slot-based batching, as the reference: B fixed slots, each
 request batch prefills into its slots, then all slots decode in lockstep,
-greedily (`serve_session`). zamba2-1.2b is the ported architecture:
+greedily (`serve_session`). The ported architectures: zamba2-1.2b,
+mamba2-130m, gemma3-1b, qwen3-8b, granite-3-8b, llama3-405b (smoke size
+only on one card) and seamless-m4t-large-v2:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
       --smoke --requests 8 --batch 4 --prompt-len 32 --max-new 16 \
       [--device cpu]
 
@@ -53,7 +55,9 @@ def serve_session(cfg, *, requests: int, batch: int, prompt_len: int,
     """Process ``requests`` prompts in slot batches of ``batch``.
 
     Prompts are ``synth_train_batch(cfg, bsz, prompt_len, seed + r0)``, as
-    in the reference. ``params`` defaults to ``init_params(seed)`` (the
+    in the reference; for the enc-dec family ``prompt_len`` is the
+    encoder's frame count, and its prefill hands back a decode-ready
+    cache at position 1 (BOS consumed). ``params`` defaults to ``init_params(seed)`` (the
     port's draws; pass ``params_from_numpy`` of the reference's to serve
     the same weights). Returns (generated tokens (requests, max_new + 1)
     int32 array, stats dict): the reference's keys, plus the host-clock
@@ -85,10 +89,14 @@ def serve_session(cfg, *, requests: int, batch: int, prompt_len: int,
         t = time.perf_counter()
         tok_next, cache = prefill_step(params, prompt)
         tok = tok_next[:, None]
-        # decoder-only: extend the prefilled cache to serving length
-        cache = _grow_cache(cache, max_len)
-        lengths = torch.full((bsz,), prompt_len, dtype=torch.int32,
-                             device=dev)
+        if cfg.family == "audio":
+            # enc-dec prefill returns a decode-ready cache (BOS consumed)
+            lengths = torch.ones((bsz,), dtype=torch.int32, device=dev)
+        else:
+            # decoder-only: extend the prefilled cache to serving length
+            cache = _grow_cache(model, cache, max_len)
+            lengths = torch.full((bsz,), prompt_len, dtype=torch.int32,
+                                 device=dev)
         gen = [tok.cpu().numpy()]           # waits for the device
         prefill_s.append(time.perf_counter() - t)
         for _ in range(max_new):
@@ -110,17 +118,26 @@ def serve_session(cfg, *, requests: int, batch: int, prompt_len: int,
     return np.concatenate(outs, axis=0)[:requests], stats
 
 
-def _grow_cache(cache, max_len: int):
-    """Pad the KV caches ``attn_k`` and ``attn_v``, (n_inv, B, S, Hkv,
-    dh), with zeros along the sequence axis (dim 2) to ``max_len``. The
-    SSM and conv states have no sequence axis and pass through."""
-    out = dict(cache)
-    for key in ("attn_k", "attn_v"):
-        a = cache[key]
-        if a.shape[2] < max_len:
-            out[key] = torch.nn.functional.pad(
-                a, (0, 0, 0, 0, 0, max_len - a.shape[2]))
-    return out
+def _grow_cache(model, cache, max_len: int):
+    """Pad every leaf's sequence axis with zeros to ``max_len``.
+
+    The sequence axis is found from the family, as the reference's: its
+    ``cache_specs(seq_sharded=True)`` names it "seq" (the transformer's
+    k/v and zamba2's attn_k/attn_v, (L, B, S, hkv, dh)). Leaves without
+    one (SSM and conv states) pass through untouched.
+    """
+    def grow(spec, a):
+        if isinstance(spec, dict):
+            return {k: grow(spec[k], a[k]) for k in a}
+        if "seq" not in spec:
+            return a
+        i = spec.index("seq")
+        if a.shape[i] >= max_len:
+            return a
+        pad = [0, 0] * (a.ndim - 1 - i) + [0, max_len - a.shape[i]]
+        return torch.nn.functional.pad(a, pad)
+
+    return grow(model.cache_specs(seq_sharded=True), cache)
 
 
 class SyntheticAcquisitionSource:
@@ -463,7 +480,9 @@ def main() -> None:
     ap.add_argument("--ultrasound", action="store_true",
                     help="stream RF through the batched stage-graph engine")
     ap.add_argument("--arch", default="zamba2-1.2b",
-                    help="LM: architecture (ported: zamba2-1.2b)")
+                    help="LM: architecture (ported: zamba2-1.2b, "
+                    "mamba2-130m, gemma3-1b, qwen3-8b, granite-3-8b, "
+                    "llama3-405b, seamless-m4t-large-v2)")
     ap.add_argument("--smoke", action="store_true",
                     help="LM: the reduced same-family config")
     ap.add_argument("--requests", type=int, default=8)

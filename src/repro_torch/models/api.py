@@ -6,12 +6,14 @@ the config and the device:
   loss_fn(params, batch)            -> (scalar loss, metrics)
   forward(params, batch)            -> (hidden, aux)
   prefill(params, batch)            -> (logits, cache)
-  init_cache(batch, max_len)        -> cache
+  init_cache(batch, max_len, ...)   -> cache (enc-dec: also enc_len)
   decode_step(params, tokens, cache, lengths) -> (logits, cache)
+  cache_specs(seq_sharded=...)      -> logical axes of the cache's leaves
 
 The device is CUDA unless the caller passes ``device="cpu"``; without a
-card the default raises. Only the hybrid family (zamba2) is ported; the
-others raise and name the ROADMAP entry that will port them.
+card the default raises. The dense transformer, ssm (mamba2), hybrid
+(zamba2) and audio (enc-dec) families are ported; MoE and the VLM raise
+and name the ROADMAP entry that will port them.
 """
 
 from __future__ import annotations
@@ -24,17 +26,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pipeline import resolve_device
-from repro_torch.models import hybrid
+from repro_torch.models import encdec, hybrid, mamba_lm, transformer
 
-_FAMILY_MODULES = {"hybrid": hybrid}
+_FAMILY_MODULES = {
+    "dense": transformer,
+    "ssm": mamba_lm,
+    "hybrid": hybrid,
+    "audio": encdec,
+}
 
 # where ROADMAP A puts each family that is not ported yet
 _NOT_PORTED = {
-    "dense": "ROADMAP A.2 (the transformer: dense first)",
     "moe": "ROADMAP A.2 (the transformer: MoE and MLA)",
-    "vlm": "ROADMAP A.2 (the transformer)",
-    "ssm": "ROADMAP A.2 (mamba_lm)",
-    "audio": "ROADMAP A.2 (encdec)",
+    "vlm": "ROADMAP A.2 (the transformer: the VLM, M-RoPE)",
 }
 
 
@@ -48,6 +52,7 @@ class Model:
     prefill: Callable
     init_cache: Callable
     decode_step: Callable
+    cache_specs: Callable
 
 
 def family_module(cfg: ModelConfig):
@@ -82,4 +87,5 @@ def get_model(cfg: ModelConfig, device=None) -> Model:
         prefill=with_cfg(mod.prefill),
         init_cache=functools.partial(mod.init_cache, cfg, device=dev),
         decode_step=with_cfg(mod.decode_step),
+        cache_specs=functools.partial(mod.cache_specs, cfg),
     )

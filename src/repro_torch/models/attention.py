@@ -6,9 +6,13 @@ The port of the reference's ``repro.models.attention``, GQA part:
     condition, in `gqa_attention`);
   * decode — one query against the cache with per-slot lengths; the cache
     write in the paper's V1 (indexed write) and V2 (one-hot blend)
-    variants (`cache_update`).
-MLA and the layer-stacked cache wait for the transformer family
-(ROADMAP A).
+    variants, per layer (`cache_update`) or into a layer-stacked cache
+    (`stacked_cache_update`, `gqa_decode_stacked`).
+MLA waits for the MoE/MLA families (ROADMAP A).
+
+A window may be a Python int or a 0-d tensor (gemma3's per-layer window,
+picked on the device as the reference's traced ``jnp.where``); a tensor
+is never read back to the host. Only an int 0 takes the flash kernel.
 
 Storage-dtype operands with f32 accumulation, as the reference's
 ``preferred_element_type=f32``: the port casts the operands to f32 before
@@ -29,14 +33,31 @@ from repro_torch.models.common import dense_init
 NEG_INF = -1e30
 
 
-def attn_params(cfg: ModelConfig, dtype, gen, device) -> Dict:
+def attn_params(cfg: ModelConfig, dtype, gen, device, lead=()) -> Dict:
+    """One GQA block; ``lead`` stacks copies on leading axes."""
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
-        "wq": dense_init((d, h * dh), dtype, gen, device),
-        "wk": dense_init((d, hkv * dh), dtype, gen, device),
-        "wv": dense_init((d, hkv * dh), dtype, gen, device),
-        "wo": dense_init((h * dh, d), dtype, gen, device),
+    lead = tuple(lead)
+    p = {
+        "wq": dense_init(lead + (d, h * dh), dtype, gen, device),
+        "wk": dense_init(lead + (d, hkv * dh), dtype, gen, device),
+        "wv": dense_init(lead + (d, hkv * dh), dtype, gen, device),
+        "wo": dense_init(lead + (h * dh, d), dtype, gen, device),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = common.rmsnorm_params(dh, dtype, device, lead)
+        p["k_norm"] = common.rmsnorm_params(dh, dtype, device, lead)
+    return p
+
+
+def _window_mask(cols: torch.Tensor, rows: torch.Tensor, window
+                 ) -> torch.Tensor:
+    """``cols > rows - window``; ``window <= 0`` means unbounded. A tensor
+    window stays on its device (``torch.where``, no host read)."""
+    if isinstance(window, torch.Tensor):
+        weff = torch.where(window > 0, window, 2 ** 30)
+    else:
+        weff = window if window > 0 else 2 ** 30
+    return cols > rows - weff
 
 
 # ---------------------------------------------------------------------------
@@ -47,16 +68,14 @@ def attn_params(cfg: ModelConfig, dtype, gen, device) -> Dict:
 def _chunk_bias(q_start: int, bq: int, kv_len: int, *, causal: bool,
                 window, device) -> torch.Tensor:
     """(bq, kv_len) additive bias for queries [q_start, q_start + bq).
-    ``window <= 0`` means unbounded. (The reference's ``q_offset`` is
-    left out: no caller passes one.)"""
+    ``window <= 0`` means unbounded; an int or a 0-d tensor. (The
+    reference's ``q_offset`` is left out: no caller passes one.)"""
     rows = (q_start
             + torch.arange(bq, device=device, dtype=torch.int32)[:, None])
     cols = torch.arange(kv_len, device=device, dtype=torch.int32)[None, :]
-    ok = torch.ones((bq, kv_len), dtype=torch.bool, device=device)
+    ok = _window_mask(cols, rows, window)
     if causal:
         ok &= cols <= rows
-    weff = int(window) if int(window) > 0 else 2 ** 30
-    ok &= cols > rows - weff
     return torch.where(ok, 0.0, NEG_INF)
 
 
@@ -124,6 +143,36 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor,
     return cache * (1.0 - m) + new.to(cache.dtype) * m
 
 
+def stacked_cache_update(cache: torch.Tensor, new: torch.Tensor,
+                         lengths: torch.Tensor, layer_idx: int,
+                         variant: Variant) -> torch.Tensor:
+    """Write ``new`` (B, 1, H, dh) into a layer-stacked cache (L, B, S, H,
+    dh) at (layer_idx, b, lengths[b]).
+
+    V1 DYNAMIC: the token rows written in place; ``cache`` itself comes
+    back. A position past the end writes nothing (the reference's
+    ``mode="drop"``): its row is clamped and written back unchanged.
+    V2 CNN: the (L, S) one-hot blend over the whole buffer, a new tensor
+    (the paper's portability-for-traffic trade at cache scale).
+    """
+    _, b, s = cache.shape[:3]
+    lens = lengths.long()
+    if Variant(variant) == Variant.DYNAMIC:
+        rows = torch.arange(b, device=cache.device)
+        pos = lens.clamp(max=s - 1)
+        keep = (lens < s)[:, None, None]
+        layer = cache[layer_idx]
+        layer[rows, pos] = torch.where(keep, new[:, 0].to(cache.dtype),
+                                       layer[rows, pos])
+        return cache
+    l = cache.shape[0]
+    iota_l = torch.arange(l, device=cache.device)[:, None, None]
+    iota_s = torch.arange(s, device=cache.device)[None, None, :]
+    m = ((iota_l == layer_idx) & (iota_s == lens[None, :, None])).to(
+        cache.dtype)[..., None, None]
+    return cache * (1.0 - m) + new[None].to(cache.dtype) * m
+
+
 # ---------------------------------------------------------------------------
 # Decode attention (single query vs cache, per-slot lengths)
 # ---------------------------------------------------------------------------
@@ -147,9 +196,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         scores = torch.tanh(scores / softcap) * softcap
     cols = torch.arange(s, device=q.device)[None, :]
     lens = lengths.long()[:, None]
-    ok = cols <= lens
-    weff = int(window) if int(window) > 0 else 2 ** 30
-    ok &= cols > lens - weff
+    ok = (cols <= lens) & _window_mask(cols, lens, window)
     scores = scores + torch.where(ok, 0.0, NEG_INF)[:, None, None, :]
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrs,bsgd->bgrd", p.to(v_cache.dtype).float(),
@@ -163,29 +210,45 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def gqa_project_qkv(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor
+                    positions: torch.Tensor, is_local=None,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v of ``x``; q and k rms-normed per head under ``qk_norm``
+    and rotated. Where the config has a local rope base (gemma3), a layer
+    whose ``is_local`` (a 0-d bool tensor) is set takes it, picked on
+    the device as the reference's traced ``jnp.where``."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(b, s, h, dh)
     k = (x @ params["wk"]).reshape(b, s, hkv, dh)
     v = (x @ params["wv"]).reshape(b, s, hkv, dh)
-    q = common.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-    k = common.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    return q, k, v
+    if cfg.qk_norm:
+        q = common.rmsnorm(params["q_norm"], q)
+        k = common.rmsnorm(params["k_norm"], k)
+
+    def rope(t):
+        out = common.apply_rope(t, positions, cfg.rope_theta,
+                                cfg.mrope_sections)
+        if cfg.rope_local_theta and is_local is not None:
+            loc = common.apply_rope(t, positions, cfg.rope_local_theta,
+                                    cfg.mrope_sections)
+            out = torch.where(is_local, loc, out)
+        return out
+
+    return rope(q), rope(k), v
 
 
 def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, *, window=0,
+                  positions: torch.Tensor, *, window=0, is_local=None,
                   cross_kv: Optional[Tuple[torch.Tensor,
                                            torch.Tensor]] = None,
                   causal: bool = True, return_kv: bool = False):
     """Train/prefill self- (or cross-) attention over full sequences.
 
     Takes the flash kernel under the reference's condition: the flag set,
-    causal, a Python-int ``window`` equal to 0, no cross KV.
+    causal, a Python-int ``window`` equal to 0, no cross KV. A tensor
+    window (the dense transformer's, ROADMAP C) never takes it.
     """
-    q, k, v = gqa_project_qkv(params, cfg, x, positions)
+    q, k, v = gqa_project_qkv(params, cfg, x, positions, is_local)
     if cross_kv is not None:
         k, v = cross_kv
         causal = False
@@ -205,13 +268,33 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     return y
 
 
+def gqa_decode_stacked(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                       cache: Dict, lengths: torch.Tensor, layer_idx: int,
+                       *, window=0, is_local=None
+                       ) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode against a layer-stacked cache {"k", "v"} of
+    (L, B, S, hkv, dh): writes the token at (layer_idx, :, lengths[b]),
+    then attends against the layer's slice."""
+    b = x.shape[0]
+    positions = lengths[:, None]
+    q, k, v = gqa_project_qkv(params, cfg, x, positions, is_local)
+    k_full = stacked_cache_update(cache["k"], k, lengths, layer_idx,
+                                  cfg.kv_variant)
+    v_full = stacked_cache_update(cache["v"], v, lengths, layer_idx,
+                                  cfg.kv_variant)
+    out = decode_attention(q, k_full[layer_idx], v_full[layer_idx], lengths,
+                           window=window, softcap=cfg.attn_logit_softcap)
+    y = out.reshape(b, 1, -1) @ params["wo"]
+    return y, {"k": k_full, "v": v_full}
+
+
 def gqa_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-               cache: Dict, lengths: torch.Tensor, *, window=0
-               ) -> Tuple[torch.Tensor, Dict]:
+               cache: Dict, lengths: torch.Tensor, *, window=0,
+               is_local=None) -> Tuple[torch.Tensor, Dict]:
     """One-token decode with cache update. x: (B, 1, D)."""
     b = x.shape[0]
     positions = lengths[:, None]  # (B, 1)
-    q, k, v = gqa_project_qkv(params, cfg, x, positions)
+    q, k, v = gqa_project_qkv(params, cfg, x, positions, is_local)
     k_cache = cache_update(cache["k"], k, lengths, cfg.kv_variant)
     v_cache = cache_update(cache["v"], v, lengths, cfg.kv_variant)
     out = decode_attention(q, k_cache, v_cache, lengths, window=window,

@@ -49,6 +49,20 @@ def dense_init(shape, dtype, gen: torch.Generator, device,
     return w.to(dtype)
 
 
+def layer(layers: Dict, i: int) -> Dict:
+    """Layer ``i`` of parameters (or a cache) stacked on a leading layer
+    axis: views, so a write into a leaf writes the stacked tensor."""
+    return {k: (layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in layers.items()}
+
+
+def positions_of(tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S) int32 positions 0..S-1 of each row."""
+    b, s = tokens.shape[:2]
+    return torch.arange(s, dtype=torch.int32,
+                        device=tokens.device)[None].expand(b, s)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -102,11 +116,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 
 
-def mlp_params(d: int, ff: int, dtype, gen, device) -> Dict:
+def mlp_params(d: int, ff: int, dtype, gen, device, lead=()) -> Dict:
+    lead = tuple(lead)
     return {
-        "wi_gate": dense_init((d, ff), dtype, gen, device),
-        "wi_up": dense_init((d, ff), dtype, gen, device),
-        "wo": dense_init((ff, d), dtype, gen, device),
+        "wi_gate": dense_init(lead + (d, ff), dtype, gen, device),
+        "wi_up": dense_init(lead + (d, ff), dtype, gen, device),
+        "wo": dense_init(lead + (ff, d), dtype, gen, device),
     }
 
 

@@ -1,0 +1,197 @@
+"""seamless-m4t-large-v2 backbone: an encoder-decoder transformer.
+
+The port of the reference's ``repro.models.encdec``. The audio frontend
+is a stub, as in the reference: the encoder consumes precomputed frame
+embeddings ``enc_embeds`` (B, S_enc, d_model). The encoder's attention
+is non-causal, so it runs `chunked_attention`; the decoder's causal
+self-attention takes the CUDA flash kernel where the config sets
+``use_flash_kernel`` (the reference's condition: a Python-int window 0,
+no cross KV); its cross-attention runs chunked against the encoder's
+K/V. Per-layer parameters are stacked on leading layer axes
+(``enc_layers``, ``dec_layers``) and run as Python loops.
+
+Serving: `prefill` encodes, computes the cross K/V once and consumes a
+BOS token through `decode_step`, so the cache it returns is ready to
+decode at position 1. `decode_step` writes the self-attention K/V of
+each layer in place (the V2 blend's new tensor is copied back) and
+returns the cache.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, common
+from repro_torch.models.common import dtype_of
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
+    dtype = dtype_of(cfg.param_dtype)
+    d = cfg.d_model
+
+    def norm(lead):
+        return common.rmsnorm_params(d, dtype, device, lead)
+
+    enc, dec = (cfg.n_enc_layers,), (cfg.n_layers,)
+    return {
+        "embed": common.embed_params(cfg, dtype, gen, device),
+        "enc_layers": {
+            "ln1": norm(enc),
+            "attn": attention.attn_params(cfg, dtype, gen, device, enc),
+            "ln2": norm(enc),
+            "mlp": common.mlp_params(d, cfg.d_ff, dtype, gen, device, enc)},
+        "enc_norm": norm(()),
+        "dec_layers": {
+            "ln1": norm(dec),
+            "self_attn": attention.attn_params(cfg, dtype, gen, device, dec),
+            "ln_x": norm(dec),
+            "cross_attn": attention.attn_params(cfg, dtype, gen, device,
+                                                dec),
+            "ln2": norm(dec),
+            "mlp": common.mlp_params(d, cfg.d_ff, dtype, gen, device, dec)},
+        "final_norm": norm(()),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def encode(params: Dict, cfg: ModelConfig, enc_embeds: torch.Tensor
+           ) -> torch.Tensor:
+    """(B, S_enc, D) precomputed frame embeddings -> encoder states."""
+    h = enc_embeds
+    positions = common.positions_of(h)
+    for i in range(cfg.n_enc_layers):
+        lp = common.layer(params["enc_layers"], i)
+        h = h + attention.gqa_attention(
+            lp["attn"], cfg, common.rmsnorm(lp["ln1"], h), positions,
+            causal=False)
+        h = h + common.mlp_apply(lp["mlp"], common.rmsnorm(lp["ln2"], h))
+    return common.rmsnorm(params["enc_norm"], h)
+
+
+def cross_kv(params: Dict, cfg: ModelConfig, enc_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each decoder layer's cross K/V of the encoder states, computed
+    once: two (L, B, S_enc, hkv, dh)."""
+    b, s, _ = enc_out.shape
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    xattn = params["dec_layers"]["cross_attn"]
+    ks = [(enc_out @ xattn["wk"][i]).reshape(b, s, hkv, dh)
+          for i in range(cfg.n_layers)]
+    vs = [(enc_out @ xattn["wv"][i]).reshape(b, s, hkv, dh)
+          for i in range(cfg.n_layers)]
+    return torch.stack(ks), torch.stack(vs)
+
+
+# ---------------------------------------------------------------------------
+# Decoder (teacher-forced scoring)
+# ---------------------------------------------------------------------------
+
+
+def _decoder(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+             xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+    h = common.embed_tokens(params["embed"], tokens)
+    positions = common.positions_of(tokens)
+    for i in range(cfg.n_layers):
+        lp = common.layer(params["dec_layers"], i)
+        h = h + attention.gqa_attention(
+            lp["self_attn"], cfg, common.rmsnorm(lp["ln1"], h), positions)
+        h = h + attention.gqa_attention(
+            lp["cross_attn"], cfg, common.rmsnorm(lp["ln_x"], h), positions,
+            cross_kv=(xk[i], xv[i]))
+        h = h + common.mlp_apply(lp["mlp"], common.rmsnorm(lp["ln2"], h))
+    return common.rmsnorm(params["final_norm"], h)
+
+
+def forward(params: Dict, cfg: ModelConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict]:
+    enc_out = encode(params, cfg, batch["enc_embeds"])
+    xk, xv = cross_kv(params, cfg, enc_out)
+    return _decoder(params, cfg, batch["tokens"], xk, xv), {}
+
+
+def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):
+    h, _ = forward(params, cfg, batch)
+    logits = common.logits_from_hidden(params["embed"], cfg, h)
+    xent = common.softmax_xent(logits, batch["labels"],
+                               batch.get("loss_mask"))
+    return xent, {"xent": xent}
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
+               device) -> Dict:
+    dtype = dtype_of(cfg.compute_dtype)
+    lead = (cfg.n_layers, batch)
+    tail = (cfg.n_kv_heads, cfg.head_dim)
+
+    def zeros(n):
+        return torch.zeros(lead + (n,) + tail, dtype=dtype, device=device)
+
+    return {"k": zeros(max_len), "v": zeros(max_len),
+            "xk": zeros(enc_len), "xv": zeros(enc_len)}
+
+
+def cache_specs(cfg: ModelConfig, *, seq_sharded: bool = False) -> Dict:
+    """Logical axes of the cache's leaves, as the reference's."""
+    seq_ax = "seq" if seq_sharded else None
+    spec = (None, "batch", seq_ax, "kv_heads", None)
+    return {"k": spec, "v": spec, "xk": spec, "xv": spec}
+
+
+def prefill(params: Dict, cfg: ModelConfig, batch: Dict):
+    """Encode + cross K/V, the enc-dec analogue of prompt prefill, then a
+    BOS token (id 0) at position 0 through `decode_step`. The
+    self-attention cache holds ``batch.get("dec_len", 256)`` positions.
+    -> (logits (B, 1, V) f32, decode-ready cache)."""
+    enc_out = encode(params, cfg, batch["enc_embeds"])
+    xk, xv = cross_kv(params, cfg, enc_out)
+    b = enc_out.shape[0]
+    dtype = dtype_of(cfg.compute_dtype)
+    cache = init_cache(cfg, b, batch.get("dec_len", 256), 0,
+                       enc_out.device)
+    cache.update(xk=xk.to(dtype), xv=xv.to(dtype))
+    bos = torch.zeros((b, 1), dtype=torch.int32, device=enc_out.device)
+    lengths = torch.zeros((b,), dtype=torch.int32, device=enc_out.device)
+    return decode_step(params, cfg, bos, cache, lengths)
+
+
+def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict, lengths: torch.Tensor):
+    """One token per slot: self-attention against the per-layer cache
+    (`attention.gqa_decode`), then cross-attention of the one query
+    against the static encoder K/V (`attention.decode_attention`)."""
+    h = common.embed_tokens(params["embed"], tokens)
+    b = h.shape[0]
+    enc_len = cache["xk"].shape[2]
+    enc_lengths = torch.full((b,), enc_len - 1, dtype=torch.int32,
+                             device=h.device)
+    for i in range(cfg.n_layers):
+        lp = common.layer(params["dec_layers"], i)
+        k_i, v_i = cache["k"][i], cache["v"][i]
+        a_out, kv = attention.gqa_decode(
+            lp["self_attn"], cfg, common.rmsnorm(lp["ln1"], h),
+            {"k": k_i, "v": v_i}, lengths)
+        for dst, src in ((k_i, kv["k"]), (v_i, kv["v"])):
+            if src is not dst:                # the CNN variant's new tensor
+                dst.copy_(src)
+        h = h + a_out
+        q, _, _ = attention.gqa_project_qkv(
+            lp["cross_attn"], cfg, common.rmsnorm(lp["ln_x"], h),
+            lengths[:, None])
+        c = attention.decode_attention(q, cache["xk"][i], cache["xv"][i],
+                                       enc_lengths)
+        h = h + c.reshape(b, 1, -1) @ lp["cross_attn"]["wo"]
+        h = h + common.mlp_apply(lp["mlp"], common.rmsnorm(lp["ln2"], h))
+    h = common.rmsnorm(params["final_norm"], h)
+    return common.logits_from_hidden(params["embed"], cfg, h), cache

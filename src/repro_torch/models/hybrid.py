@@ -53,18 +53,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
     }
 
 
-def _layer(layers: Dict, i: int) -> Dict:
-    """Layer ``i`` of the stacked per-layer parameters (views)."""
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
-            for k, v in layers.items()}
-
-
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
-    b, s = tokens.shape
-    return torch.arange(s, dtype=torch.int32,
-                        device=tokens.device)[None].expand(b, s)
-
-
 def _shared_attn_block(cfg: ModelConfig, shared: Dict, h, positions,
                        return_kv: bool = False):
     a_in = common.rmsnorm(shared["ln1"], h)
@@ -80,11 +68,11 @@ def _shared_attn_block(cfg: ModelConfig, shared: Dict, h, positions,
 def forward(params: Dict, cfg: ModelConfig, batch: Dict
             ) -> Tuple[torch.Tensor, Dict]:
     h = common.embed_tokens(params["embed"], batch["tokens"])
-    positions = _positions(batch["tokens"])
+    positions = common.positions_of(batch["tokens"])
     segs = _segments(cfg)
     for i, (st, en) in enumerate(segs):
         for li in range(st, en):
-            lp = _layer(params["layers"], li)
+            lp = common.layer(params["layers"], li)
             h = h + ssm.ssm_apply(lp["ssm"], cfg,
                                   common.rmsnorm(lp["ln"], h))
         if i < len(segs) - 1:
@@ -114,14 +102,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
     }
 
 
+def cache_specs(cfg: ModelConfig, *, seq_sharded: bool = False) -> Dict:
+    """Logical axes of the cache's leaves, as the reference's; with
+    ``seq_sharded`` the sequence axis is named "seq" (`_grow_cache`)."""
+    seq_ax = "seq" if seq_sharded else None
+    return {
+        "mamba": {"conv": (None, "batch", None, "model"),
+                  "ssm": (None, "batch", "model", None, None)},
+        "attn_k": (None, "batch", seq_ax, "kv_heads", None),
+        "attn_v": (None, "batch", seq_ax, "kv_heads", None),
+    }
+
+
 def prefill(params: Dict, cfg: ModelConfig, batch: Dict):
     h = common.embed_tokens(params["embed"], batch["tokens"])
-    positions = _positions(batch["tokens"])
+    positions = common.positions_of(batch["tokens"])
     segs = _segments(cfg)
     convs, states, attn_ks, attn_vs = [], [], [], []
     for i, (st, en) in enumerate(segs):
         for li in range(st, en):
-            lp = _layer(params["layers"], li)
+            lp = common.layer(params["layers"], li)
             out, st_l = ssm.ssm_apply(lp["ssm"], cfg,
                                       common.rmsnorm(lp["ln"], h),
                                       return_state=True)
@@ -152,7 +152,7 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     segs = _segments(cfg)
     for i, (st, en) in enumerate(segs):
         for li in range(st, en):
-            lp = _layer(params["layers"], li)
+            lp = common.layer(params["layers"], li)
             out, new = ssm.ssm_decode(
                 lp["ssm"], cfg, common.rmsnorm(lp["ln"], h),
                 {"conv": mamba["conv"][li], "ssm": mamba["ssm"][li]})

@@ -3,7 +3,8 @@
 `params_from_numpy(cfg, tree, device)` takes the reference's parameter
 tree with numpy leaves (``jax.tree.map(np.asarray, params)``) and returns
 the port's nested dict of tensors. The two trees have the same keys and
-shapes, the stacked ``layers/*`` leading axis and ``shared_attn``
+shapes, the stacked ``layers/*``, ``enc_layers/*`` and ``dec_layers/*``
+leading axes, ``shared_attn`` and the ``q_norm``/``k_norm`` leaves
 included; every key and shape is checked against the port's own layout,
 and a bf16 leaf (numpy's ml_dtypes bfloat16) keeps its bits.
 """

@@ -421,6 +421,7 @@ def _qkv(cuda, b, l, hq, hkv, d, dtype=torch.float32):
     (2, 96, 4, 4, 48, False), (1, 200, 2, 2, 128, True),
     (2, 130, 2, 1, 80, True), (1, 70, 1, 1, 256, True),
     (4, 1024, 32, 32, 64, True),
+    (4, 2048, 16, 16, 64, True),      # seamless-m4t's decoder scoring
     (1, 2048, 4, 2, 64, True),        # many key tiles
     (2, 1000, 4, 4, 64, True),        # Lq not a multiple of 128
     (1, 384, 8, 2, 128, True),        # d 128, GQA rep 4
@@ -523,6 +524,7 @@ def _ssd_args(cuda, bsz, L, H, P, N, dtype=torch.float32):
     (2, 1000, 9, 64, 64, 128),    # ragged last chunk, a partial head group
     (1, 130, 3, 32, 16, 64),      # ragged, P of one half
     (1, 300, 3, 64, 128, 64),     # mamba2-130m's state: N 128, P 64, Q 64
+    (4, 2048, 24, 64, 128, 64),   # mamba2-130m's scoring forward
     (1, 200, 2, 128, 64, 64),     # two P tiles
     (2, 260, 9, 80, 130, 128),    # three N tiles, a ragged P tile
     (1, 300, 3, 64, 128, 128),    # one group of warps: two x tiles won't fit
@@ -607,6 +609,50 @@ def test_zamba2_smoke_on_card_matches_cpu(cuda):
         2 * n_attn_invocations(cfg)
     want, _ = serve_session(cfg, params=params, device="cpu", **kw)
     np.testing.assert_array_equal(got, want)
+    assert stats["peak_memory_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch,kernel", [
+    ("mamba2-130m", "ssd_scan"), ("gemma3-1b", None),
+    ("seamless-m4t-large-v2", "flash_attention"), ("qwen3-8b", None)])
+def test_lm_family_smoke_on_card_matches_cpu(cuda, arch, kernel):
+    """Each newly ported family's smoke model with both kernel flags set:
+    the card's forward (its kernel once a layer; none for the dense
+    models, whose window is a tensor) against the CPU's plain path, and
+    the greedy tokens of serve_session (no kernel on the serving path)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import synth_train_batch
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import get_model
+
+    cfg = get_smoke(arch, use_flash_kernel=True, use_ssd_kernel=True)
+    cpu = get_model(cfg, device="cpu")
+    params = cpu.init_params(0)
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(cuda)
+                for k, v in tree.items()}
+
+    cparams = to_card(params)
+    batch = synth_train_batch(cfg, 2, 40, seed=7)
+    kernels.reset_launch_counts()
+    h, _ = get_model(cfg, device=cuda).forward(
+        cparams, {k: t.to(cuda) for k, t in batch.items()})
+    want = {"flash_attention": 0, "ssd_scan": 0}
+    if kernel is not None:
+        want[kernel] = cfg.n_layers
+    counts = kernels.launch_counts()
+    assert {k: counts[k] for k in want} == want
+    ref, _ = cpu.forward(params, batch)
+    torch.testing.assert_close(h.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+    kw = dict(requests=4, batch=2, prompt_len=24, max_new=6)
+    kernels.reset_launch_counts()
+    got, stats = serve_session(cfg, params=cparams, device=cuda, **kw)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 0 == counts["ssd_scan"]
+    np.testing.assert_array_equal(
+        got, serve_session(cfg, params=params, device="cpu", **kw)[0])
     assert stats["peak_memory_bytes"] > 0
 
 

@@ -15,6 +15,7 @@ atol = 2e-3), for both KV-cache variants.
 """
 
 import ast
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -26,6 +27,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs import get_smoke as j_get_smoke  # noqa: E402
 from repro.data.batches import synth_train_batch as j_synth  # noqa: E402
 from repro.launch import serve as j_serve  # noqa: E402
@@ -33,6 +35,7 @@ from repro.models import get_model as j_get_model  # noqa: E402
 from repro.models.common import logits_from_hidden as j_logits  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import _ALIASES as ARCH_IDS  # noqa: E402
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.core.config import Variant  # noqa: E402
 from repro_torch.data import synth_train_batch  # noqa: E402
@@ -126,7 +129,7 @@ def test_decode_steps_match_reference(ref, port, kv_variant):
     cfg = port["cfg"].with_(kv_variant=Variant(kv_variant))
     model = get_model(cfg, device="cpu")
     _, cache = model.prefill(port["params"], _batch(ref, S))
-    cache = serve._grow_cache(cache, S + EXTRA + 1)
+    cache = serve._grow_cache(model, cache, S + EXTRA + 1)
     jcache = j_serve._grow_cache(jmodel, ref["cache"], S + EXTRA + 1)
     decode = jax.jit(jmodel.decode_step)
     lengths = np.full((B,), S, np.int32)
@@ -173,7 +176,7 @@ def test_prefill_then_decode_matches_forward(kv_variant, flags):
     full = logits_from_hidden(params["embed"], cfg, h)
     logits, cache = model.prefill(params, {"tokens": tokens[:, :16]})
     _close(logits[:, 0], full[:, 15], rtol=2e-3)
-    cache = serve._grow_cache(cache, 16 + EXTRA + 1)
+    cache = serve._grow_cache(model, cache, 16 + EXTRA + 1)
     lengths = torch.full((B,), 16, dtype=torch.int32)
     for t in range(EXTRA):
         logits, cache = model.decode_step(
@@ -182,14 +185,26 @@ def test_prefill_then_decode_matches_forward(kv_variant, flags):
         lengths = lengths + 1
 
 
-def test_synth_train_batch_is_the_references():
-    cfg = get_smoke(ARCH)
-    got = synth_train_batch(cfg, 3, 17, seed=5)
-    want = j_synth(j_get_smoke(ARCH), 3, 17, seed=5)
-    for key in ("tokens", "labels"):
-        assert got[key].dtype == torch.int32
-        np.testing.assert_array_equal(got[key].numpy(),
-                                      np.asarray(want[key]))
+@pytest.mark.parametrize("arch", [ARCH, "seamless-m4t-large-v2"])
+def test_synth_train_batch_is_the_references(arch):
+    """Tokens and labels, and the audio schema's frame embeddings (drawn
+    after them, rounded to the compute dtype: bf16 in the full config)."""
+    for get in (get_smoke, get_config):
+        cfg = get(arch)
+        got = synth_train_batch(cfg, 3, 17, seed=5)
+        want = j_synth((j_get_smoke if get is get_smoke
+                        else j_get_config)(arch), 3, 17, seed=5)
+        assert set(got) == set(want)
+        for key in ("tokens", "labels"):
+            assert got[key].dtype == torch.int32
+            np.testing.assert_array_equal(got[key].numpy(),
+                                          np.asarray(want[key]))
+        if "enc_embeds" in want:
+            e = got["enc_embeds"]
+            assert e.shape == (3, 17, cfg.d_model)
+            assert str(e.dtype) == f"torch.{cfg.compute_dtype}"
+            np.testing.assert_array_equal(
+                e.float().numpy(), np.asarray(want["enc_embeds"], np.float32))
 
 
 def test_params_from_numpy_checks_layout(ref):
@@ -204,26 +219,32 @@ def test_params_from_numpy_checks_layout(ref):
         params_from_numpy(cfg, tree, device="cpu")
 
 
-def test_full_config_is_the_references():
-    from repro.configs import get_config as j_get_config
-    want, got = j_get_config(ARCH), get_config(ARCH)
-    for field in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
-                  "vocab_size", "ssm_state", "ssm_expand", "ssm_head_dim",
-                  "ssm_chunk", "ssm_conv", "shared_attn_every",
-                  "tie_embeddings", "param_dtype", "compute_dtype",
-                  "use_flash_kernel", "use_ssd_kernel", "attn_chunk",
-                  "rope_theta"):
-        assert getattr(got, field) == getattr(want, field), field
-    assert got.kv_variant.value == want.kv_variant.value
-    assert not got.use_flash_kernel and not got.use_ssd_kernel  # opt-in
+@pytest.mark.parametrize("arch", sorted(ARCH_IDS))
+def test_full_config_is_the_references(arch):
+    """Every field of the port's config equals the reference's, in the
+    full config and the smoke; the kernels stay opt-in."""
+    for get, j_get in ((get_config, j_get_config), (get_smoke, j_get_smoke)):
+        got, want = get(arch), j_get(arch)
+        for field in dataclasses.fields(got):
+            value = getattr(got, field.name)
+            if field.name == "kv_variant":
+                assert value.value == want.kv_variant.value
+            else:
+                assert value == getattr(want, field.name), field.name
+        if got.n_heads:                 # mamba2 has no attention heads
+            assert got.head_dim == want.head_dim
+        assert not got.use_flash_kernel and not got.use_ssd_kernel
 
 
 def test_unported_families_raise_and_name_the_roadmap():
     with pytest.raises(ValueError, match="ROADMAP A"):
-        get_config("qwen3-8b")
-    cfg = get_smoke(ARCH).with_(family="dense")
+        get_config("granite-moe-3b-a800m")
+    for family in ("moe", "vlm"):
+        cfg = get_smoke(ARCH).with_(family=family)
+        with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
+            get_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        get_model(cfg, device="cpu")
+        synth_train_batch(get_smoke(ARCH).with_(family="vlm"), 1, 4)
 
 
 def test_serve_session_needs_cuda_unless_cpu_requested(monkeypatch):
