@@ -89,15 +89,24 @@ last line):
                launches no kernel; scoring launches `ssd_scan` once a
                layer (mamba2), `flash_attention` once a decoder layer
                (seamless), neither (gemma3: its window is a tensor, the
-               reference's condition); peak memory of each;
+               reference's condition); then granite-moe-3b-a800m (V2
+               dispatch), deepseek-v2-236b (full width, 4 of its 60
+               layers: the cut is printed on each line) and qwen2-vl-2b
+               (prompts with patch embeddings and M-RoPE positions), both
+               flags set, launching neither kernel; peak memory of each;
      each model then `[lm split]`: torch.profiler over one prefill, one
                decode step and one scoring forward, for the device's busy
                share, the kernels that take the device time, and the
                "other" kernels' time by the ATen op that launched them;
+  7b. moe variants — granite-moe at full width and depth in bf16, its
+               scoring forward under the paper's V1, V2 and V3 dispatch
+               (CUDA events, peak memory), then the three in f32 at
+               (2, 256) with no drops, within 1e-4 of each other;
   8. lm outputs — full width in f32, each model: the kernel path's logits
                against the plain path's, and prefill and decode logits
                against forward's (gemma3 also at prompt 640, where its
-               local window bites);
+               local window bites; the MoE models at a capacity with no
+               drops, deepseek-v2 at depth 2; qwen2-vl on tokens only);
   9. launches — how many CUDA launches one call of each multi-launch
                kernel makes, and the device time of each (torch.profiler,
                after every timed phase): the fused spans at the paper's
@@ -138,6 +147,7 @@ from repro_torch.bench.resources import (NvmlEnergyMeter,  # noqa: E402
                                         nvml_indices_for_local_gpus)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import demod, lowering  # noqa: E402
+from repro_torch.core.config import Variant  # noqa: E402
 from repro_torch.core.aot import warm_pool  # noqa: E402
 from repro_torch.core.executor import _pad_rows  # noqa: E402
 from repro_torch.core.staging import StagingRing  # noqa: E402
@@ -206,7 +216,8 @@ MT_ENERGY_S = 2.5        # the energy window: its slowest client's span
 MT_SAMPLE = (0, 1, -1)   # frames of each stream held to the lone frame
 
 # LM half: zamba2-1.2b, served and scored at full width and depth, then
-# the three models of the dense, ssm and enc-dec families the same way
+# the models of the dense, ssm, enc-dec, MoE (with MLA) and VLM families
+# the same way
 ARCH = "zamba2-1.2b"
 LM_REQUESTS, LM_BATCH, PROMPT_LEN, MAX_NEW = 8, 4, 1024, 32
 SCORE_SHAPE = (4, 2048)
@@ -216,7 +227,8 @@ LM_FLAGS = dict(use_flash_kernel=True, use_ssd_kernel=True)
 # 2 prefills, the SSD in its 38 layers. The new models serve with no
 # kernel (prefill asks for states; seamless's prefill is encode + decode;
 # gemma3's window is a tensor, so flash stays off, as the reference's)
-# and score with one launch a layer
+# and score with one launch a layer; the MoE and VLM transformers launch
+# neither kernel (their windows are tensors; MLA attends by chunks)
 LM_MODELS = {
     ARCH: (dict(use_flash_kernel=True), dict(use_ssd_kernel=True),
            {"flash_attention": 12}, {"ssd_scan": 38}),
@@ -224,11 +236,42 @@ LM_MODELS = {
     "gemma3-1b": (LM_FLAGS, LM_FLAGS, {}, {}),
     "seamless-m4t-large-v2": (LM_FLAGS, LM_FLAGS, {},
                               {"flash_attention": 24}),
+    "granite-moe-3b-a800m": (LM_FLAGS, LM_FLAGS, {}, {}),
+    "deepseek-v2-236b": (LM_FLAGS, LM_FLAGS, {}, {}),
+    "qwen2-vl-2b": (LM_FLAGS, LM_FLAGS, {}, {}),
 }
-# phase 8's f32 checks: (model, prompt); gemma3's local window (512) bites
-# at 640
-OUTPUT_RUNS = ((ARCH, 256), ("mamba2-130m", 256), ("gemma3-1b", 256),
-               ("gemma3-1b", 640), ("seamless-m4t-large-v2", 256))
+# depth cuts: deepseek-v2's 60 layers (~475 GB of bf16 weights) do not
+# fit one card; 4 layers at full width are ~34 GB
+LM_DEPTH = {"deepseek-v2-236b": 4}
+MOE_ARCH = "granite-moe-3b-a800m"    # the [moe variants] line
+MOE_VARIANTS = ("dynamic", "cnn", "sparse")
+MOE_F32_SHAPE = (2, 256)
+MOE_F32_TOL = 1e-4                   # max|d| / max|ref| between variants
+
+
+def no_drop(arch) -> float:
+    """A capacity factor at which no assignment can be dropped, as in
+    tests/test_decode_consistency.py (8 there, at 8 experts, top 2):
+    E / k makes every expert's capacity exceed the tokens of a dispatch
+    group; never below 8. Prefill and forward dispatch the same tokens in
+    groups of other sizes, so only then do they compute the same thing
+    (deepseek-v2: 8 gives 80 slots for 256 tokens)."""
+    cfg = get_config(arch)
+    return max(8.0, cfg.n_experts / cfg.n_experts_per_tok)
+
+
+# phase 8's f32 checks: (model, prompt, config overrides); gemma3's local
+# window (512) bites at 640; the MoE models at a capacity with no drops,
+# deepseek-v2 at depth 2
+OUTPUT_RUNS = ((ARCH, 256, {}), ("mamba2-130m", 256, {}),
+               ("gemma3-1b", 256, {}), ("gemma3-1b", 640, {}),
+               ("seamless-m4t-large-v2", 256, {}),
+               ("granite-moe-3b-a800m", 256,
+                dict(capacity_factor=no_drop("granite-moe-3b-a800m"))),
+               ("deepseek-v2-236b", 256,
+                dict(capacity_factor=no_drop("deepseek-v2-236b"),
+                     n_layers=2)),
+               ("qwen2-vl-2b", 256, {}))
 FLASH_TOL = (2e-4, 2e-5)   # rtol, atol: test_torch_lm_kernels / _gpu
 SSD_TOL = (2e-4, 2e-4)
 LOGITS_TOL = 2e-3          # rtol = atol, tests/test_decode_consistency.py
@@ -1375,6 +1418,18 @@ def phase_lm_kernels() -> dict:
     return rows
 
 
+def lm_config(arch, **overrides) -> tuple:
+    """(the full config with ``overrides`` and, unless they set a depth,
+    its LM_DEPTH cut; the name to print, which states any cut)."""
+    cfg = get_config(arch, **overrides)
+    if "n_layers" not in overrides and arch in LM_DEPTH:
+        cfg = cfg.with_(n_layers=LM_DEPTH[arch])
+    full = get_config(arch).n_layers
+    if cfg.n_layers == full:
+        return cfg, arch
+    return cfg, f"{arch} (depth {cfg.n_layers} of {full}, full width)"
+
+
 def lm_model(arch) -> dict:
     """One model at full width and depth in bf16, random weights from
     seed 0: serve_session with its serving flags, then scoring (loss_fn,
@@ -1384,13 +1439,13 @@ def lm_model(arch) -> dict:
     Returns the launches of both runs."""
     dev = torch.device("cuda")
     serve_flags, score_flags, serve_want, score_want = LM_MODELS[arch]
-    cfg = get_config(arch, **serve_flags)
+    cfg, name = lm_config(arch, **serve_flags)
     model = get_model(cfg)
     t0 = time.perf_counter()
     params = model.init_params(0)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    say(f"[lm] {arch} ({cfg.family}): {cfg.n_layers} layers"
+    say(f"[lm] {name} ({cfg.family}): {cfg.n_layers} layers"
         + (f" + {cfg.n_enc_layers} encoder layers" if cfg.n_enc_layers
            else "")
         + f", d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
@@ -1411,7 +1466,7 @@ def lm_model(arch) -> dict:
     counts = launched("serving", serve_want)
     pre = np.array(stats["prefill_s"]) * 1e3
     dec = np.array(stats["decode_s"]) * 1e3
-    say(f"[lm] serve {arch} bf16 {serve_flags}: {LM_REQUESTS} requests, "
+    say(f"[lm] serve {name} bf16 {serve_flags}: {LM_REQUESTS} requests, "
         f"slot batch {LM_BATCH}, prompt {PROMPT_LEN}, {MAX_NEW} new "
         f"tokens: {stats['tokens']} tokens in {stats['wall_s']:.3f}s = "
         f"{stats['tok_per_s']:.1f} tok/s; prefill per slot batch "
@@ -1426,7 +1481,7 @@ def lm_model(arch) -> dict:
     prompt = synth_train_batch(cfg, LM_BATCH, PROMPT_LEN, seed=0,
                                device=dev)
     with torch.no_grad():
-        device_split(f"{arch} prefill",
+        device_split(f"{name} prefill",
                      lambda: model.prefill(params, prompt))
         _, cache = model.prefill(params, prompt)
         if cfg.family == "audio":       # the prefill consumed BOS
@@ -1436,11 +1491,11 @@ def lm_model(arch) -> dict:
             lengths = torch.full((LM_BATCH,), PROMPT_LEN,
                                  dtype=torch.int32, device=dev)
         tok = prompt["tokens"][:, -1:]
-        device_split(f"{arch} decode step", lambda: model.decode_step(
+        device_split(f"{name} decode step", lambda: model.decode_step(
             params, tok, cache, lengths))
     del cache, prompt
 
-    model = get_model(get_config(arch, **score_flags))
+    model = get_model(lm_config(arch, **score_flags)[0])
     batch = synth_train_batch(cfg, *SCORE_SHAPE, seed=1, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1460,7 +1515,7 @@ def lm_model(arch) -> dict:
         e.record()
     torch.cuda.synchronize()
     toks = SCORE_SHAPE[0] * SCORE_SHAPE[1]
-    say(f"[lm] score {arch} bf16 {score_flags}: loss_fn at {SCORE_SHAPE}: "
+    say(f"[lm] score {name} bf16 {score_flags}: loss_fn at {SCORE_SHAPE}: "
         f"loss {loss:.4f} (ln V = {np.log(cfg.vocab_size):.4f}), first "
         f"call {wall * 1e3:.1f} ms, forward {s.elapsed_time(e):.3f} ms "
         f"(CUDA events) = {toks / s.elapsed_time(e) * 1e3:.0f} tok/s; "
@@ -1472,7 +1527,7 @@ def lm_model(arch) -> dict:
           and bool(torch.isfinite(h).all()), f"{arch}: forward hidden")
     del h
     with torch.no_grad():
-        device_split(f"{arch} scoring forward {score_flags}",
+        device_split(f"{name} scoring forward {score_flags}",
                      lambda: model.forward(params, batch))
     del params, batch
     torch.cuda.empty_cache()
@@ -1488,6 +1543,67 @@ def phase_lm_models() -> dict:
         for name, n in lm_model(arch).items():
             launches[name] += n
     return launches
+
+
+def phase_moe_variants() -> None:
+    """Phase 7b: the paper's three dispatch formulations at LM scale.
+    MOE_ARCH at full width and depth in bf16, random weights from seed 0:
+    its scoring forward at SCORE_SHAPE under V1, V2 and V3 (CUDA events,
+    mean of 3 calls after a warm one), the peak device memory of those
+    calls, no kernel launched; then in f32 at MOE_F32_SHAPE at a capacity
+    with no drops (`no_drop`) the three hidden states agree within
+    MOE_F32_TOL of max|V1|."""
+    dev = torch.device("cuda")
+    cfg = get_config(MOE_ARCH, **LM_FLAGS)
+    params = get_model(cfg).init_params(0)
+    batch = synth_train_batch(cfg, *SCORE_SHAPE, seed=1, device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    timed = []
+    for i, v in enumerate(MOE_VARIANTS):
+        model = get_model(cfg.with_(moe_variant=Variant(v)))
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            ms = time_ms(lambda: model.forward(params, batch), 3,
+                         torch.empty(1, device=dev))
+            h, _ = model.forward(params, batch)
+        peak = torch.cuda.max_memory_allocated()
+        counts = kernels.launch_counts()
+        check(counts["flash_attention"] == 0 == counts["ssd_scan"],
+              f"{MOE_ARCH} {v}: launched {counts}")
+        check(tuple(h.shape) == SCORE_SHAPE + (cfg.d_model,)
+              and bool(torch.isfinite(h).all()), f"{MOE_ARCH} {v}: hidden")
+        del h
+        timed.append(f"V{i + 1} {v} {ms:.3f} ms, peak {peak / 1e6:.1f} MB")
+    say(f"[moe variants] {MOE_ARCH} bf16, full width and depth, scoring "
+        f"forward at {SCORE_SHAPE} (CUDA events; weights and batch "
+        f"{held / 1e6:.1f} MB of each peak): " + "; ".join(timed))
+    del params, batch
+    torch.cuda.empty_cache()
+
+    cfg = get_config(MOE_ARCH, param_dtype="float32",
+                     compute_dtype="float32",
+                     capacity_factor=no_drop(MOE_ARCH))
+    params = get_model(cfg).init_params(0)
+    batch = synth_train_batch(cfg, *MOE_F32_SHAPE, seed=1, device=dev)
+    with torch.no_grad():
+        hs = {v: get_model(cfg.with_(moe_variant=Variant(v))).forward(
+            params, batch)[0] for v in MOE_VARIANTS}
+    ref = hs[MOE_VARIANTS[0]]
+    errs = {v: max_err(hs[v], ref) for v in MOE_VARIANTS[1:]}
+    say(f"[moe variants] {MOE_ARCH} f32 at {MOE_F32_SHAPE}, capacity "
+        f"{cfg.capacity_factor:g}: "
+        + ", ".join(f"max|{v} - {MOE_VARIANTS[0]}| {e:.3e}"
+                    for v, (e, _) in errs.items())
+        + f" (max|ref| {errs['cnn'][1]:.3e}, tolerance "
+        f"{MOE_F32_TOL:g} of it)")
+    for v, (err, scale) in errs.items():
+        check(bool(torch.isfinite(hs[v]).all()) and
+              err <= MOE_F32_TOL * scale,
+              f"{MOE_ARCH} f32: {v} against {MOE_VARIANTS[0]}")
+    del params, batch, hs, ref
+    torch.cuda.empty_cache()
 
 
 def phase_launches() -> None:
@@ -1632,14 +1748,18 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def lm_outputs(arch, prompt, extra=4) -> None:
-    """Full width in f32, one model: the kernel path's logits (both flags
-    set) against the plain path's, then prefill and ``extra`` decode
-    steps against the kernel path's forward on the same tokens. For the
-    enc-dec model the prompt is the encoder's frames and the decoder's
-    tokens start with BOS (id 0), which its prefill consumes; the kernel
-    path's launches are checked against the model's scoring kernels."""
-    cfg = get_config(arch, param_dtype="float32", compute_dtype="float32")
+def lm_outputs(arch, prompt, overrides, extra=4) -> None:
+    """Full width in f32, one model (with ``overrides``): the kernel
+    path's logits (both flags set) against the plain path's, then prefill
+    and ``extra`` decode steps against the kernel path's forward on the
+    same tokens. For the enc-dec model the prompt is the encoder's frames
+    and the decoder's tokens start with BOS (id 0), which its prefill
+    consumes; the VLM runs on tokens only (its prefill and decode take
+    sequential positions, as tests/test_decode_consistency.py); the
+    kernel path's launches are checked against the model's scoring
+    kernels."""
+    cfg, name = lm_config(arch, param_dtype="float32",
+                          compute_dtype="float32", **overrides)
     plain, kern = get_model(cfg), get_model(cfg.with_(**LM_FLAGS))
     params = plain.init_params(1)
     dev = plain.device
@@ -1647,7 +1767,11 @@ def lm_outputs(arch, prompt, extra=4) -> None:
     audio = cfg.family == "audio"
     if audio:
         batch["tokens"][:, 0] = 0
-    tag = f"{arch} f32, prompt {prompt}"
+    if cfg.family == "vlm":
+        batch = {k: batch[k] for k in ("tokens", "labels")}
+    extras = "".join(f" {k} {v:g}" for k, v in overrides.items()
+                     if k != "n_layers")
+    tag = f"{name} f32{extras}, prompt {prompt}"
     kernels.reset_launch_counts()
     with torch.no_grad():
         full = {m: logits_from_hidden(params["embed"], cfg,
@@ -1689,8 +1813,8 @@ def lm_outputs(arch, prompt, extra=4) -> None:
 
 
 def phase_lm_outputs() -> None:
-    for arch, prompt in OUTPUT_RUNS:
-        lm_outputs(arch, prompt)
+    for arch, prompt, overrides in OUTPUT_RUNS:
+        lm_outputs(arch, prompt, overrides)
 
 
 def main() -> None:
@@ -1719,6 +1843,7 @@ def main() -> None:
         f"{torch.cuda.memory_allocated() / 1e6:.1f} MB still allocated")
     rows.update(phase_lm_kernels())
     launches.update(phase_lm_models())
+    phase_moe_variants()
     phase_lm_outputs()
     phase_launches()
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")

@@ -1,9 +1,8 @@
 """Architecture registry of the port.
 
 `get_config(name)` returns the full published config, `get_smoke(name)`
-a reduced same-family config for CPU tests. Only the architectures whose
-family is ported are here (dense, ssm, hybrid, audio); ROADMAP A lists
-the others (MoE, MLA, the VLM).
+a reduced same-family config for CPU tests. Every architecture of the
+reference's registry is here, in its order.
 """
 
 from __future__ import annotations
@@ -14,7 +13,10 @@ from typing import Dict, List
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
 ARCHS: List[str] = [
+    "granite_moe_3b_a800m",
+    "deepseek_v2_236b",
     "zamba2_1p2b",
+    "qwen2_vl_2b",
     "qwen3_8b",
     "gemma3_1b",
     "granite_3_8b",
@@ -25,7 +27,10 @@ ARCHS: List[str] = [
 
 # CLI ids (dashes) -> module names
 _ALIASES: Dict[str, str] = {
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "zamba2-1.2b": "zamba2_1p2b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
     "qwen3-8b": "qwen3_8b",
     "gemma3-1b": "gemma3_1b",
     "granite-3-8b": "granite_3_8b",
@@ -39,8 +44,7 @@ def _module(name: str):
     mod_name = _ALIASES.get(name, name)
     if mod_name not in ARCHS:
         raise ValueError(
-            f"architecture {name!r} is not ported to PyTorch yet (ported: "
-            f"{sorted(_ALIASES)}); ROADMAP A lists the order of the rest")
+            f"unknown architecture {name!r} (known: {sorted(_ALIASES)})")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 

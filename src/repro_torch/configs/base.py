@@ -3,8 +3,9 @@
 The port's own copy of the reference's ``ModelConfig``, cut to the fields
 the ported families read (dense transformer, ssm, hybrid, enc-dec), with
 the same names, defaults and meaning, so one config reads the same in
-both packages. The MoE and MLA fields are not here: those families are
-not ported yet (ROADMAP A).
+both packages: every family of the reference (dense, MoE with MLA, the
+VLM's M-RoPE, ssm, hybrid, enc-dec). The sharding-only fields
+(``attn_batch_fallback``) and remat have no counterpart here.
 """
 
 from __future__ import annotations
@@ -34,11 +35,31 @@ class ModelConfig:
     # attention -----------------------------------------------------------
     qk_norm: bool = False
     rope_theta: float = 10_000.0
-    mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (not ported)
+    mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (t, h, w) splits
     sliding_window: int = 0                # >0 enables windowed layers
     local_global_pattern: int = 0          # N => N local layers : 1 global
     rope_local_theta: float = 0.0          # gemma3: local layers' rope base
     attn_logit_softcap: float = 0.0
+
+    # MLA (deepseek-v2) -----------------------------------------------------
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    # MoE -------------------------------------------------------------------
+    n_experts: int = 0
+    n_experts_per_tok: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    moe_variant: Variant = Variant.CNN     # paper taxonomy: dispatch impl
+    router_z_loss: float = 1e-3
+    # Pad the expert dimension with never-routed dead experts (granite-moe:
+    # 40 -> 48), as the reference's (there: to divide the model axis).
+    n_experts_padded: int = 0
 
     # SSM (mamba2) ------------------------------------------------------------
     ssm_state: int = 0
@@ -69,6 +90,11 @@ class ModelConfig:
     @property
     def head_dim(self) -> int:
         return self.d_head or (self.d_model // self.n_heads)
+
+    @property
+    def n_experts_eff(self) -> int:
+        """Expert-dim size incl. dead padding (weights / dispatch slots)."""
+        return max(self.n_experts_padded, self.n_experts)
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -2,9 +2,12 @@
 
 LM half — slot-based batching, as the reference: B fixed slots, each
 request batch prefills into its slots, then all slots decode in lockstep,
-greedily (`serve_session`). The ported architectures: zamba2-1.2b,
-mamba2-130m, gemma3-1b, qwen3-8b, granite-3-8b, llama3-405b (smoke size
-only on one card) and seamless-m4t-large-v2:
+greedily (`serve_session`). Every architecture of the reference:
+granite-moe-3b-a800m, deepseek-v2-236b (its 60 layers do not fit one
+card: full width at fewer layers), zamba2-1.2b, qwen2-vl-2b (prompts
+carry their patch embeddings and M-RoPE positions), qwen3-8b, gemma3-1b,
+granite-3-8b, llama3-405b (smoke size only on one card), mamba2-130m and
+seamless-m4t-large-v2:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
       --smoke --requests 8 --batch 4 --prompt-len 32 --max-new 16 \
@@ -55,14 +58,18 @@ def serve_session(cfg, *, requests: int, batch: int, prompt_len: int,
     """Process ``requests`` prompts in slot batches of ``batch``.
 
     Prompts are ``synth_train_batch(cfg, bsz, prompt_len, seed + r0)``, as
-    in the reference; for the enc-dec family ``prompt_len`` is the
-    encoder's frame count, and its prefill hands back a decode-ready
-    cache at position 1 (BOS consumed). ``params`` defaults to ``init_params(seed)`` (the
-    port's draws; pass ``params_from_numpy`` of the reference's to serve
-    the same weights). Returns (generated tokens (requests, max_new + 1)
-    int32 array, stats dict): the reference's keys, plus the host-clock
-    time of each slot batch's prefill (the first token included) and of
-    each decode step, and the peak device memory (None on the CPU).
+    in the reference: a VLM prompt carries its patch embeddings and M-RoPE
+    positions (its text sits at positions ``side + i``; decode goes on
+    from ``prompt_len``, the reference's, ROADMAP C); for the enc-dec
+    family ``prompt_len`` is the encoder's frame count, and its prefill
+    hands back a decode-ready cache at position 1 (BOS consumed). An MoE's
+    capacity depends on the slot batch, as in the reference.
+    ``params`` defaults to ``init_params(seed)`` (the port's draws; pass
+    ``params_from_numpy`` of the reference's to serve the same weights).
+    Returns (generated tokens (requests, max_new + 1) int32 array, stats
+    dict): the reference's keys, plus the host-clock time of each slot
+    batch's prefill (the first token included) and of each decode step,
+    and the peak device memory (None on the CPU).
     """
     from repro_torch.data.batches import synth_train_batch
     from repro_torch.models import get_model
@@ -480,9 +487,10 @@ def main() -> None:
     ap.add_argument("--ultrasound", action="store_true",
                     help="stream RF through the batched stage-graph engine")
     ap.add_argument("--arch", default="zamba2-1.2b",
-                    help="LM: architecture (ported: zamba2-1.2b, "
-                    "mamba2-130m, gemma3-1b, qwen3-8b, granite-3-8b, "
-                    "llama3-405b, seamless-m4t-large-v2)")
+                    help="LM: architecture (granite-moe-3b-a800m, "
+                    "deepseek-v2-236b, zamba2-1.2b, qwen2-vl-2b, qwen3-8b, "
+                    "gemma3-1b, granite-3-8b, llama3-405b, mamba2-130m, "
+                    "seamless-m4t-large-v2)")
     ap.add_argument("--smoke", action="store_true",
                     help="LM: the reduced same-family config")
     ap.add_argument("--requests", type=int, default=8)

@@ -11,9 +11,9 @@ the config and the device:
   cache_specs(seq_sharded=...)      -> logical axes of the cache's leaves
 
 The device is CUDA unless the caller passes ``device="cpu"``; without a
-card the default raises. The dense transformer, ssm (mamba2), hybrid
-(zamba2) and audio (enc-dec) families are ported; MoE and the VLM raise
-and name the ROADMAP entry that will port them.
+card the default raises. Every family of the reference is ported: the
+transformer serves dense, MoE (with MLA) and the VLM, beside ssm
+(mamba2), hybrid (zamba2) and audio (enc-dec).
 """
 
 from __future__ import annotations
@@ -30,15 +30,11 @@ from repro_torch.models import encdec, hybrid, mamba_lm, transformer
 
 _FAMILY_MODULES = {
     "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
     "ssm": mamba_lm,
     "hybrid": hybrid,
     "audio": encdec,
-}
-
-# where ROADMAP A puts each family that is not ported yet
-_NOT_PORTED = {
-    "moe": "ROADMAP A.2 (the transformer: MoE and MLA)",
-    "vlm": "ROADMAP A.2 (the transformer: the VLM, M-RoPE)",
 }
 
 
@@ -56,13 +52,12 @@ class Model:
 
 
 def family_module(cfg: ModelConfig):
-    """The module that implements ``cfg.family``; raises where it is not
-    ported yet."""
+    """The module that implements ``cfg.family``; raises for a family
+    the reference does not have either."""
     if cfg.family not in _FAMILY_MODULES:
-        where = _NOT_PORTED.get(cfg.family, "ROADMAP A")
         raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported to "
-            f"PyTorch yet: {where}")
+            f"model family {cfg.family!r} ({cfg.name}) has no module "
+            f"(ported: {sorted(_FAMILY_MODULES)})")
     return _FAMILY_MODULES[cfg.family]
 
 

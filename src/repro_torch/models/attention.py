@@ -1,14 +1,18 @@
-"""Attention of the LM half: GQA (+qk-norm, window, softcap), KV caches.
+"""Attention of the LM half: GQA (+qk-norm, window, softcap, M-RoPE), MLA,
+KV caches.
 
-The port of the reference's ``repro.models.attention``, GQA part:
+The port of the reference's ``repro.models.attention``:
   * train/prefill — `chunked_attention` over query blocks, or the CUDA
     flash kernel where the reference takes its Pallas kernel (the same
     condition, in `gqa_attention`);
   * decode — one query against the cache with per-slot lengths; the cache
     write in the paper's V1 (indexed write) and V2 (one-hot blend)
     variants, per layer (`cache_update`) or into a layer-stacked cache
-    (`stacked_cache_update`, `gqa_decode_stacked`).
-MLA waits for the MoE/MLA families (ROADMAP A).
+    (`stacked_cache_update`, `gqa_decode_stacked`);
+  * MLA (deepseek-v2) — `mla_attention` expands the low-rank keys and
+    values for `chunked_attention`; `mla_decode` attends in the
+    compressed space (absorbed weights) against a cache of c_kv and one
+    shared rope key per position.
 
 A window may be a Python int or a 0-d tensor (gemma3's per-layer window,
 picked on the device as the reference's traced ``jnp.where``); a tensor
@@ -47,6 +51,33 @@ def attn_params(cfg: ModelConfig, dtype, gen, device, lead=()) -> Dict:
         p["q_norm"] = common.rmsnorm_params(dh, dtype, device, lead)
         p["k_norm"] = common.rmsnorm_params(dh, dtype, device, lead)
     return p
+
+
+def mla_params(cfg: ModelConfig, dtype, gen, device, lead=()) -> Dict:
+    """One MLA block (the reference's leaves); ``lead`` stacks copies."""
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    lead = tuple(lead)
+    return {
+        "wq_a": dense_init(lead + (d, rq), dtype, gen, device),
+        "q_norm": common.rmsnorm_params(rq, dtype, device, lead),
+        "wq_b": dense_init(lead + (rq, h * (dn + dr)), dtype, gen, device),
+        "wkv_a": dense_init(lead + (d, rkv + dr), dtype, gen, device),
+        "kv_norm": common.rmsnorm_params(rkv, dtype, device, lead),
+        "wk_b": dense_init(lead + (rkv, h * dn), dtype, gen, device),
+        "wv_b": dense_init(lead + (rkv, h * dv), dtype, gen, device),
+        "wo": dense_init(lead + (h * dv, d), dtype, gen, device),
+    }
+
+
+def decode_positions(cfg: ModelConfig, lengths: torch.Tensor
+                     ) -> torch.Tensor:
+    """The new token's positions: (B, 1), or (B, 3, 1) under M-RoPE (a
+    text continuation advances all three axes; the reference's)."""
+    if cfg.mrope_sections:
+        return lengths[:, None, None].expand(-1, 3, 1)
+    return lengths[:, None]
 
 
 def _window_mask(cols: torch.Tensor, rows: torch.Tensor, window
@@ -276,7 +307,7 @@ def gqa_decode_stacked(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     (L, B, S, hkv, dh): writes the token at (layer_idx, :, lengths[b]),
     then attends against the layer's slice."""
     b = x.shape[0]
-    positions = lengths[:, None]
+    positions = decode_positions(cfg, lengths)
     q, k, v = gqa_project_qkv(params, cfg, x, positions, is_local)
     k_full = stacked_cache_update(cache["k"], k, lengths, layer_idx,
                                   cfg.kv_variant)
@@ -293,7 +324,7 @@ def gqa_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                is_local=None) -> Tuple[torch.Tensor, Dict]:
     """One-token decode with cache update. x: (B, 1, D)."""
     b = x.shape[0]
-    positions = lengths[:, None]  # (B, 1)
+    positions = decode_positions(cfg, lengths)
     q, k, v = gqa_project_qkv(params, cfg, x, positions, is_local)
     k_cache = cache_update(cache["k"], k, lengths, cfg.kv_variant)
     v_cache = cache_update(cache["v"], v, lengths, cfg.kv_variant)
@@ -301,3 +332,106 @@ def gqa_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                            softcap=cfg.attn_logit_softcap)
     y = out.reshape(b, 1, -1) @ params["wo"]
     return y, {"k": k_cache, "v": v_cache}
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): low-rank compressed KV, absorbed decode
+# ---------------------------------------------------------------------------
+
+
+def _mla_qkv_expand(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor):
+    """(q_nope (B,S,H,dn), q_rope (B,S,H,dr), c_kv (B,S,rank), k_rope
+    (B,S,1,dr)): the rope key is one head shared by all."""
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    rank = cfg.kv_lora_rank
+    ql = common.rmsnorm(params["q_norm"], x @ params["wq_a"])
+    q = (ql @ params["wq_b"]).reshape(b, s, h, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = common.apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    kv = x @ params["wkv_a"]                           # (B, S, rank + dr)
+    c_kv = common.rmsnorm(params["kv_norm"], kv[..., :rank])
+    k_rope = common.apply_rope(kv[..., None, rank:], positions,
+                               cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, *, return_kv: bool = False):
+    """Train/prefill MLA with expanded keys and values: rope and nope
+    parts packed into one head dim (dn + dr) for `chunked_attention`, v
+    zero-padded to it and the output sliced back to dv."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_expand(params, cfg, x, positions)
+    k_nope = (c_kv @ params["wk_b"]).reshape(b, s, h, dn)
+    v = (c_kv @ params["wv_b"]).reshape(b, s, h, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    v_pad = torch.nn.functional.pad(v, (0, dn + dr - dv))
+    out = chunked_attention(q, k, v_pad, causal=True, chunk=cfg.attn_chunk)
+    y = out[..., :dv].reshape(b, s, -1) @ params["wo"]
+    if return_kv:
+        return y, (c_kv, k_rope)
+    return y
+
+
+def mla_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+               cache: Dict, lengths: torch.Tensor, layer_idx=None,
+               ) -> Tuple[torch.Tensor, Dict]:
+    """Absorbed-weight MLA decode: attention runs in the compressed space.
+
+    The cache holds c_kv (.., B, S, rank) and k_rope (.., B, S, 1, dr)
+    only. With ``layer_idx`` the cache is layer-stacked and takes the
+    token at (layer_idx, b, lengths[b]) (`stacked_cache_update`), else it
+    is one layer's (`cache_update`). Under V1 the write is in place and
+    the given tensors come back; V2's blend returns new ones.
+
+    The reference takes f32 results from storage-dtype operands; here the
+    operands are cast to f32 before each product, as in
+    `decode_attention` (bf16 weights cast every step: PERF.md §5).
+    """
+    b = x.shape[0]
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    rank = cfg.kv_lora_rank
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_expand(
+        params, cfg, x, lengths[:, None])
+    if layer_idx is not None:
+        ckv_full = stacked_cache_update(
+            cache["c_kv"][..., None, :], c_kv[..., None, :], lengths,
+            layer_idx, cfg.kv_variant)[..., 0, :]
+        rope_full = stacked_cache_update(cache["k_rope"], k_rope, lengths,
+                                         layer_idx, cfg.kv_variant)
+        ckv_cache, rope_cache = ckv_full[layer_idx], rope_full[layer_idx]
+    else:
+        ckv_full = ckv_cache = cache_update(
+            cache["c_kv"][..., None, :], c_kv[..., None, :], lengths,
+            cfg.kv_variant)[..., 0, :]
+        rope_full = rope_cache = cache_update(
+            cache["k_rope"], k_rope, lengths, cfg.kv_variant)
+    if Variant(cfg.kv_variant) == Variant.DYNAMIC:    # written in place
+        ckv_full = cache["c_kv"]
+
+    # absorb wk_b into the query: q_eff (B, 1, H, rank), rounded to the
+    # cache's dtype as the reference's
+    wk_b = params["wk_b"].reshape(rank, h, dn).float()
+    q_eff = torch.einsum("bohd,rhd->bohr", q_nope.float(), wk_b)
+    ckv = ckv_cache.float()
+    s_nope = torch.einsum("bohr,bsr->bhs",
+                          q_eff.to(ckv_cache.dtype).float(), ckv)
+    s_rope = torch.einsum("bohd,bsod->bhs", q_rope.float(),
+                          rope_cache.float())
+    scores = (s_nope + s_rope) * (dn + dr) ** -0.5
+    cols = torch.arange(ckv.shape[1], device=x.device)[None, :]
+    ok = cols <= lengths.long()[:, None]
+    p = torch.softmax(scores + torch.where(ok, 0.0, NEG_INF)[:, None, :],
+                      dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", p.to(ckv_cache.dtype).float(), ckv)
+    wv_b = params["wv_b"].reshape(rank, h, dv)
+    out = torch.einsum("bhr,rhv->bhv", ctx.to(wv_b.dtype).float(),
+                       wv_b.float())
+    y = out.reshape(b, 1, h * dv).to(x.dtype) @ params["wo"]
+    return y, {"c_kv": ckv_full, "k_rope": rope_full}

@@ -92,18 +92,25 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: Sequence[int] = ()) -> torch.Tensor:
-    """Rotary embedding on the fly. x (B, S, H, D); positions (B, S).
-
-    M-RoPE (qwen2-vl's (B, 3, S) positions) is not ported: it raises.
-    """
-    if mrope_sections:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP A: the transformer family)")
+    """Rotary embedding on the fly. x (B, S, H, D); positions (B, S), or
+    (B, 3, S) for M-RoPE (qwen2-vl's temporal / height / width triplets),
+    where ``mrope_sections`` splits the D/2 frequency slots over the three
+    axes: each slot takes its position from its section's axis."""
     d = x.shape[-1]
     half = d // 2
     inv = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
                           device=x.device)
-    ang = positions.float()[..., None] * inv              # (B, S, half)
+    if mrope_sections:
+        if positions.dim() != 3 or sum(mrope_sections) != half:
+            raise ValueError(
+                f"M-RoPE needs (B, 3, S) positions and sections summing to "
+                f"{half}: got {tuple(positions.shape)}, {mrope_sections}")
+        sect = torch.as_tensor(np.repeat(np.arange(len(mrope_sections)),
+                                         mrope_sections), device=x.device)
+        pos = positions.float()[:, sect, :]               # (B, half, S)
+        ang = pos.transpose(1, 2) * inv                   # (B, S, half)
+    else:
+        ang = positions.float()[..., None] * inv          # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()

@@ -1,0 +1,250 @@
+"""Mixture-of-Experts with the paper's three dispatch variants (PyTorch port
+of ``repro.models.moe``).
+
+Token -> expert dispatch is the LM-scale instance of the paper's taxonomy;
+one routing decision runs as
+
+  V1 DYNAMIC — scatter/gather: each (token, k) assignment goes to the flat
+      slot expert * capacity + rank (``index_copy_``); results come back
+      with a gather. A dropped assignment goes to one extra dump row, which
+      several may write; that row is never read (the gather reads zeros
+      for it).
+  V2 CNN     — GShard-style one-hot dispatch/combine einsums per group of
+      `group_size` tokens: routing is a {0,1} (groups, tokens, experts,
+      capacity) tensor and token movement is a product.
+  V3 SPARSE  — block-structured: tokens are slotted as in V1, in blocks of
+      8 rows, each block owned by one expert. The reference gathers each
+      block's expert weights (an (NB, d, f) copy per weight: 58 GB in bf16
+      at granite-moe's (4, 2048) scoring shape). An expert's blocks are
+      contiguous, so here the block products of one expert run as one
+      ``bmm`` over the (E, capacity, d) view of its blocks: the same
+      products row by row, with no weight copy. In this port V3 therefore
+      computes what V1 computes; the variants differ in the reference's
+      weight gather only.
+
+With the same capacity all three give the same output up to rounding.
+Routing (f32 softmax, top-k, capacity ranking by cumsum) is shared. These
+are plain PyTorch ops: the reference computes them outside any kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.config import Variant
+from repro_torch.models import common
+from repro_torch.models.common import dense_init
+
+def moe_params(cfg: ModelConfig, dtype, gen, device, lead=()) -> Dict:
+    """Router (f32 in every dtype), experts (E_eff, d, f) incl. the dead
+    padding, and the shared experts' SwiGLU; ``lead`` stacks layers."""
+    d, f = cfg.d_model, cfg.moe_d_ff
+    e = cfg.n_experts_eff
+    lead = tuple(lead)
+    p = {
+        "router": dense_init(lead + (d, cfg.n_experts), torch.float32, gen,
+                             device),
+        "wi_gate": dense_init(lead + (e, d, f), dtype, gen, device),
+        "wi_up": dense_init(lead + (e, d, f), dtype, gen, device),
+        "wo": dense_init(lead + (e, f, d), dtype, gen, device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = common.mlp_params(
+            d, cfg.moe_d_ff * cfg.n_shared_experts, dtype, gen, device, lead)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Routing (shared by all variants)
+# ---------------------------------------------------------------------------
+
+
+def route(cfg: ModelConfig, router_w: torch.Tensor, x_flat: torch.Tensor):
+    """x_flat (T, d) -> (weights (T, k) f32, idx (T, k), aux losses)."""
+    logits = x_flat.float() @ router_w                      # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, cfg.n_experts_per_tok, dim=-1)
+    w = w / w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+
+    # Aux: load balance (Switch) + router z-loss.
+    e = cfg.n_experts
+    onehot_any = F.one_hot(idx, e).float().sum(dim=1)
+    frac_tokens = onehot_any.mean(dim=0)                    # (E,)
+    frac_probs = probs.mean(dim=0)
+    lb_loss = e * (frac_tokens * frac_probs).sum()
+    z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    return w, idx, {"moe_lb_loss": lb_loss,
+                    "moe_z_loss": cfg.router_z_loss * z_loss}
+
+
+def _capacity(n_tokens: int, k: int, factor: float, n_experts: int) -> int:
+    return int(max(8, ((n_tokens * k * factor / n_experts) // 8 + 1) * 8))
+
+
+def _cumsum_tokens(oh: torch.Tensor, block: int = 256) -> torch.Tensor:
+    """Inclusive cumsum of oh (..., T, n) over its tokens, in blocks of
+    ``block`` tokens plus the earlier blocks' totals: the same integers.
+    On the card one scan along 8,192 tokens of 40 columns runs a thread
+    a column, nearly serially (tools/moe_rank_scan.py times both)."""
+    t, n = oh.shape[-2:]
+    if t <= block or t % block:
+        return oh.cumsum(dim=-2)
+    blocks = oh.reshape(oh.shape[:-2] + (t // block, block, n)).cumsum(-2)
+    totals = blocks[..., -1:, :]
+    earlier = totals.cumsum(dim=-3) - totals
+    return (blocks + earlier).reshape(oh.shape)
+
+
+def _rank(idx: torch.Tensor, n: int, cap: int):
+    """Ranks of idx (..., T, k) in their experts' queues, k-major (all
+    first choices before second ones), then by token: (rank, keep) of
+    idx's shape, keep = rank < cap; the queues count kept ones only."""
+    count = torch.zeros(idx.shape[:-2] + (1, n), dtype=torch.int64,
+                        device=idx.device)
+    ranks, keeps = [], []
+    for kk in range(idx.shape[-1]):
+        oh = F.one_hot(idx[..., kk], n)                    # (..., T, n)
+        r = _cumsum_tokens(oh) - oh + count
+        rank_k = (r * oh).sum(dim=-1)
+        keep_k = rank_k < cap
+        ranks.append(rank_k)
+        keeps.append(keep_k)
+        count = count + (oh * keep_k[..., None]).sum(dim=-2, keepdim=True)
+    return torch.stack(ranks, dim=-1), torch.stack(keeps, dim=-1)
+
+
+def capacity_and_rank(cfg: ModelConfig, idx: torch.Tensor, n_tokens: int,
+                      ) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """(capacity, rank (T, k), keep (T, k) bool): a fixed, data-independent
+    priority, k-major then token order."""
+    e, k = cfg.n_experts, cfg.n_experts_per_tok
+    cap = _capacity(n_tokens, k, cfg.capacity_factor, e)
+    rank, keep = _rank(idx, e, cap)
+    return cap, rank, keep
+
+
+# ---------------------------------------------------------------------------
+# Expert FFN (shared)
+# ---------------------------------------------------------------------------
+
+
+def _expert_ffn(params: Dict, xe: torch.Tensor) -> torch.Tensor:
+    """xe (E, C, d) -> (E, C, d), per-expert SwiGLU as batched products."""
+    gate = F.silu(torch.bmm(xe, params["wi_gate"]))
+    up = torch.bmm(xe, params["wi_up"])
+    return torch.bmm(gate * up, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# V1 — dynamic scatter/gather; V3 — the same slots in blocks of 8 rows
+# ---------------------------------------------------------------------------
+
+
+def _slots(cfg, x_flat, idx, cap, rank, keep):
+    """(dest (T*k,), the (E_eff*cap, d) slotted tokens): each kept
+    assignment at idx * cap + rank; dropped ones at the dump row
+    E_eff*cap, which is cut off (several may write it)."""
+    e, k = cfg.n_experts_eff, cfg.n_experts_per_tok
+    dump = e * cap
+    dest = torch.where(keep, idx * cap + rank, dump).reshape(-1)
+    buf = x_flat.new_zeros((dump + 1, x_flat.shape[1]))
+    buf.index_copy_(0, dest, x_flat.repeat_interleave(k, dim=0))
+    return dest, buf[:-1]
+
+
+def _combine(ye, dest, w, t):
+    """Gather each assignment's expert output (zeros for the dump row)
+    and sum them weighted: (T, d)."""
+    ye = torch.cat([ye, ye.new_zeros((1, ye.shape[1]))])
+    gathered = ye[dest].reshape(t, w.shape[1], -1)
+    return (gathered * w[..., None].to(gathered.dtype)).sum(dim=1)
+
+
+def _dispatch_dynamic(cfg, params, x_flat, w, idx, cap, rank, keep):
+    t, d = x_flat.shape
+    e = cfg.n_experts_eff
+    dest, slotted = _slots(cfg, x_flat, idx, cap, rank, keep)
+    ye = _expert_ffn(params, slotted.reshape(e, cap, d))
+    return _combine(ye.reshape(e * cap, d), dest, w, t)
+
+
+def _dispatch_blocked(cfg, params, x_flat, w, idx, cap, rank, keep):
+    """V3: the slotted rows in blocks of 8 (cap is a multiple of 8),
+    block i owned by expert i // (cap // 8). One expert's blocks
+    share its weights, so their products run as one bmm over the
+    (E, cap, d) view of its blocks, not on a gathered (NB, d, f) copy of
+    the weights (module doc): here the same products as V1's."""
+    return _dispatch_dynamic(cfg, params, x_flat, w, idx, cap, rank, keep)
+
+
+# ---------------------------------------------------------------------------
+# V2 — one-hot einsum dispatch (GShard / full-CNN)
+# ---------------------------------------------------------------------------
+
+
+def group_size(cfg: ModelConfig, n_tokens: int) -> int:
+    """Dispatch groups bound the O(T_g * E * C) one-hot overhead."""
+    g = 256
+    while n_tokens % g:
+        g //= 2
+    return max(g, 1)
+
+
+def _dispatch_onehot(cfg, params, x_flat, w, idx):
+    t, d = x_flat.shape
+    e, k = cfg.n_experts_eff, cfg.n_experts_per_tok
+    tg = group_size(cfg, t)
+    g = t // tg
+    # capacity per group and per real expert (dead padding gets empty
+    # slots); ranks recomputed within each group
+    cap_g = _capacity(tg, k, cfg.capacity_factor, cfg.n_experts)
+    idx_g = idx.reshape(g, tg, k)
+    rank_g, keep_g = _rank(idx_g, e, cap_g)              # (G, Tg, k)
+
+    act = x_flat.dtype
+    oh_e = F.one_hot(idx_g, e).to(act)                   # (G, Tg, k, E)
+    # a dropped rank is >= cap_g: its row is zeroed by keep
+    oh_c = (F.one_hot(rank_g.clamp(max=cap_g - 1), cap_g).to(act)
+            * keep_g[..., None].to(act))                 # (G, Tg, k, C)
+    disp = torch.einsum("gtke,gtkc->gtec", oh_e, oh_c)   # 0/1
+    wsum = torch.einsum("gtke,gtk->gte", oh_e, w.reshape(g, tg, k).to(act))
+    comb = disp * wsum[..., None]
+
+    xe = torch.einsum("gtec,gtd->gecd", disp, x_flat.reshape(g, tg, d))
+    # every group's slots of one expert in one bmm: (E, G*C, d)
+    ye = _expert_ffn(params, xe.transpose(0, 1).reshape(e, g * cap_g, d))
+    ye = ye.reshape(e, g, cap_g, d).transpose(0, 1)      # (G, E, C, d)
+    return torch.einsum("gtec,gecd->gtd", comb, ye).reshape(t, d)
+
+
+# ---------------------------------------------------------------------------
+
+
+def moe_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+              ) -> Tuple[torch.Tensor, Dict]:
+    """x (B, S, d) -> (B, S, d), aux losses. Variant from cfg.moe_variant
+    (V1, V2 or V3; AUTO is the ultrasound planner's and raises)."""
+    variant = Variant(cfg.moe_variant)
+    if not variant.concrete:
+        raise ValueError(
+            f"moe_variant must be concrete (got {cfg.moe_variant!r}); "
+            "Variant.AUTO is resolved by the ultrasound planner only")
+    b, s, d = x.shape
+    x_flat = x.reshape(b * s, d)
+    w, idx, aux = route(cfg, params["router"], x_flat)
+
+    if variant == Variant.CNN:
+        y = _dispatch_onehot(cfg, params, x_flat, w, idx)
+    else:
+        cap, rank, keep = capacity_and_rank(cfg, idx, b * s)
+        dispatch = (_dispatch_dynamic if variant == Variant.DYNAMIC
+                    else _dispatch_blocked)
+        y = dispatch(cfg, params, x_flat, w, idx, cap, rank, keep)
+
+    if cfg.n_shared_experts:
+        y = y + common.mlp_apply(params["shared"], x_flat)
+    return y.reshape(b, s, d), aux

@@ -4,9 +4,11 @@
 tree with numpy leaves (``jax.tree.map(np.asarray, params)``) and returns
 the port's nested dict of tensors. The two trees have the same keys and
 shapes, the stacked ``layers/*``, ``enc_layers/*`` and ``dec_layers/*``
-leading axes, ``shared_attn`` and the ``q_norm``/``k_norm`` leaves
-included; every key and shape is checked against the port's own layout,
-and a bf16 leaf (numpy's ml_dtypes bfloat16) keeps its bits.
+leading axes, ``shared_attn``, the ``q_norm``/``k_norm`` leaves, the
+``moe/*`` leaves (an f32 router in every dtype, experts (E_eff, d, f)
+with the dead padding, ``shared``) and MLA's ``attn/*`` leaves
+included; every key, shape and dtype is checked against the port's own
+layout, and a bf16 leaf (numpy's ml_dtypes bfloat16) keeps its bits.
 """
 
 from __future__ import annotations

@@ -1,11 +1,13 @@
-"""Decoder-only transformer LM, dense family: qwen3-8b, granite-3-8b,
-llama3-405b, gemma3-1b (5:1 local:global).
+"""Decoder-only transformer LM: dense, MoE (incl. MLA) and VLM backbones.
 
-The port of the reference's ``repro.models.transformer`` for dense
-models. Per-layer parameters are stacked on a leading layer axis, as in
-the reference; the trunk runs as a Python loop over the layers. The
-layer's kind (gemma3's local or global) is a 0-d tensor on the device,
-and so are its window (``torch.where(is_local, sliding_window, 0)``, the
+Covers qwen3-8b, granite-3-8b, llama3-405b, gemma3-1b (5:1
+local:global), qwen2-vl-2b (M-RoPE and the vision-embedding stub),
+granite-moe-3b-a800m and deepseek-v2-236b (MLA + 160-expert MoE): the
+port of the reference's ``repro.models.transformer``. Per-layer
+parameters are stacked on a leading layer axis, as in the reference;
+the trunk runs as a Python loop over the layers. The layer's kind
+(gemma3's local or global) is a 0-d tensor on the device, and so are
+its window (``torch.where(is_local, sliding_window, 0)``, the
 reference's traced ``jnp.where``) and its rope base: nothing about a
 layer is read back to the host.
 
@@ -14,8 +16,10 @@ kernel here, even with ``use_flash_kernel`` set: the reference's
 condition wants a Python int 0, and its scanned layers pass a traced
 array (ROADMAP C). The port keeps that condition.
 
-MoE, MLA and the VLM's M-RoPE frontend are not ported (ROADMAP A.2):
-`models.api` refuses those families.
+A layer takes MLA (`attention.mla_attention`, `mla_decode`) under
+``use_mla`` and an MoE block (`models.moe`, dispatch by ``moe_variant``)
+where the config has experts; `forward` averages the MoE losses over
+the layers (zeros for a dense model, as the reference's).
 `decode_step` writes each layer's token into the stacked cache in place
 (the V2 blend builds new tensors, copied back) and returns it.
 """
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, moe
 from repro_torch.models.common import dtype_of
 
 
@@ -38,10 +42,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
     layers = {
         "ln1": common.rmsnorm_params(cfg.d_model, dtype, device, lead),
         "ln2": common.rmsnorm_params(cfg.d_model, dtype, device, lead),
-        "attn": attention.attn_params(cfg, dtype, gen, device, lead),
-        "mlp": common.mlp_params(cfg.d_model, cfg.d_ff, dtype, gen, device,
-                                 lead),
+        "attn": (attention.mla_params if cfg.use_mla
+                 else attention.attn_params)(cfg, dtype, gen, device, lead),
     }
+    if cfg.n_experts:
+        layers["moe"] = moe.moe_params(cfg, dtype, gen, device, lead)
+    else:
+        layers["mlp"] = common.mlp_params(cfg.d_model, cfg.d_ff, dtype, gen,
+                                          device, lead)
     return {
         "embed": common.embed_params(cfg, dtype, gen, device),
         "layers": layers,
@@ -79,72 +87,119 @@ def _embed_scale(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 def embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict
                  ) -> torch.Tensor:
-    """Token embeddings (the VLM's modality override is not ported)."""
-    return _embed_scale(cfg, common.embed_tokens(params["embed"],
-                                                 batch["tokens"]))
+    """Token embeddings; with a frontend (the VLM's stub) the batch's
+    precomputed ``embeds`` replace them where ``embed_mask`` is 1."""
+    h = common.embed_tokens(params["embed"], batch["tokens"])
+    if cfg.frontend != "none" and "embeds" in batch:
+        m = batch["embed_mask"][..., None].to(h.dtype)
+        h = h * (1.0 - m) + batch["embeds"].to(h.dtype) * m
+    return _embed_scale(cfg, h)
+
+
+def _positions(cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+    """The batch's ``positions`` where it has them, else 0..S-1 per row,
+    broadcast to (B, 3, S) under M-RoPE."""
+    if "positions" in batch:
+        return batch["positions"]
+    pos = common.positions_of(batch["tokens"])
+    if cfg.mrope_sections:
+        pos = pos[:, None, :].expand(-1, 3, -1)
+    return pos
+
+
+def _ffn(lp: Dict, cfg: ModelConfig, x: torch.Tensor):
+    """(the layer's MLP or MoE output, its MoE losses or None)."""
+    if cfg.n_experts:
+        return moe.moe_apply(lp["moe"], cfg, x)
+    return common.mlp_apply(lp["mlp"], x), None
 
 
 def _block(lp: Dict, cfg: ModelConfig, h, positions, is_local, window,
            return_kv: bool = False):
-    res = attention.gqa_attention(lp["attn"], cfg,
-                                  common.rmsnorm(lp["ln1"], h), positions,
-                                  window=window, is_local=is_local,
-                                  return_kv=return_kv)
+    a_in = common.rmsnorm(lp["ln1"], h)
+    if cfg.use_mla:
+        res = attention.mla_attention(lp["attn"], cfg, a_in, positions,
+                                      return_kv=return_kv)
+    else:
+        res = attention.gqa_attention(lp["attn"], cfg, a_in, positions,
+                                      window=window, is_local=is_local,
+                                      return_kv=return_kv)
     a_out, kv = res if return_kv else (res, None)
     h = h + a_out
-    h = h + common.mlp_apply(lp["mlp"], common.rmsnorm(lp["ln2"], h))
-    return h, kv
+    f_out, aux = _ffn(lp, cfg, common.rmsnorm(lp["ln2"], h))
+    return h + f_out, kv, aux
 
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict
             ) -> Tuple[torch.Tensor, Dict]:
-    """-> (hidden (B, S, D), aux {}: a dense model has no MoE losses)."""
+    """-> (hidden (B, S, D), {"moe_lb_loss", "moe_z_loss"}: f32 scalars
+    averaged over the layers, zeros without experts)."""
     h = embed_inputs(params, cfg, batch)
-    positions = common.positions_of(batch["tokens"])
+    positions = _positions(cfg, batch)
     is_local, window = _kinds(cfg, h.device)
+    lb = torch.zeros((), dtype=torch.float32, device=h.device)
+    z = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
-        h, _ = _block(common.layer(params["layers"], i), cfg, h, positions,
-                      is_local[i], window[i])
-    return common.rmsnorm(params["final_norm"], h), {}
+        h, _, aux = _block(common.layer(params["layers"], i), cfg, h,
+                           positions, is_local[i], window[i])
+        if aux is not None:
+            lb = lb + aux["moe_lb_loss"]
+            z = z + aux["moe_z_loss"]
+    denom = max(cfg.n_layers, 1)
+    return common.rmsnorm(params["final_norm"], h), {
+        "moe_lb_loss": lb / denom, "moe_z_loss": z / denom}
 
 
 def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):
-    h, _ = forward(params, cfg, batch)
+    """xent + 0.01 * load-balance loss + z-loss, and the three terms."""
+    h, aux = forward(params, cfg, batch)
     logits = common.logits_from_hidden(params["embed"], cfg, h)
     xent = common.softmax_xent(logits, batch["labels"],
                                batch.get("loss_mask"))
-    return xent, {"xent": xent}
+    loss = xent + 0.01 * aux["moe_lb_loss"] + aux["moe_z_loss"]
+    return loss, {"xent": xent, **aux}
 
 
 def prefill(params: Dict, cfg: ModelConfig, batch: Dict):
     """Fill the cache from a full prompt: (last-position logits (B, 1, V)
-    f32, {"k", "v"} of (L, B, S, hkv, dh))."""
+    f32, the stacked cache: {"k", "v"} of (L, B, S, hkv, dh), or under
+    MLA {"c_kv" (L, B, S, rank), "k_rope" (L, B, S, 1, dr)})."""
     h = embed_inputs(params, cfg, batch)
-    positions = common.positions_of(batch["tokens"])
+    positions = _positions(cfg, batch)
     is_local, window = _kinds(cfg, h.device)
-    ks, vs = [], []
+    kvs = []
     for i in range(cfg.n_layers):
-        h, (k, v) = _block(common.layer(params["layers"], i), cfg, h,
-                           positions, is_local[i], window[i],
-                           return_kv=True)
-        ks.append(k)
-        vs.append(v)
+        h, kv, _ = _block(common.layer(params["layers"], i), cfg, h,
+                          positions, is_local[i], window[i],
+                          return_kv=True)
+        kvs.append(kv)
     h = common.rmsnorm(params["final_norm"], h)
     logits = common.logits_from_hidden(params["embed"], cfg, h[:, -1:])
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    names = ("c_kv", "k_rope") if cfg.use_mla else ("k", "v")
+    return logits, {name: torch.stack([kv[j] for kv in kvs])
+                    for j, name in enumerate(names)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
     dtype = dtype_of(cfg.compute_dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    lead = (cfg.n_layers, batch, max_len)
+    if cfg.use_mla:
+        shapes = {"c_kv": lead + (cfg.kv_lora_rank,),
+                  "k_rope": lead + (1, cfg.qk_rope_head_dim)}
+    else:
+        kv = lead + (cfg.n_kv_heads, cfg.head_dim)
+        shapes = {"k": kv, "v": kv}
+    return {k: torch.zeros(shape, dtype=dtype, device=device)
+            for k, shape in shapes.items()}
 
 
 def cache_specs(cfg: ModelConfig, *, seq_sharded: bool = False) -> Dict:
     """Logical axes of the cache's leaves, as the reference's; with
     ``seq_sharded`` the sequence axis is named "seq" (`_grow_cache`)."""
     seq_ax = "seq" if seq_sharded else None
+    if cfg.use_mla:
+        return {"c_kv": (None, "batch", seq_ax, None),
+                "k_rope": (None, "batch", seq_ax, None, None)}
     return {"k": (None, "batch", seq_ax, "kv_heads", None),
             "v": (None, "batch", seq_ax, "kv_heads", None)}
 
@@ -153,19 +208,25 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Dict, lengths: torch.Tensor):
     """One decode step. tokens (B, 1); lengths (B,) write positions.
     Each layer writes its token into the stacked cache
-    (`attention.gqa_decode_stacked`) and attends to its slice. Returns
-    (logits (B, 1, V) f32, cache), the cache updated in place."""
+    (`attention.gqa_decode_stacked`, or `mla_decode` under MLA) and
+    attends to its slice. Returns (logits (B, 1, V) f32, cache), the
+    cache updated in place."""
     h = _embed_scale(cfg, common.embed_tokens(params["embed"], tokens))
     is_local, window = _kinds(cfg, h.device)
     kv = cache
     for i in range(cfg.n_layers):
         lp = common.layer(params["layers"], i)
-        a_out, kv = attention.gqa_decode_stacked(
-            lp["attn"], cfg, common.rmsnorm(lp["ln1"], h), kv, lengths, i,
-            window=window[i], is_local=is_local[i])
+        a_in = common.rmsnorm(lp["ln1"], h)
+        if cfg.use_mla:
+            a_out, kv = attention.mla_decode(lp["attn"], cfg, a_in, kv,
+                                             lengths, layer_idx=i)
+        else:
+            a_out, kv = attention.gqa_decode_stacked(
+                lp["attn"], cfg, a_in, kv, lengths, i, window=window[i],
+                is_local=is_local[i])
         h = h + a_out
-        h = h + common.mlp_apply(lp["mlp"], common.rmsnorm(lp["ln2"], h))
-    for key in ("k", "v"):
+        h = h + _ffn(lp, cfg, common.rmsnorm(lp["ln2"], h))[0]
+    for key in cache:
         if kv[key] is not cache[key]:        # the CNN variant's new tensor
             cache[key].copy_(kv[key])
     h = common.rmsnorm(params["final_norm"], h)

@@ -656,6 +656,93 @@ def test_lm_family_smoke_on_card_matches_cpu(cuda, arch, kernel):
     assert stats["peak_memory_bytes"] > 0
 
 
+def _card_tree(tree, cuda):
+    return {k: _card_tree(v, cuda) if isinstance(v, dict) else v.to(cuda)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v2-236b",
+                                  "qwen2-vl-2b"])
+def test_moe_mla_vlm_smoke_on_card_matches_cpu(cuda, arch):
+    """The MoE (V2), MLA and VLM smoke models with both kernel flags set,
+    in f32: forward on the family's own batch (qwen2-vl: patch embeddings
+    and M-RoPE triplets), prefill and four decode steps under both
+    KV-cache variants, against the CPU; no flash or SSD launch (the
+    transformer's window is a tensor, MLA attends by chunks); the greedy
+    tokens of serve_session equal the CPU's."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.config import Variant
+    from repro_torch.data import synth_train_batch
+    from repro_torch.launch.serve import _grow_cache, serve_session
+    from repro_torch.models import get_model
+
+    cfg = get_smoke(arch, use_flash_kernel=True, use_ssd_kernel=True)
+    params = get_model(cfg, device="cpu").init_params(0)
+    cparams = _card_tree(params, cuda)
+    batch = synth_train_batch(cfg, 2, 40, seed=7)
+    kernels.reset_launch_counts()
+    h, aux = get_model(cfg, device=cuda).forward(
+        cparams, _card_tree(batch, cuda))
+    ref, ref_aux = get_model(cfg, device="cpu").forward(params, batch)
+    torch.testing.assert_close(h.cpu(), ref, rtol=1e-4, atol=1e-4)
+    for name, v in aux.items():
+        torch.testing.assert_close(v.cpu(), ref_aux[name], rtol=1e-4,
+                                   atol=1e-6)
+
+    tokens = batch["tokens"]
+    for kv in ("dynamic", "cnn"):
+        kcfg = cfg.with_(kv_variant=Variant(kv))
+        outs = []
+        for dev in ("cpu", cuda):
+            model = get_model(kcfg, device=dev)
+            p = params if dev == "cpu" else cparams
+            logits, cache = model.prefill(
+                p, {"tokens": tokens[:, :32].to(dev)})
+            cache = _grow_cache(model, cache, 37)
+            steps = [logits.cpu()]
+            lengths = torch.full((2,), 32, dtype=torch.int32, device=dev)
+            for t in range(4):
+                logits, cache = model.decode_step(
+                    p, tokens[:, 32 + t:33 + t].to(dev), cache, lengths)
+                steps.append(logits.cpu())
+                lengths = lengths + 1
+            outs.append(steps)
+        for got, want in zip(outs[1], outs[0]):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 0 == counts["ssd_scan"]
+
+    kw = dict(requests=4, batch=2, prompt_len=24, max_new=6)
+    got, stats = serve_session(cfg, params=cparams, device=cuda, **kw)
+    np.testing.assert_array_equal(
+        got, serve_session(cfg, params=params, device="cpu", **kw)[0])
+    assert stats["peak_memory_bytes"] > 0
+
+
+def test_moe_variants_on_card_agree(cuda):
+    """granite-moe's MoE block on the card with ample capacity (factor 8):
+    V1, V2 and V3 agree with each other and with the CPU."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.config import Variant
+    from repro_torch.models import moe
+
+    cfg = get_smoke("granite-moe-3b-a800m", capacity_factor=8.0)
+    gen = torch.Generator().manual_seed(3)
+    params = moe.moe_params(cfg, torch.float32, gen, "cpu")
+    x = 0.5 * torch.randn(2, 64, cfg.d_model, generator=gen)
+    cparams = _card_tree(params, cuda)
+    outs = {}
+    for v in ("dynamic", "cnn", "sparse"):
+        vcfg = cfg.with_(moe_variant=Variant(v))
+        outs[v] = moe.moe_apply(cparams, vcfg, x.to(cuda))[0].cpu()
+        torch.testing.assert_close(outs[v], moe.moe_apply(params, vcfg, x)[0],
+                                   rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(outs["cnn"], outs["dynamic"], rtol=1e-4,
+                               atol=1e-5)
+    torch.testing.assert_close(outs["sparse"], outs["dynamic"], rtol=1e-4,
+                               atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # The serving path: pinned staging, the copy stream, CUDA-graph replay and
 # the multi-tenant scheduler

@@ -172,10 +172,17 @@ def test_apply_rope_matches_reference():
 
 
 def test_apply_rope_refuses_mrope():
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
+    """M-RoPE is ported (tests/test_torch_mla_vlm.py); what the reference
+    asserts against is refused: (B, S) positions, or sections that do not
+    split D/2."""
+    with pytest.raises(ValueError, match="M-RoPE"):
+        common.apply_rope(torch.zeros(1, 2, 1, 8),
+                          torch.zeros(1, 2, dtype=torch.int32), 1e4,
+                          (1, 1, 2))
+    with pytest.raises(ValueError, match="M-RoPE"):
         common.apply_rope(torch.zeros(1, 2, 1, 8),
                           torch.zeros(1, 3, 2, dtype=torch.int32), 1e4,
-                          (1, 1, 2))
+                          (1, 1, 1))
 
 
 def test_softplus_is_jax_softplus():
