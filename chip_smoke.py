@@ -107,6 +107,27 @@ last line):
                against forward's (gemma3 also at prompt 640, where its
                local window bites; the MoE models at a capacity with no
                drops, deepseek-v2 at depth 2; qwen2-vl on tokens only);
+   8b. products — the attention products without autograd:
+               `f32_product` of bf16 operands against the f32-cast
+               product, and the device memory one decode attention
+               (gemma3's and zamba2's served caches) and one MLA decode
+               (deepseek-v2's widths) allocate, below the size of the
+               cache or absorbed weights that a copy would take;
+  8c. train  — `init_train_state` + `make_train_step` at full width and
+               depth in bf16, remat as configured, TokenDataset batches
+               at (4, 2048), in the training loop's deterministic mode:
+               mamba2-130m, zamba2-1.2b and gemma3-1b (required), then
+               qwen2-vl-2b, seamless-m4t-large-v2 and granite-moe-3b-
+               a800m (V2) where they fit (out of memory: 2 microbatches,
+               then (2, 2048); each line prints its cut): one warm and 3
+               timed steps (CUDA events and host clock), tok/s, peak
+               memory, loss and grad norm, no kernel launched; on
+               mamba2-130m the loss falling on a repeated batch, and
+               `train_loop` cut at step 3 and resumed (`run_resilient`)
+               against the uncut run, the step-2 and step-4 checkpoints
+               bit for bit; both kernels refusing a gradient on the
+               card; one gemma3-1b train step under torch.profiler
+               (`[lm split]`);
   9. launches — how many CUDA launches one call of each multi-launch
                kernel makes, and the device time of each (torch.profiler,
                after every timed phase): the fused spans at the paper's
@@ -124,6 +145,7 @@ Needs only this checkout (it puts src/ on sys.path) and imports no JAX.
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -175,8 +197,16 @@ from repro_torch.launch.serve import (SyntheticAcquisitionSource,  # noqa: E402
                                       _grow_cache, serve_session,
                                       serve_ultrasound_sharded,
                                       serve_ultrasound_stream)
-from repro_torch.models import get_model  # noqa: E402
-from repro_torch.models.common import logits_from_hidden  # noqa: E402
+from repro_torch.checkpoint import latest_step  # noqa: E402
+from repro_torch.configs import TrainConfig  # noqa: E402
+from repro_torch.data.tokens import TokenDataset  # noqa: E402
+from repro_torch.launch.train import train_loop  # noqa: E402
+from repro_torch.models import attention, get_model  # noqa: E402
+from repro_torch.models.common import (f32_product,  # noqa: E402
+                                       logits_from_hidden)
+from repro_torch.runtime.fault_tolerance import run_resilient  # noqa: E402
+from repro_torch.train.steps import (deterministic_algorithms,  # noqa: E402
+                                     init_train_state, make_train_step)
 from repro_torch.models.hybrid import n_attn_invocations  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM rate, f32 rate outside the tensor cores,
@@ -272,6 +302,16 @@ OUTPUT_RUNS = ((ARCH, 256, {}), ("mamba2-130m", 256, {}),
                 dict(capacity_factor=no_drop("deepseek-v2-236b"),
                      n_layers=2)),
                ("qwen2-vl-2b", 256, {}))
+# the [train] phase: full width and depth in bf16, remat as configured,
+# TokenDataset batches at the scoring shape; the first three must fit,
+# the rest run where they do. A model out of memory runs again with 2
+# microbatches at the same global batch, then at (2, 2048).
+TRAIN_REQUIRED = ("mamba2-130m", "zamba2-1.2b", "gemma3-1b")
+TRAIN_OPTIONAL = ("qwen2-vl-2b", "seamless-m4t-large-v2",
+                  "granite-moe-3b-a800m")
+TRAIN_CUTS = ((1, SCORE_SHAPE), (2, SCORE_SHAPE), (1, (2, 2048)))
+TRAIN_TIMED = 3            # timed steps after one warm step
+TRAIN_CHECK_ARCH = "mamba2-130m"
 FLASH_TOL = (2e-4, 2e-5)   # rtol, atol: test_torch_lm_kernels / _gpu
 SSD_TOL = (2e-4, 2e-4)
 LOGITS_TOL = 2e-3          # rtol = atol, tests/test_decode_consistency.py
@@ -1817,6 +1857,263 @@ def phase_lm_outputs() -> None:
         lm_outputs(arch, prompt, overrides)
 
 
+def phase_products() -> None:
+    """Storage-dtype attention products (no grad): `f32_product` of bf16
+    operands against the f32-cast product at gemma3's decode scores, and
+    the device memory that one decode attention (gemma3's and zamba2's
+    served caches) and one MLA decode (deepseek-v2's widths) allocate,
+    against the size of the cache or the absorbed weights that an f32 or
+    bf16 copy would take."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    gemma, zamba = get_config("gemma3-1b"), get_config(ARCH)
+    length = PROMPT_LEN + MAX_NEW + 1
+    for cfg in (gemma, zamba):
+        hkv, dh = cfg.n_kv_heads, cfg.head_dim
+        k, v = (torch.randn(LM_BATCH, length, hkv, dh, generator=g,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        q = torch.randn(LM_BATCH, 1, cfg.n_heads, dh, generator=g,
+                        device=dev).to(torch.bfloat16)
+        if cfg is gemma:
+            qg = q.reshape(LM_BATCH, cfg.n_heads, dh)    # one KV head
+            kt = k[:, :, 0].transpose(1, 2)
+            with torch.no_grad():
+                got = f32_product(qg, kt)
+            err, scale = max_err(got, torch.bmm(qg.float(), kt.float()))
+            say(f"[products] f32_product, bf16 operands at {cfg.name}'s "
+                f"decode scores {tuple(qg.shape)} x {tuple(kt.shape)}: "
+                f"max|d| {err:.3e} against the f32-cast product (max "
+                f"{scale:.3e})")
+            check(got.dtype == torch.float32 and err <= 1e-5 * scale,
+                  "f32_product disagrees with the f32-cast product")
+        lengths = torch.full((LM_BATCH,), length - 1, dtype=torch.int32,
+                             device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            attention.decode_attention(q, k, v, lengths)
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated() - base
+        size = k.numel() * k.element_size()
+        say(f"[products] decode_attention at {cfg.name}'s served cache "
+            f"{tuple(k.shape)} bf16: allocates {grown / 1e6:.3f} MB, one "
+            f"cache {size / 1e6:.3f} MB")
+        check(grown < size, f"decode_attention copies the cache ({grown} B)")
+        del k, v, q
+
+    cfg = get_config("deepseek-v2-236b", n_layers=1)
+    params = attention.mla_params(cfg, torch.bfloat16, g, dev)
+    cache = {"c_kv": torch.randn(LM_BATCH, length, cfg.kv_lora_rank,
+                                 generator=g, device=dev).to(torch.bfloat16),
+             "k_rope": torch.randn(LM_BATCH, length, 1, cfg.qk_rope_head_dim,
+                                   generator=g, device=dev).to(
+                                       torch.bfloat16)}
+    x = torch.randn(LM_BATCH, 1, cfg.d_model, generator=g, device=dev).to(
+        torch.bfloat16)
+    lengths = torch.full((LM_BATCH,), length - 1, dtype=torch.int32,
+                         device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        attention.mla_decode(params, cfg, x, cache, lengths)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    weights = sum(params[k].numel() * 2 for k in ("wk_b", "wv_b"))
+    say(f"[products] mla_decode at {cfg.name}'s widths, cache "
+        f"{tuple(cache['c_kv'].shape)} bf16: allocates {grown / 1e6:.3f} MB, "
+        f"the absorbed weights {weights / 1e6:.3f} MB in bf16")
+    check(grown < weights, f"mla_decode copies its weights ({grown} B)")
+    del params, cache, x
+    torch.cuda.empty_cache()
+
+
+def _on_card(batch: dict, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def train_timed(cfg, name, microbatches, shape) -> None:
+    """One warm step and TRAIN_TIMED timed steps of ``cfg`` (random
+    weights from seed 0, TokenDataset batches at ``shape``), under the
+    training loop's deterministic mode: each step's device time (CUDA
+    events) and host time, tok/s, peak memory, loss and grad norm (all
+    finite), and no kernel launched. Raises OutOfMemoryError where it
+    does not fit."""
+    dev = torch.device("cuda")
+    model = get_model(cfg)
+    tcfg = TrainConfig(microbatches=microbatches)
+    data = TokenDataset(cfg, *shape, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, 0)
+    train_step = make_train_step(model, tcfg)
+    kernels.reset_launch_counts()
+    dev_ms, host_ms, losses, norms = [], [], [], []
+    with deterministic_algorithms():
+        for step in range(1, TRAIN_TIMED + 2):
+            batch = _on_card(data.batch_for_step(step), dev)
+            torch.cuda.synchronize()
+            s, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            s.record()
+            state, metrics = train_step(state, batch)
+            e.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(s.elapsed_time(e))
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernels.launch_counts()
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    del state, batch
+    toks = shape[0] * shape[1]
+    timed = dev_ms[1:]
+    cut = (f"batch {shape}" + (f", {microbatches} microbatches of "
+                               f"{shape[0] // microbatches}"
+                               if microbatches > 1 else ""))
+    launched = {k: n for k, n in counts.items() if n}
+    say(f"[train] {name} {cfg.param_dtype}, {n_params / 1e9:.3f} B "
+        f"parameters, remat "
+        f"{cfg.remat_policy if cfg.remat else 'off'}, {cut}: warm step "
+        f"{dev_ms[0]:.3f} ms; steps " + ", ".join(f"{t:.3f}" for t in timed)
+        + f" ms (CUDA events; host {', '.join(f'{t:.3f}' for t in host_ms[1:])}"
+        f" ms) = {toks / np.mean(timed) * 1e3:.0f} tok/s; peak_mem="
+        f"{peak / 1e6:.1f} MB; loss " + ", ".join(f"{x:.4f}" for x in losses)
+        + "; grad_norm " + ", ".join(f"{x:.4f}" for x in norms)
+        + f"; kernels launched: {launched or 'none'}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"{name}: non-finite loss or grad norm")
+    check(not launched, f"{name}: training launched {launched}")
+
+
+def train_model(arch, required: bool) -> None:
+    """`train_timed` at the first cut of TRAIN_CUTS that fits."""
+    cfg, name = lm_config(arch)
+    for microbatches, shape in TRAIN_CUTS:
+        try:
+            train_timed(cfg, name, microbatches, shape)
+            return
+        except torch.cuda.OutOfMemoryError:
+            say(f"[train] {name}: out of memory at batch {shape} with "
+                f"{microbatches} microbatch(es)")
+        finally:
+            torch.cuda.empty_cache()
+    check(not required, f"{name} does not fit one card for training")
+    say(f"[train] {name}: does not fit one card at any cut")
+
+
+def train_checks(arch) -> None:
+    """At full width and depth (bf16, remat): the loss on one repeated
+    batch falls within 5 steps at warmup 1 (tests/test_arch_smoke.py's
+    check); `train_loop` run 4 steps uncut, and again cut by a failure at
+    step 3 and resumed from its step-2 checkpoint by `run_resilient`:
+    both runs' step-2 checkpoints (two fresh 2-step runs) and step-4
+    checkpoints (cut and resumed against uncut) are equal bit for bit,
+    parameters and moments."""
+    dev = torch.device("cuda")
+    cfg, name = lm_config(arch)
+    shape = (4, 512)
+    model = get_model(cfg)
+    state = init_train_state(model, 0)
+    train_step = make_train_step(model, TrainConfig(
+        learning_rate=1e-3, warmup_steps=1, total_steps=10))
+    batch = _on_card(TokenDataset(cfg, *shape, seed=0).batch_for_step(0),
+                     dev)
+    losses = []
+    with deterministic_algorithms():
+        for _ in range(5):
+            state, metrics = train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+    say(f"[train] {name} at {shape}, one batch repeated, warmup 1, lr "
+        f"1e-3: loss " + ", ".join(f"{x:.4f}" for x in losses))
+    check(losses[-1] < losses[0], f"{name}: the loss does not fall")
+    del state, batch, metrics
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"train_smoke_{os.getpid()}")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10,
+                       checkpoint_every=2, seed=5)
+    t0 = time.perf_counter()
+    try:
+        uncut = []
+        train_loop(cfg, tcfg, batch=shape[0], seq=shape[1], steps=4,
+                   ckpt_dir=os.path.join(root, "uncut"), metrics_out=uncut,
+                   log_every=100)
+        attempts, cut = [], []
+
+        def attempt():
+            attempts.append(1)
+            train_loop(cfg, tcfg, batch=shape[0], seq=shape[1], steps=4,
+                       ckpt_dir=os.path.join(root, "cut"), metrics_out=cut,
+                       fail_at_step=3 if len(attempts) == 1 else None,
+                       log_every=100)
+
+        restarts = run_resilient(attempt, max_restarts=1)
+        check(restarts == 1 and latest_step(os.path.join(root, "cut")) == 4,
+              f"{name}: the cut run did not resume to step 4")
+        for step in (2, 4):
+            files = [np.load(os.path.join(root, d, f"step_{step:08d}.npz"))
+                     for d in ("uncut", "cut")]
+            keys = files[0].files
+            check(keys == files[1].files, f"{name}: checkpoint keys differ")
+            differ = [k for k in keys
+                      if not np.array_equal(files[0][k], files[1][k])]
+            what = ("two fresh 2-step runs" if step == 2
+                    else "cut at 3 and resumed from 2, against uncut")
+            say(f"[train] {name} at {shape}, train_loop: {what}: "
+                f"{len(keys)} arrays of the step-{step} checkpoints, "
+                f"{len(differ)} differ")
+            check(not differ, f"{name}: step {step} differs: {differ[:4]}")
+        check(cut == uncut, f"{name}: the metrics of the resumed run differ")
+        say(f"[train] {name}: loss " + ", ".join(
+            f"{m['loss']:.4f}" for m in uncut) + " in both runs; "
+            f"the loop checks took {time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_train() -> None:
+    """The [train] phase (after phase 8): TRAIN_REQUIRED then
+    TRAIN_OPTIONAL through `train_model`; the checks on TRAIN_CHECK_ARCH
+    (`train_checks`); the kernels refusing a gradient on the card; and
+    one gemma3-1b train step under torch.profiler (`[lm split]`)."""
+    for arch in TRAIN_REQUIRED:
+        train_model(arch, required=True)
+    for arch in TRAIN_OPTIONAL:
+        train_model(arch, required=False)
+    train_checks(TRAIN_CHECK_ARCH)
+
+    (q, k, v), args, chunk = lm_kernel_inputs(
+        (1, 128, 4, 4, 64), (1, 128, 4, 64, 64))
+    for kname, fn, grad_arg in (
+            ("flash_attention", lambda: flash_attention(q, k, v), q),
+            ("ssd_scan", lambda: ssd_scan(*args, chunk=chunk), args[1])):
+        grad_arg.requires_grad_()
+        try:
+            fn()
+            check(False, f"{kname} ran under autograd on the card")
+        except ValueError as exc:
+            say(f"[train] {kname} under autograd on the card raises: {exc}")
+        grad_arg.requires_grad_(False)
+    del q, k, v, args
+
+    dev = torch.device("cuda")
+    cfg, name = lm_config("gemma3-1b")
+    model = get_model(cfg)
+    state = init_train_state(model, 0)
+    train_step = make_train_step(model, TrainConfig())
+    batch = _on_card(TokenDataset(cfg, *SCORE_SHAPE).batch_for_step(1), dev)
+    with deterministic_algorithms():
+        device_split(f"{name} train step at {SCORE_SHAPE} (remat "
+                     f"{cfg.remat_policy})",
+                     lambda: train_step(state, batch))
+    del state, batch
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # constants are built afresh: the disk tier is on only in its own
@@ -1845,6 +2142,8 @@ def main() -> None:
     launches.update(phase_lm_models())
     phase_moe_variants()
     phase_lm_outputs()
+    phase_products()
+    phase_train()
     phase_launches()
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": [

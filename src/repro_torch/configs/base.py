@@ -1,11 +1,12 @@
 """Model configuration for the LM half (PyTorch port).
 
-The port's own copy of the reference's ``ModelConfig``, cut to the fields
-the ported families read (dense transformer, ssm, hybrid, enc-dec), with
-the same names, defaults and meaning, so one config reads the same in
-both packages: every family of the reference (dense, MoE with MLA, the
-VLM's M-RoPE, ssm, hybrid, enc-dec). The sharding-only fields
-(``attn_batch_fallback``) and remat have no counterpart here.
+The port's own copies of the reference's ``ModelConfig`` and
+``TrainConfig``, with the same names, defaults and meaning, so one config
+reads the same in both packages: every family of the reference (dense,
+MoE with MLA, the VLM's M-RoPE, ssm, hybrid, enc-dec). The sharding-only
+field ``attn_batch_fallback`` has no counterpart here; ``TrainConfig``'s
+``zero1`` and ``grad_compression`` are read by nothing on one card, as by
+the reference's train step.
 """
 
 from __future__ import annotations
@@ -81,6 +82,11 @@ class ModelConfig:
     # numerics / execution -----------------------------------------------
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    remat: bool = True
+    # "nothing": recompute everything (min memory, +33% flops)
+    # "dots":    save the outputs of the matmuls without batch dims
+    #            (elementwise recomputed), at more live-activation memory
+    remat_policy: str = "nothing"
     use_flash_kernel: bool = False         # CUDA flash attention (opt-in)
     use_ssd_kernel: bool = False           # CUDA SSD scan (opt-in)
     kv_variant: Variant = Variant.DYNAMIC  # KV-cache update (paper V1/V2)
@@ -98,3 +104,20 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1        # gradient accumulation
+    zero1: bool = True           # shard optimizer state over data axis
+    grad_compression: bool = False  # int8 all-reduce of the gradients
+    checkpoint_every: int = 100
+    seed: int = 0

@@ -4,8 +4,8 @@ MLA kv_lora=512, 2 shared + 160 routed experts top-6. [arXiv:2405.04434; hf]
 MLA: low-rank compressed KV (c_kv rank 512 + a decoupled 64-dim rope
 key); decode runs with absorbed weights in the compressed space, so the
 cache stays (S, 512 + 64) per layer whatever the 128 heads. The same
-numbers as the reference's ``repro/configs/deepseek_v2_236b.py``,
-without ``remat``. At full depth the bf16 weights take about 475 GB, so
+numbers as the reference's ``repro/configs/deepseek_v2_236b.py``.
+At full depth the bf16 weights take about 475 GB, so
 one card runs it at full width with fewer layers.
 """
 
@@ -41,4 +41,5 @@ def smoke() -> ModelConfig:
         qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
         d_ff=64, moe_d_ff=64, n_experts=8, n_experts_per_tok=2,
         n_shared_experts=1, vocab_size=256,
-        param_dtype="float32", compute_dtype="float32")
+        param_dtype="float32", compute_dtype="float32",
+        remat=False)

@@ -3,7 +3,7 @@ vocab=262144; 5:1 local:global attention, 128k. [hf:google/gemma-3-1b-pt]
 
 Local layers use a 512-token sliding window with rope base 10k; global
 layers use full attention with rope base 1M. The same numbers as the
-reference's ``repro/configs/gemma3_1b.py``, without ``remat``.
+reference's ``repro/configs/gemma3_1b.py``.
 """
 
 from repro_torch.configs.base import ModelConfig
@@ -33,4 +33,5 @@ def smoke() -> ModelConfig:
     return config().with_(
         n_layers=6, d_model=64, n_heads=4, n_kv_heads=1, d_head=16,
         d_ff=128, vocab_size=512, sliding_window=8,
-        param_dtype="float32", compute_dtype="float32")
+        param_dtype="float32", compute_dtype="float32",
+        remat=False)

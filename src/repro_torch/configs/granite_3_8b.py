@@ -1,8 +1,7 @@
 """granite-3-8b [dense]: 40L d_model=4096 32H (GQA kv=8) d_ff=12800
 vocab=49155. [hf:ibm-granite family]
 
-The same numbers as the reference's ``repro/configs/granite_3_8b.py``,
-without ``remat``.
+The same numbers as the reference's ``repro/configs/granite_3_8b.py``.
 """
 
 from repro_torch.configs.base import ModelConfig
@@ -27,4 +26,5 @@ def smoke() -> ModelConfig:
     return config().with_(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
         d_ff=128, vocab_size=256, param_dtype="float32",
-        compute_dtype="float32")
+        compute_dtype="float32",
+        remat=False)

@@ -4,8 +4,8 @@ vocab=49155, MoE 40 experts top-8. [hf:ibm-granite family; hf]
 The MoE dispatch is the paper's taxonomy applied at LM scale: the default
 variant is V2 (one-hot einsum); V1 and V3 are selectable
 (``moe_variant``). The same numbers as the reference's
-``repro/configs/granite_moe_3b_a800m.py``, without ``attn_batch_fallback``
-and ``remat``; the 8 dead experts (40 -> 48) are kept, so the weights
+``repro/configs/granite_moe_3b_a800m.py``, without ``attn_batch_fallback``;
+the 8 dead experts (40 -> 48) are kept, so the weights
 have the reference's shapes.
 """
 
@@ -34,4 +34,5 @@ def smoke() -> ModelConfig:
     return config().with_(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
         d_ff=64, moe_d_ff=64, n_experts=8, n_experts_per_tok=2,
-        vocab_size=256, param_dtype="float32", compute_dtype="float32")
+        vocab_size=256, param_dtype="float32", compute_dtype="float32",
+        remat=False)

@@ -1,8 +1,7 @@
 """mamba2-130m [ssm]: 24L d_model=768, attention-free, vocab=50280,
 ssm_state=128, SSD (state-space duality). [arXiv:2405.21060]
 
-The same numbers as the reference's ``repro/configs/mamba2_130m.py``;
-the smoke config leaves out ``remat``, which the port does not have.
+The same numbers as the reference's ``repro/configs/mamba2_130m.py``.
 """
 
 from repro_torch.configs.base import ModelConfig
@@ -29,4 +28,5 @@ def config() -> ModelConfig:
 def smoke() -> ModelConfig:
     return config().with_(
         n_layers=2, d_model=64, ssm_state=16, ssm_head_dim=16, ssm_chunk=16,
-        vocab_size=256, param_dtype="float32", compute_dtype="float32")
+        vocab_size=256, param_dtype="float32", compute_dtype="float32",
+        remat=False)

@@ -4,7 +4,7 @@ vocab=151936; M-RoPE, dynamic resolution. [arXiv:2409.12191; hf]
 The vision frontend is a stub, as in the reference: a batch carries
 precomputed patch embeddings, an embed mask and (B, 3, S) M-RoPE
 position triplets (temporal / height / width). The same numbers as the
-reference's ``repro/configs/qwen2_vl_2b.py``, without ``remat``.
+reference's ``repro/configs/qwen2_vl_2b.py``.
 """
 
 from repro_torch.configs.base import ModelConfig
@@ -32,4 +32,5 @@ def smoke() -> ModelConfig:
     return config().with_(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
         d_ff=128, vocab_size=256, mrope_sections=(2, 3, 3),
-        param_dtype="float32", compute_dtype="float32")
+        param_dtype="float32", compute_dtype="float32",
+        remat=False)

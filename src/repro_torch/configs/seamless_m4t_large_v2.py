@@ -4,8 +4,7 @@ d_ff=8192 vocab=256206. [arXiv:2308.11596]
 24 encoder layers + 24 decoder layers (the published speech-encoder /
 text-decoder split). The audio frontend is a stub: the encoder consumes
 precomputed frame embeddings (``enc_embeds``). The same numbers as the
-reference's ``repro/configs/seamless_m4t_large_v2.py``, without
-``remat``.
+reference's ``repro/configs/seamless_m4t_large_v2.py``.
 """
 
 from repro_torch.configs.base import ModelConfig
@@ -32,4 +31,5 @@ def smoke() -> ModelConfig:
     return config().with_(
         n_layers=2, n_enc_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
         d_ff=128, vocab_size=256, param_dtype="float32",
-        compute_dtype="float32")
+        compute_dtype="float32",
+        remat=False)

@@ -3,9 +3,7 @@ ssm_state=64; Mamba2 trunk + shared attention block. [arXiv:2411.15242; hf]
 
 The single shared attention block (weights reused) runs after every 6th
 Mamba2 layer; each invocation keeps its own KV cache slot. The same
-numbers as the reference's ``repro/configs/zamba2_1p2b.py``; the smoke
-config leaves out ``remat``, which the port does not have (it trains
-nothing yet).
+numbers as the reference's ``repro/configs/zamba2_1p2b.py``.
 """
 
 from repro_torch.configs.base import ModelConfig
@@ -33,4 +31,5 @@ def smoke() -> ModelConfig:
     return config().with_(
         n_layers=5, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
         ssm_state=16, ssm_head_dim=16, ssm_chunk=16, shared_attn_every=2,
-        vocab_size=256, param_dtype="float32", compute_dtype="float32")
+        vocab_size=256, param_dtype="float32", compute_dtype="float32",
+        remat=False)

@@ -135,3 +135,18 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would need a gradient through a kernel.
+
+    The kernels fill their outputs through ctypes, so a backward would
+    drop those gradients without an error; the reference has no backward
+    for its Pallas kernels either, and trains with both kernel flags off
+    (ROADMAP queue C). Both devices refuse alike: on the CPU the plain
+    version could differentiate, and the two would disagree."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{what} has no backward (nor has the reference's Pallas "
+            "kernel; ROADMAP queue C): train with use_flash_kernel and "
+            "use_ssd_kernel off, or call it under torch.no_grad()")

@@ -38,8 +38,10 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
       (batch, Lq, n_q_heads, d), dtype of ``q``. A CPU ``q`` runs the
       plain version (``flash_attention_ref``); a CUDA ``q`` launches the
       kernel or raises. The kernel takes head dims that are multiples of
-      16, up to 256.
+      16, up to 256. Under autograd with an input that requires grad it
+      raises on either device (`cuda_lib.refuse_grad`).
     """
+    cuda_lib.refuse_grad("flash_attention", q, k, v)
     b, lq, hq, d = q.shape
     _, lk, hkv, _ = k.shape
     if hq % hkv or tuple(v.shape) != tuple(k.shape) or k.shape[0] != b \

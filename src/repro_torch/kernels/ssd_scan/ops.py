@@ -41,8 +41,11 @@ def ssd_scan(log_a, x, b, c, *, chunk: int = DEFAULT_CHUNK):
     Returns:
       y (batch, L, H, P), dtype of ``x``. A CPU ``x`` runs the plain step
       recurrence (``ssd_scan_ref``); a CUDA ``x`` launches the kernel or
-      raises (a state width N at which no chunk fits, for one).
+      raises (a state width N at which no chunk fits, for one). Under
+      autograd with an input that requires grad it raises on either
+      device (`cuda_lib.refuse_grad`).
     """
+    cuda_lib.refuse_grad("ssd_scan", log_a, x, b, c)
     bsz, length, heads, p = x.shape
     n = b.shape[-1]
     want = (bsz, length, n)

@@ -19,8 +19,12 @@ picked on the device as the reference's traced ``jnp.where``); a tensor
 is never read back to the host. Only an int 0 takes the flash kernel.
 
 Storage-dtype operands with f32 accumulation, as the reference's
-``preferred_element_type=f32``: the port casts the operands to f32 before
-the product, which is exact for bf16 inputs (their products fit f32).
+``preferred_element_type=f32``: every attention product goes through
+`common.f32_product`, which on the card without autograd reads bf16
+operands as they are, and otherwise casts them to f32 (exact for bf16
+inputs: their products fit f32). Decode reads the caches through
+strided views (`common.grouped_product`), so no copy of a cache is
+made, in either dtype.
 """
 
 from __future__ import annotations
@@ -121,29 +125,35 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       ) -> torch.Tensor:
     """(B,S,H,dh) x (B,Sk,Hkv,dh)^2 -> (B,S,H,dh); scores per query block.
 
-    GQA groups the query heads as (Hkv, rep); no KV is repeated.
+    GQA groups the query heads as (Hkv, rep); no KV is repeated. K and V
+    are laid out once per call as (B*Hkv, Sk, dh) in their own dtype, so
+    each block's scores and output are one `common.f32_product` each.
     """
     b, s, h, dh = q.shape
     _, sk, hkv, _ = k.shape
     rep = h // hkv
     scale = dh ** -0.5
     bq = min(chunk, s)
-    kt = k.float().permute(0, 2, 1, 3)                 # (B, Hkv, Sk, dh)
-    vt = v.permute(0, 2, 1, 3)
-    qg = q.reshape(b, s, hkv, rep, dh).permute(0, 2, 3, 1, 4)
-    out = q.new_empty((b, hkv, rep, s, dh), dtype=torch.float32)
+    kt = k.transpose(1, 2).reshape(b * hkv, sk, dh).transpose(1, 2)
+    vt = v.transpose(1, 2).reshape(b * hkv, sk, dh)
+    qg = q.reshape(b, s, hkv, rep, dh)
+    out = q.new_empty((b, s, hkv, rep, dh), dtype=torch.float32)
     for q0 in range(0, s, bq):
         n = min(bq, s - q0)
-        s_blk = torch.einsum("bgrqd,bgkd->bgrqk",
-                             qg[:, :, :, q0:q0 + n].float(), kt) * scale
+        q_blk = qg[:, q0:q0 + n].permute(0, 2, 1, 3, 4).reshape(
+            b * hkv, n * rep, dh)                      # rows (query, rep)
+        s_blk = common.f32_product(q_blk, kt).reshape(
+            b, hkv, n, rep, sk) * scale
         if softcap > 0.0:
             s_blk = torch.tanh(s_blk / softcap) * softcap
         bias = _chunk_bias(q0, n, sk, causal=causal, window=window,
                            device=q.device)
-        p = torch.softmax(s_blk + bias, dim=-1)
-        out[:, :, :, q0:q0 + n] = torch.einsum(
-            "bgrqk,bgkd->bgrqd", p.to(vt.dtype).float(), vt.float())
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+        p = torch.softmax(s_blk + bias[:, None, :], dim=-1)
+        o_blk = common.f32_product(
+            p.to(v.dtype).reshape(b * hkv, n * rep, sk), vt)
+        out[:, q0:q0 + n] = o_blk.reshape(b, hkv, n, rep, dh).permute(
+            0, 2, 1, 3, 4)
+    return out.reshape(b, s, h, dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -215,14 +225,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q (B,1,H,dh); caches (B,S,Hkv,dh); lengths (B,) current position.
 
     Attends to cols <= lengths[b] (the new token was just written there).
+    The caches are read in their storage dtype through strided views
+    (`common.grouped_product`): no copy of them is made.
     """
     b, _, h, dh = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     rep = h // hkv
     scale = dh ** -0.5
     qg = q.reshape(b, hkv, rep, dh)
-    scores = torch.einsum("bgrd,bsgd->bgrs", qg.float(),
-                          k_cache.float()) * scale
+    scores = common.grouped_product(
+        qg, k_cache.permute(0, 2, 3, 1)) * scale       # (B, Hkv, rep, S)
     if softcap > 0.0:
         scores = torch.tanh(scores / softcap) * softcap
     cols = torch.arange(s, device=q.device)[None, :]
@@ -230,8 +242,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ok = (cols <= lens) & _window_mask(cols, lens, window)
     scores = scores + torch.where(ok, 0.0, NEG_INF)[:, None, None, :]
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bgrs,bsgd->bgrd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
+    out = common.grouped_product(p.to(v_cache.dtype),
+                                 v_cache.permute(0, 2, 1, 3))
     return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
@@ -389,9 +401,9 @@ def mla_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     is one layer's (`cache_update`). Under V1 the write is in place and
     the given tensors come back; V2's blend returns new ones.
 
-    The reference takes f32 results from storage-dtype operands; here the
-    operands are cast to f32 before each product, as in
-    `decode_attention` (bf16 weights cast every step: PERF.md §5).
+    Storage-dtype operands with f32 results, as the reference's
+    (`common.f32_product`): neither the cache nor the absorbed weights
+    are copied.
     """
     b = x.shape[0]
     h = cfg.n_heads
@@ -415,23 +427,25 @@ def mla_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     if Variant(cfg.kv_variant) == Variant.DYNAMIC:    # written in place
         ckv_full = cache["c_kv"]
 
-    # absorb wk_b into the query: q_eff (B, 1, H, rank), rounded to the
-    # cache's dtype as the reference's
-    wk_b = params["wk_b"].reshape(rank, h, dn).float()
-    q_eff = torch.einsum("bohd,rhd->bohr", q_nope.float(), wk_b)
-    ckv = ckv_cache.float()
-    s_nope = torch.einsum("bohr,bsr->bhs",
-                          q_eff.to(ckv_cache.dtype).float(), ckv)
-    s_rope = torch.einsum("bohd,bsod->bhs", q_rope.float(),
-                          rope_cache.float())
+    # absorb wk_b into the query: q_eff (H, B, rank), rounded to the
+    # cache's dtype as the reference's; one product per head on views of
+    # the weights (no copy of them), one per slot on views of the cache
+    wk_b = params["wk_b"].reshape(rank, h, dn)
+    q_eff = common.f32_product(q_nope[:, 0].transpose(0, 1),
+                               wk_b.permute(1, 2, 0))
+    s_nope = common.f32_product(q_eff.transpose(0, 1).to(ckv_cache.dtype),
+                                ckv_cache.transpose(1, 2))     # (B, H, S)
+    s_rope = common.f32_product(q_rope[:, 0],
+                                rope_cache[:, :, 0].transpose(1, 2))
     scores = (s_nope + s_rope) * (dn + dr) ** -0.5
-    cols = torch.arange(ckv.shape[1], device=x.device)[None, :]
+    cols = torch.arange(ckv_cache.shape[1], device=x.device)[None, :]
     ok = cols <= lengths.long()[:, None]
     p = torch.softmax(scores + torch.where(ok, 0.0, NEG_INF)[:, None, :],
                       dim=-1)
-    ctx = torch.einsum("bhs,bsr->bhr", p.to(ckv_cache.dtype).float(), ckv)
+    ctx = common.f32_product(p.to(ckv_cache.dtype), ckv_cache)  # (B,H,r)
     wv_b = params["wv_b"].reshape(rank, h, dv)
-    out = torch.einsum("bhr,rhv->bhv", ctx.to(wv_b.dtype).float(),
-                       wv_b.float())
+    out = common.f32_product(ctx.to(wv_b.dtype).transpose(0, 1),
+                             wv_b.transpose(0, 1))             # (H, B, dv)
+    out = out.transpose(0, 1)
     y = out.reshape(b, 1, h * dv).to(x.dtype) @ params["wo"]
     return y, {"c_kv": ckv_full, "k_rope": rope_full}

@@ -1,10 +1,12 @@
-"""Shared building blocks of the LM half: init, norm, RoPE, MLP, embedding.
+"""Shared building blocks of the LM half: init, norm, RoPE, MLP, embedding,
+storage-dtype products with f32 sums, and remat.
 
 Parameters are plain nested dicts of tensors, laid out as the reference's
 pytrees (per-layer leaves stacked on a leading layer axis), so a JAX
 parameter tree carries over leaf by leaf (`models.params`). The
-reference's sharding constraints and remat have no counterpart here: on
-one device without a mesh they do nothing in the reference either.
+reference's sharding constraints have no counterpart here: on one device
+without a mesh they do nothing in the reference either. Its
+``jax.checkpoint`` of a layer body is `remat`.
 
 Numerics follow the reference: `rmsnorm` and `apply_rope` compute in
 float32 and return the input's dtype; logits are float32.
@@ -12,11 +14,13 @@ float32 and return the input's dtype; logits are float32.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import functools
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -54,6 +58,79 @@ def layer(layers: Dict, i: int) -> Dict:
     axis: views, so a write into a leaf writes the stacked tensor."""
     return {k: (layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in layers.items()}
+
+
+def unstacked(layers: Dict, n: int) -> List[Dict]:
+    """The ``n`` layers of a stacked parameter tree, each leaf unbound
+    once: views, whose backward stacks the layer gradients once (a
+    select per layer would allocate a zero stack per layer and leaf)."""
+    per_leaf = {k: (unstacked(v, n) if isinstance(v, dict)
+                    else torch.unbind(v)) for k, v in layers.items()}
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
+def remat(cfg: ModelConfig, body: Callable) -> Callable:
+    """``body`` recomputed in the backward (the reference's
+    ``jax.checkpoint``) when ``cfg.remat`` and autograd is on; else
+    ``body`` itself. "nothing" saves only the body's inputs; "dots" also
+    the outputs of the products without batch dims (``x @ W``: ``mm``),
+    as ``dots_with_no_batch_dims_saveable``."""
+    if not cfg.remat:
+        return body
+    context_fn = (functools.partial(
+        torch_checkpoint.create_selective_checkpoint_contexts,
+        _save_products) if cfg.remat_policy == "dots"
+        else torch_checkpoint.noop_context_fn)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return torch_checkpoint.checkpoint(body, *args, use_reentrant=False,
+                                           context_fn=context_fn)
+    return wrapped
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# ---------------------------------------------------------------------------
+# Products: storage-dtype operands, f32 sums
+# ---------------------------------------------------------------------------
+
+
+def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (N, m, k) @ b (N, k, n) -> f32 (N, m, n), the reference's
+    storage-dtype operands with ``preferred_element_type=f32``.
+
+    bf16 or f16 operands on CUDA with autograd off: ``torch.bmm(...,
+    out_dtype=torch.float32)``, which reads the operands as they are (a
+    strided view is read in place where cuBLAS can). Otherwise the
+    operands are cast to f32 first: ``aten::bmm.dtype`` has no derivative
+    and no CPU kernel. Both give the same products, since a bf16 or f16
+    product is exact in f32; only the order of the sums differs.
+    """
+    if (a.is_cuda and a.dtype == b.dtype
+            and a.dtype in (torch.bfloat16, torch.float16)
+            and not (torch.is_grad_enabled()
+                     and (a.requires_grad or b.requires_grad))):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def grouped_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (B, G, m, k) @ b (B, G, k, n) -> f32 (B, G, m, n) by
+    `f32_product`, one product per index of the shorter of the two
+    leading axes. Each (B or G)-slice of a view keeps one batch stride,
+    so a strided view of a cache (B, S, G, d) is read in place: folding
+    (B, G) into one batch axis would copy it."""
+    if a.shape[1] <= a.shape[0]:
+        return torch.stack([f32_product(a[:, g], b[:, g])
+                            for g in range(a.shape[1])], dim=1)
+    return torch.stack([f32_product(a[i], b[i])
+                        for i in range(a.shape[0])], dim=0)
 
 
 def positions_of(tokens: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ self-attention takes the CUDA flash kernel where the config sets
 ``use_flash_kernel`` (the reference's condition: a Python-int window 0,
 no cross KV); its cross-attention runs chunked against the encoder's
 K/V. Per-layer parameters are stacked on leading layer axes
-(``enc_layers``, ``dec_layers``) and run as Python loops.
+(``enc_layers``, ``dec_layers``) and run as Python loops, each layer's
+body under `common.remat` where the reference checkpoints it.
 
 Serving: `prefill` encodes, computes the cross K/V once and consumes a
 BOS token through `decode_step`, so the cache it returns is ready to
@@ -63,15 +64,24 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
 
 def encode(params: Dict, cfg: ModelConfig, enc_embeds: torch.Tensor
            ) -> torch.Tensor:
-    """(B, S_enc, D) precomputed frame embeddings -> encoder states."""
-    h = enc_embeds
+    """(B, S_enc, D) precomputed frame embeddings -> encoder states.
+
+    The frames enter in the compute dtype (``synth_train_batch`` makes
+    them so; ``TokenDataset``'s are f32, which the reference's encoder
+    meets by promoting its bf16 products to f32: ROADMAP C)."""
+    h = enc_embeds.to(dtype_of(cfg.compute_dtype))
     positions = common.positions_of(h)
-    for i in range(cfg.n_enc_layers):
-        lp = common.layer(params["enc_layers"], i)
-        h = h + attention.gqa_attention(
-            lp["attn"], cfg, common.rmsnorm(lp["ln1"], h), positions,
+
+    def body(hcur, lp):
+        hcur = hcur + attention.gqa_attention(
+            lp["attn"], cfg, common.rmsnorm(lp["ln1"], hcur), positions,
             causal=False)
-        h = h + common.mlp_apply(lp["mlp"], common.rmsnorm(lp["ln2"], h))
+        return hcur + common.mlp_apply(lp["mlp"],
+                                       common.rmsnorm(lp["ln2"], hcur))
+
+    body = common.remat(cfg, body)
+    for lp in common.unstacked(params["enc_layers"], cfg.n_enc_layers):
+        h = body(h, lp)
     return common.rmsnorm(params["enc_norm"], h)
 
 
@@ -82,10 +92,10 @@ def cross_kv(params: Dict, cfg: ModelConfig, enc_out: torch.Tensor
     b, s, _ = enc_out.shape
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
     xattn = params["dec_layers"]["cross_attn"]
-    ks = [(enc_out @ xattn["wk"][i]).reshape(b, s, hkv, dh)
-          for i in range(cfg.n_layers)]
-    vs = [(enc_out @ xattn["wv"][i]).reshape(b, s, hkv, dh)
-          for i in range(cfg.n_layers)]
+    ks = [(enc_out @ w).reshape(b, s, hkv, dh)
+          for w in torch.unbind(xattn["wk"])]
+    vs = [(enc_out @ w).reshape(b, s, hkv, dh)
+          for w in torch.unbind(xattn["wv"])]
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -98,14 +108,21 @@ def _decoder(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
              xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
     h = common.embed_tokens(params["embed"], tokens)
     positions = common.positions_of(tokens)
-    for i in range(cfg.n_layers):
-        lp = common.layer(params["dec_layers"], i)
-        h = h + attention.gqa_attention(
-            lp["self_attn"], cfg, common.rmsnorm(lp["ln1"], h), positions)
-        h = h + attention.gqa_attention(
-            lp["cross_attn"], cfg, common.rmsnorm(lp["ln_x"], h), positions,
-            cross_kv=(xk[i], xv[i]))
-        h = h + common.mlp_apply(lp["mlp"], common.rmsnorm(lp["ln2"], h))
+
+    def body(hcur, lp, xk_l, xv_l):
+        hcur = hcur + attention.gqa_attention(
+            lp["self_attn"], cfg, common.rmsnorm(lp["ln1"], hcur), positions)
+        hcur = hcur + attention.gqa_attention(
+            lp["cross_attn"], cfg, common.rmsnorm(lp["ln_x"], hcur),
+            positions, cross_kv=(xk_l, xv_l))
+        return hcur + common.mlp_apply(lp["mlp"],
+                                       common.rmsnorm(lp["ln2"], hcur))
+
+    body = common.remat(cfg, body)
+    for lp, xk_l, xv_l in zip(
+            common.unstacked(params["dec_layers"], cfg.n_layers),
+            torch.unbind(xk), torch.unbind(xv)):
+        h = body(h, lp, xk_l, xv_l)
     return common.rmsnorm(params["final_norm"], h)
 
 

@@ -4,7 +4,9 @@ The port of the reference's ``repro.models.hybrid``. One set of attention
 weights runs after every ``shared_attn_every`` Mamba2 layers (6 times
 over zamba2-1.2b's 38 layers); each invocation keeps its own KV cache
 slot. Per-layer parameters are stacked on a leading layer axis, as in
-the reference, and the trunk runs as a Python loop over the layers.
+the reference, and the trunk runs as a Python loop over the layers, each
+Mamba2 layer under `common.remat` (the reference checkpoints those, not
+the shared block).
 
 `decode_step` updates the cache in place and returns it: the Mamba2
 states and the KV rows are written into the stacked tensors the caller
@@ -53,6 +55,20 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
     }
 
 
+def _mamba_layer(cfg: ModelConfig, collect_state: bool = False):
+    """One Mamba2 layer's residual body, under `common.remat` (the
+    reference checkpoints each scanned layer); with ``collect_state`` it
+    also returns the layer's streaming state."""
+    def body(hcur, lp):
+        res = ssm.ssm_apply(lp["ssm"], cfg, common.rmsnorm(lp["ln"], hcur),
+                            return_state=collect_state)
+        if collect_state:
+            return hcur + res[0], res[1]
+        return hcur + res
+
+    return common.remat(cfg, body)
+
+
 def _shared_attn_block(cfg: ModelConfig, shared: Dict, h, positions,
                        return_kv: bool = False):
     a_in = common.rmsnorm(shared["ln1"], h)
@@ -70,11 +86,11 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict
     h = common.embed_tokens(params["embed"], batch["tokens"])
     positions = common.positions_of(batch["tokens"])
     segs = _segments(cfg)
+    layers = common.unstacked(params["layers"], cfg.n_layers)
+    body = _mamba_layer(cfg)
     for i, (st, en) in enumerate(segs):
-        for li in range(st, en):
-            lp = common.layer(params["layers"], li)
-            h = h + ssm.ssm_apply(lp["ssm"], cfg,
-                                  common.rmsnorm(lp["ln"], h))
+        for lp in layers[st:en]:
+            h = body(h, lp)
         if i < len(segs) - 1:
             h = _shared_attn_block(cfg, params["shared_attn"], h, positions)
     return common.rmsnorm(params["final_norm"], h), {}
@@ -118,14 +134,12 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict):
     h = common.embed_tokens(params["embed"], batch["tokens"])
     positions = common.positions_of(batch["tokens"])
     segs = _segments(cfg)
+    layers = common.unstacked(params["layers"], cfg.n_layers)
+    body = _mamba_layer(cfg, collect_state=True)
     convs, states, attn_ks, attn_vs = [], [], [], []
     for i, (st, en) in enumerate(segs):
-        for li in range(st, en):
-            lp = common.layer(params["layers"], li)
-            out, st_l = ssm.ssm_apply(lp["ssm"], cfg,
-                                      common.rmsnorm(lp["ln"], h),
-                                      return_state=True)
-            h = h + out
+        for lp in layers[st:en]:
+            h, st_l = body(h, lp)
             convs.append(st_l["conv"])
             states.append(st_l["ssm"])
         if i < len(segs) - 1:

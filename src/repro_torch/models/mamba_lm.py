@@ -3,7 +3,8 @@
 The port of the reference's ``repro.models.mamba_lm``, on the port's
 Mamba2 block (`models.ssm`). Per-layer parameters are stacked on a
 leading layer axis, as in the reference; the trunk runs as a Python loop
-over the layers. `forward` and `loss_fn` take the CUDA ``ssd_scan``
+over the layers, each layer's body under `common.remat` where the
+reference checkpoints it. `forward` and `loss_fn` take the CUDA ``ssd_scan``
 kernel where the config sets ``use_ssd_kernel``; `prefill` never does,
 because it asks every layer for its final state, which the kernel does
 not return (as the reference, ROADMAP C).
@@ -39,9 +40,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
 def forward(params: Dict, cfg: ModelConfig, batch: Dict
             ) -> Tuple[torch.Tensor, Dict]:
     h = common.embed_tokens(params["embed"], batch["tokens"])
-    for i in range(cfg.n_layers):
-        lp = common.layer(params["layers"], i)
-        h = h + ssm.ssm_apply(lp["ssm"], cfg, common.rmsnorm(lp["ln"], h))
+
+    def body(hcur, lp):
+        return hcur + ssm.ssm_apply(lp["ssm"], cfg,
+                                    common.rmsnorm(lp["ln"], hcur))
+
+    body = common.remat(cfg, body)
+    for lp in common.unstacked(params["layers"], cfg.n_layers):
+        h = body(h, lp)
     return common.rmsnorm(params["final_norm"], h), {}
 
 
@@ -72,13 +78,17 @@ def cache_specs(cfg: ModelConfig, *, seq_sharded: bool = False) -> Dict:
 def prefill(params: Dict, cfg: ModelConfig, batch: Dict):
     """-> (last-position logits (B, 1, V) f32, streaming cache)."""
     h = common.embed_tokens(params["embed"], batch["tokens"])
-    convs, states = [], []
-    for i in range(cfg.n_layers):
-        lp = common.layer(params["layers"], i)
+
+    def body(hcur, lp):
         out, state = ssm.ssm_apply(lp["ssm"], cfg,
-                                   common.rmsnorm(lp["ln"], h),
+                                   common.rmsnorm(lp["ln"], hcur),
                                    return_state=True)
-        h = h + out
+        return hcur + out, state
+
+    body = common.remat(cfg, body)
+    convs, states = [], []
+    for lp in common.unstacked(params["layers"], cfg.n_layers):
+        h, state = body(h, lp)
         convs.append(state["conv"])
         states.append(state["ssm"])
     h = common.rmsnorm(params["final_norm"], h)

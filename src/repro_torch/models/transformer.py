@@ -5,7 +5,8 @@ local:global), qwen2-vl-2b (M-RoPE and the vision-embedding stub),
 granite-moe-3b-a800m and deepseek-v2-236b (MLA + 160-expert MoE): the
 port of the reference's ``repro.models.transformer``. Per-layer
 parameters are stacked on a leading layer axis, as in the reference;
-the trunk runs as a Python loop over the layers. The layer's kind
+the trunk runs as a Python loop over the layers, each layer's body under
+`common.remat` where the reference checkpoints it. The layer's kind
 (gemma3's local or global) is a 0-d tensor on the device, and so are
 its window (``torch.where(is_local, sliding_window, 0)``, the
 reference's traced ``jnp.where``) and its rope base: nothing about a
@@ -139,9 +140,15 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict
     is_local, window = _kinds(cfg, h.device)
     lb = torch.zeros((), dtype=torch.float32, device=h.device)
     z = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(cfg.n_layers):
-        h, _, aux = _block(common.layer(params["layers"], i), cfg, h,
-                           positions, is_local[i], window[i])
+
+    def body(hcur, lp, loc, win):
+        hcur, _, aux = _block(lp, cfg, hcur, positions, loc, win)
+        return hcur, aux
+
+    body = common.remat(cfg, body)
+    layers = common.unstacked(params["layers"], cfg.n_layers)
+    for i, lp in enumerate(layers):
+        h, aux = body(h, lp, is_local[i], window[i])
         if aux is not None:
             lb = lb + aux["moe_lb_loss"]
             z = z + aux["moe_z_loss"]
@@ -167,11 +174,17 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict):
     h = embed_inputs(params, cfg, batch)
     positions = _positions(cfg, batch)
     is_local, window = _kinds(cfg, h.device)
+
+    def body(hcur, lp, loc, win):
+        hcur, kv, _ = _block(lp, cfg, hcur, positions, loc, win,
+                             return_kv=True)
+        return hcur, kv
+
+    body = common.remat(cfg, body)
     kvs = []
-    for i in range(cfg.n_layers):
-        h, kv, _ = _block(common.layer(params["layers"], i), cfg, h,
-                          positions, is_local[i], window[i],
-                          return_kv=True)
+    for i, lp in enumerate(common.unstacked(params["layers"],
+                                            cfg.n_layers)):
+        h, kv = body(h, lp, is_local[i], window[i])
         kvs.append(kv)
     h = common.rmsnorm(params["final_norm"], h)
     logits = common.logits_from_hidden(params["embed"], cfg, h[:, -1:])

@@ -1,1 +1,1 @@
-"""Step builders of the port (serving only so far; training is ROADMAP A)."""
+"""The train, prefill and serve steps of the port."""

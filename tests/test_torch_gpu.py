@@ -21,6 +21,12 @@ atol 2e-5 (online softmax in tiles against one softmax), the SSD scan
 rtol = atol = 2e-4 (chunked against the step recurrence). From bf16
 inputs both compute in f32 and round once to bf16, so they agree within
 one bf16 step (rtol 2**-7).
+
+Training: a smoke train step on the card against the CPU's within 1e-4
+(the moments, loss and grad norm; the parameters off Adam's knee), the
+storage-dtype product ``models.common.f32_product`` against the f32-cast
+product, and decode attention (GQA and MLA) allocating no copy of its
+cache or its absorbed weights.
 """
 
 import numpy as np
@@ -1033,3 +1039,153 @@ def test_scheduler_across_cards_serves_the_lone_frame(cuda, variant):
         for k, out in enumerate(stats["outputs"][spec.stream_id]):
             alone = eager.call_padded(spec.frame_rf(k)[None], 4)
             assert np.array_equal(out, alone[0].cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# Training and the storage-dtype products
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("mamba2-130m", {}), ("zamba2-1.2b", {}), ("gemma3-1b", {}),
+    ("granite-moe-3b-a800m", {}),
+    ("granite-moe-3b-a800m", {"moe_variant": "dynamic"}),
+    ("deepseek-v2-236b", {}), ("qwen2-vl-2b", {}),
+    ("seamless-m4t-large-v2", {"remat": True})])
+def test_train_step_on_card_matches_cpu(cuda, arch, overrides):
+    """One smoke train step (f32) on the card, in the training loop's
+    deterministic mode, against the CPU's: loss, grad norm and the
+    moments within 1e-4; the parameters within 1e-4 off Adam's knee
+    (|clipped g| < 10 eps, where the update is not about sign(g):
+    tests/test_torch_train_models.py); no kernel launched."""
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig, get_smoke
+    from repro_torch.core.config import Variant
+    from repro_torch.data import TokenDataset
+    from repro_torch.models import get_model
+    from repro_torch.train.steps import (deterministic_algorithms,
+                                         init_train_state, make_train_step)
+
+    if "moe_variant" in overrides:
+        overrides = dict(overrides, moe_variant=Variant(
+            overrides["moe_variant"]))
+    cfg = get_smoke(arch, **overrides)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    batch = TokenDataset(cfg, 2, 32, seed=0).batch_for_step(1)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = get_model(cfg, device="cpu")
+        state = init_train_state(model, 0)
+        if dev != "cpu":
+            model = get_model(cfg, device=dev)
+            state = _card_tree(state, dev)
+        kernels.reset_launch_counts()
+        with deterministic_algorithms():
+            state, metrics = make_train_step(model, tcfg)(
+                state, {k: torch.from_numpy(v).to(dev)
+                        for k, v in batch.items()})
+        assert sum(kernels.launch_counts().values()) == 0
+        out[str(dev)] = (tree.map_(lambda t: t.cpu().double(), state),
+                         {k: float(v) for k, v in metrics.items()})
+    (cs, cm), (gs, gm) = out["cpu"], out[str(cuda)]
+    for k in cm:
+        assert abs(gm[k] - cm[k]) <= 1e-4 * max(abs(cm[k]), 1e-3), k
+    for path, ref in tree.items(cs):
+        got = dict(tree.items(gs))[path]
+        keep = torch.ones_like(ref, dtype=torch.bool)
+        if path.startswith("params/"):
+            g = dict(tree.items(cs["opt"]["m"]))[path[7:]] / 0.1
+            keep = ~((g != 0) & (g.abs() < 10 * 1e-8))
+            assert keep.float().mean() > 0.99, path
+        if keep.any():
+            torch.testing.assert_close(got[keep], ref[keep], rtol=1e-4,
+                                       atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_f32_product_matches_the_f32_cast_product(cuda, dtype):
+    """bf16 / f16 operands without autograd take ``torch.bmm(...,
+    out_dtype=float32)``: the same products as the f32-cast product (they
+    are exact in f32), summed in another order; strided views included.
+    Under autograd the cast product runs and gives gradients."""
+    from repro_torch.models.common import f32_product
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(6, 33, 256, generator=g, device=cuda).to(dtype)
+    b = torch.randn(6, 256, 40, generator=g, device=cuda).to(dtype)
+    cache = torch.randn(6, 40, 3, 256, generator=g, device=cuda).to(dtype)
+    for lhs, rhs in ((a, b), (a, cache[:, :, 1].transpose(1, 2)),
+                     (a.transpose(1, 2).contiguous().transpose(1, 2), b)):
+        want = torch.bmm(lhs.float(), rhs.float())
+        with torch.no_grad():
+            got = f32_product(lhs, rhs)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+    a.requires_grad_()
+    out = f32_product(a, b)
+    out.sum().backward()
+    assert a.grad is not None and a.grad.dtype == dtype
+
+
+@pytest.mark.parametrize("b,hkv,rep", [(4, 1, 4), (4, 8, 2), (2, 8, 1)])
+def test_decode_attention_copies_no_cache(cuda, b, hkv, rep):
+    """decode_attention on a bf16 cache under no_grad allocates less than
+    one cache's size (no f32 or bf16 copy of it), whichever of slots and
+    KV heads is shorter, and agrees with float64 attention."""
+    from repro_torch.models.attention import decode_attention
+
+    s, dh = 8192, 128
+    g = torch.Generator(device=cuda).manual_seed(1)
+    k, v = (torch.randn(b, s, hkv, dh, generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    q = torch.randn(b, 1, hkv * rep, dh, generator=g, device=cuda).to(
+        torch.bfloat16)
+    lengths = torch.arange(b, device=cuda, dtype=torch.int32) * 1000 + 4000
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        out = decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert grown < k.numel() * k.element_size(), grown
+    qd = q.double().reshape(b, hkv, rep, dh)
+    scores = torch.einsum("bgrd,bsgd->bgrs", qd, k.double()) * dh ** -0.5
+    cols = torch.arange(s, device=cuda)
+    scores = scores.masked_fill(cols > lengths.long()[:, None, None, None],
+                                float("-inf"))
+    ref = torch.einsum("bgrs,bsgd->bgrd", torch.softmax(scores, -1),
+                       v.double()).reshape(b, 1, hkv * rep, dh)
+    torch.testing.assert_close(out.double(), ref, rtol=2 ** -7, atol=2e-2)
+
+
+def test_mla_decode_copies_no_weights(cuda):
+    """mla_decode under no_grad at deepseek-v2's widths allocates less
+    than its absorbed weights take in bf16, the size of an f32 copy of
+    one of them (the scores, (B, 128 heads, S) in f32, are the largest
+    temporaries)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    from repro_torch.models.common import dtype_of
+
+    cfg = get_config("deepseek-v2-236b", n_layers=1)
+    dtype = dtype_of(cfg.param_dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = attention.mla_params(cfg, dtype, gen, cuda)
+    b, s = 4, 2048
+    cache = {"c_kv": torch.randn(b, s, cfg.kv_lora_rank, device=cuda).to(
+        dtype), "k_rope": torch.randn(b, s, 1, cfg.qk_rope_head_dim,
+                                      device=cuda).to(dtype)}
+    x = torch.randn(b, 1, cfg.d_model, device=cuda).to(dtype)
+    lengths = torch.full((b,), 1500, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        y, _ = attention.mla_decode(params, cfg, x, cache, lengths)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    weights = sum(params[k].numel() * 2 for k in ("wk_b", "wv_b"))
+    assert grown < weights, grown
+    assert bool(torch.isfinite(y).all())
