@@ -128,6 +128,20 @@ last line):
                bit for bit; both kernels refusing a gradient on the
                card; one gemma3-1b train step under torch.profiler
                (`[lm split]`);
+  8d. dist   — every card a rank (NCCL): in this process, world 1:
+               gemma3-1b bf16 at full width and depth, (4, 2048), three
+               steps of the data-parallel step at one rank (ZeRO-1 on,
+               which splits nothing there) against
+               `make_train_step`, parameters, moments and metrics bit
+               for bit (step ms, tok/s, peak memory); the int8
+               compressed mean of the step's gradient tree with a
+               residual on the card against the CPU, bit for bit; with
+               two or more cards, tools/dist_train_scaling.py (its own
+               process) over 1 and all of them: the same at (4, 2048) a
+               card with ZeRO-1 on and off (tok/s, scale efficiency,
+               peak MB a card) and gemma3-1b f32 at a global (2n, 256),
+               one step against one card (its `f32_check`, with the
+               faults it must catch);
   9. launches — how many CUDA launches one call of each multi-launch
                kernel makes, and the device time of each (torch.profiler,
                after every timed phase): the fused spans at the paper's
@@ -208,6 +222,13 @@ from repro_torch.runtime.fault_tolerance import run_resilient  # noqa: E402
 from repro_torch.train.steps import (deterministic_algorithms,  # noqa: E402
                                      init_train_state, make_train_step)
 from repro_torch.models.hybrid import n_attn_invocations  # noqa: E402
+from repro_torch import tree as tree_lib  # noqa: E402
+from repro_torch.checkpoint import host_tree  # noqa: E402
+from repro_torch.launch.mesh import binding_for, make_mesh  # noqa: E402
+from repro_torch.models.api import family_module  # noqa: E402
+from repro_torch.optim.compress import compressed_psum_mean  # noqa: E402
+from repro_torch.runtime.sharding import use_binding  # noqa: E402
+from repro_torch.train.steps import state_blocks  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM rate, f32 rate outside the tensor cores,
 # dense TF32 rate of the tensor cores.
@@ -2114,6 +2135,153 @@ def phase_train() -> None:
     torch.cuda.empty_cache()
 
 
+DIST_ARCH = "gemma3-1b"
+DIST_STEPS = 3             # the first one warm
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dist_world1() -> None:
+    """World 1 of [dist], in this process (NCCL for CUDA tensors, gloo for
+    CPU ones): DIST_STEPS steps (tok/s over all but the first) of the
+    data-parallel step at one rank (ZeRO-1 on: at one rank it splits
+    no moment) against `make_train_step` on DIST_ARCH at
+    full width and depth (bf16, remat, TokenDataset at SCORE_SHAPE,
+    deterministic mode): parameters,
+    moments and metrics bit for bit; then the compressed mean of the
+    step's gradient tree (with a residual) on the card against the same
+    call on the CPU, bit for bit."""
+    import torch.distributed as dist
+    cfg, name = lm_config(DIST_ARCH)
+    model = get_model(cfg)
+    tcfg = TrainConfig()
+    data = TokenDataset(cfg, *SCORE_SHAPE, seed=0)
+    batches = [_on_card(data.batch_for_step(i), torch.device("cuda"))
+               for i in range(1, DIST_STEPS + 1)]
+    with deterministic_algorithms():
+        state = init_train_state(model, 0)
+        step = make_train_step(model, tcfg)
+        plain = []
+        for batch in batches:
+            state, metrics = step(state, batch)
+            plain.append({k: float(v) for k, v in metrics.items()})
+    single = {k: v.to("cpu", copy=True)
+              for k, v in tree_lib.items(state)}
+    del state, step
+    torch.cuda.empty_cache()
+
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        spec = family_module(cfg).init_params(cfg, None,
+                                              torch.device("meta"))
+        blocks = state_blocks(spec, tcfg, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        ms, got = [], []
+        with deterministic_algorithms():
+            state = init_train_state(model, 0, blocks)
+            step = make_train_step(model, tcfg, mesh)
+            for batch in batches:
+                torch.cuda.synchronize()
+                s, e = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                s.record()
+                state, metrics = step(state, batch)
+                e.record()
+                torch.cuda.synchronize()
+                ms.append(s.elapsed_time(e))
+                got.append({k: float(v) for k, v in metrics.items()})
+        peak = torch.cuda.max_memory_allocated()
+        launched = {k: n for k, n in kernels.launch_counts().items() if n}
+        whole = host_tree(state, blocks)
+        differ = [k for k in single if not torch.equal(whole[k], single[k])]
+        tok_s = SCORE_SHAPE[0] * SCORE_SHAPE[1] / np.mean(ms[1:]) * 1e3
+        say(f"[dist] world 1 (NCCL), {name} {cfg.param_dtype}, "
+            f"{SCORE_SHAPE}, one rank (ZeRO-1 on, no moment split at one "
+            f"rank): warm step {ms[0]:.3f} ms; "
+            "steps " + ", ".join(f"{t:.3f}" for t in ms[1:])
+            + " ms (CUDA events) = "
+            f"{tok_s:.0f} tok/s; peak_mem={peak / 1e6:.1f} MB; against "
+            f"make_train_step: {len(single)} arrays of parameters and "
+            f"moments, {len(differ)} differ; metrics "
+            f"{'equal' if got == plain else 'differ'} (loss "
+            + ", ".join(f"{m['loss']:.6f}" for m in got) + "); kernels "
+            f"launched: {launched or 'none'}")
+        check(not launched, f"[dist] launched {launched}")
+        check(not differ, f"[dist] world 1 differs from make_train_step: "
+              f"{differ[:4]}")
+        check(got == plain, f"[dist] world 1 metrics {got} != {plain}")
+        del whole, single
+
+        # the compressed mean of the step's gradient tree, card vs CPU
+        params = state["params"]
+        live = tree_lib.map_(lambda p: p.detach().requires_grad_(), params)
+        with deterministic_algorithms():
+            loss = model.loss_fn(live, batches[0])[0]
+            grads = torch.autograd.grad(loss, tree_lib.leaves(live))
+        del live, loss, state
+        grads = tree_lib.unflatten(params, list(grads))
+        residual = tree_lib.map_(lambda g: g.float().mul_(1e-2), grads)
+        t0 = time.perf_counter()
+        with use_binding(binding_for(mesh)):
+            card = compressed_psum_mean(grads, "data", residual)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            cpu = compressed_psum_mean(
+                tree_lib.map_(lambda t: t.cpu(), grads), "data",
+                tree_lib.map_(lambda t: t.cpu(), residual))
+        differ = [(i, k) for i in range(2) for k, v in
+                  tree_lib.items(card[i])
+                  if not torch.equal(v.cpu(), dict(
+                      tree_lib.items(cpu[i]))[k])]
+        n_el = sum(g.numel() for g in tree_lib.leaves(grads))
+        say(f"[dist] compressed mean (int8, world 1) of {name}'s gradient "
+            f"tree ({n_el / 1e9:.3f} G entries, {len(tree_lib.leaves(grads))}"
+            f" leaves) with a residual: card {t_card * 1e3:.1f} ms (host "
+            f"clock); card against CPU: {len(differ)} of "
+            f"{2 * len(tree_lib.leaves(grads))} mean and residual arrays "
+            "differ")
+        check(not differ, f"[dist] compressed mean card vs CPU: {differ[:4]}")
+        del grads, residual, card, cpu, params
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def phase_dist() -> None:
+    """8d [dist]: every card a rank. World 1 in this process
+    (`dist_world1`); with two or more cards, tools/dist_train_scaling.py
+    in a process of its own (one more a card) over 1 and all of them:
+    DIST_ARCH bf16 at SCORE_SHAPE a card with ZeRO-1 on and off (tok/s,
+    scale efficiency against its world 1, peak MB a card) and the f32
+    step at full width against one card on the global batch."""
+    t0 = time.perf_counter()
+    dist_world1()
+    n = torch.cuda.device_count()
+    if n >= 2:
+        root = os.path.dirname(os.path.abspath(__file__))
+        out = os.path.join(root, "build", f"dist_{os.getpid()}.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "tools",
+                                          "dist_train_scaling.py"),
+             "--worlds", "1", str(n), "--steps", str(DIST_STEPS - 1),
+             "--out", out], capture_output=True, text=True, timeout=900)
+        for line in proc.stdout.splitlines():
+            if line.startswith(("[dist]", "FAILED")):
+                say(line)
+        check(proc.returncode == 0, f"[dist] over {n} cards: exit "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+    say(f"[dist] took {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # constants are built afresh: the disk tier is on only in its own
@@ -2144,6 +2312,7 @@ def main() -> None:
     phase_lm_outputs()
     phase_products()
     phase_train()
+    phase_dist()
     phase_launches()
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": [

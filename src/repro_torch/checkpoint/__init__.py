@@ -1,2 +1,2 @@
 from repro_torch.checkpoint.checkpoint import (  # noqa: F401
-    AsyncCheckpointer, latest_step, restore, save)
+    AsyncCheckpointer, host_tree, latest_step, restore, save)

@@ -16,6 +16,14 @@ other.
   * async: `AsyncCheckpointer` copies the tree to host memory on the
     caller's thread, then writes it on a background thread, so the train
     loop does not wait for the disk.
+  * elastic: with ``shardings`` (a tree of `runtime.param_sharding.Block`
+    or None, `train.steps.state_blocks`), the split leaves (ZeRO-1
+    moments) are gathered first, every rank taking part, and rank 0
+    alone writes the whole state in the same layout; `restore` with
+    ``shardings`` splits a whole state again, for any number of ranks.
+  * host memory: a save holds the whole state on the writer's host in
+    its own dtypes, and one leaf at a time as the f32 array written; a
+    restore holds one whole leaf at a time.
 """
 
 from __future__ import annotations
@@ -24,12 +32,14 @@ import json
 import os
 import threading
 import time
+import zipfile
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.runtime import collectives
 
 
 def _host(leaf: torch.Tensor) -> np.ndarray:
@@ -39,30 +49,67 @@ def _host(leaf: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _unflatten_into(template: Dict, flat: Dict[str, np.ndarray],
-                    device=None) -> Dict:
-    """``template``'s tree with each leaf read from ``flat`` by its path,
-    in the template leaf's dtype, on ``device`` (default: the template
-    leaf's; a template on the meta device needs one)."""
-    def load(path, leaf):
-        t = torch.as_tensor(flat[path])
-        if tuple(t.shape) != tuple(leaf.shape):
-            raise ValueError(f"checkpoint {path}: shape {tuple(t.shape)}, "
-                             f"expected {tuple(leaf.shape)}")
-        return t.to(device=device or leaf.device, dtype=leaf.dtype)
-    paths = dict(tree_lib.items(template))
-    return tree_lib.unflatten(template, [load(p, leaf)
-                                         for p, leaf in paths.items()])
+def _whole(leaf: torch.Tensor, block) -> torch.Tensor:
+    """The whole leaf of which ``leaf`` is this rank's ``block`` (every
+    rank of the block's axis calls this together)."""
+    if block is None:
+        return leaf
+    full = leaf.new_empty(block.full_shape(leaf.shape))
+    collectives.gather_block(full, leaf, block)
+    return full
 
 
-def save(ckpt_dir: str, step: int, tree: Dict) -> str:
-    """Atomic synchronous save. Returns the committed path."""
+def _writes(shardings) -> bool:
+    """Whether this process writes: without ``shardings``, always; with
+    them, rank 0 of the process group only."""
+    if shardings is None:
+        return True
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def host_tree(tree: Dict, shardings=None, copy=None) -> Optional[Dict]:
+    """{path: the whole leaf on the host} (None on a process that does
+    not write: module doc); ``copy`` (default: a CPU copy) moves a leaf
+    there. Split leaves are gathered one at a time, on every rank."""
+    copy = copy or (lambda t: t.detach().to("cpu", copy=True))
+    blocks = (dict(tree_lib.items(shardings)) if shardings is not None
+              else {})
+    writes = _writes(shardings)
+    out = {}
+    for path, leaf in tree_lib.items(tree):
+        whole = _whole(leaf, blocks.get(path))
+        if writes:
+            out[path] = copy(whole)
+        del whole
+    return out if writes else None
+
+
+def save(ckpt_dir: str, step: int, tree: Dict, shardings=None
+         ) -> Optional[str]:
+    """Atomic synchronous save. Returns the committed path (None on a
+    rank that does not write: module doc)."""
+    flat = host_tree(tree, shardings)
+    if flat is None:
+        return None
+    return _write(ckpt_dir, step, flat)
+
+
+def _write(ckpt_dir: str, step: int, flat: Dict) -> str:
+    """The npz of ``flat`` ({path: tensor}), as ``np.savez`` writes it,
+    each leaf made a host array (`_host`) only as it is written."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    flat = {path: _host(leaf) for path, leaf in tree_lib.items(tree)}
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        np.savez(f, **flat)
+        with zipfile.ZipFile(f, "w", zipfile.ZIP_STORED,
+                             allowZip64=True) as zf:
+            for key, leaf in flat.items():
+                arr = _host(leaf)
+                with zf.open(key + ".npy", "w", force_zip64=True) as out:
+                    np.lib.format.write_array(out, np.asanyarray(arr),
+                                              allow_pickle=False)
+                del arr
         f.flush()
         os.fsync(f.fileno())
     os.rename(tmp, path)
@@ -83,13 +130,33 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
         return int(json.load(f)["latest_step"])
 
 
-def restore(ckpt_dir: str, step: int, template: Dict, device=None) -> Dict:
-    """Load ``step`` into ``template``'s structure and dtypes, on
-    ``device`` (default: each template leaf's device)."""
+def restore(ckpt_dir: str, step: int, template: Dict, device=None,
+            shardings=None) -> Dict:
+    """Load ``step`` into ``template``'s structure and dtypes (the whole
+    state's shapes), on ``device`` (default: each template leaf's
+    device; a template on the meta device needs one); where
+    ``shardings`` gives a leaf a `Block`, only this rank's block of it,
+    whatever number of ranks wrote it (elastic). The arrays are read one
+    at a time, each narrowed to its block and moved before the next, so
+    the host holds one whole leaf at most."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
+    blocks = (dict(tree_lib.items(shardings)) if shardings is not None
+              else {})
+    leaves = []
     with np.load(path) as z:
-        flat = {k: z[k] for k in z.files}
-    return _unflatten_into(template, flat, device)
+        for key, leaf in tree_lib.items(template):
+            t = torch.as_tensor(z[key])
+            if tuple(t.shape) != tuple(leaf.shape):
+                raise ValueError(f"checkpoint {key}: shape "
+                                 f"{tuple(t.shape)}, expected "
+                                 f"{tuple(leaf.shape)}")
+            block = blocks.get(key)
+            if block is not None:
+                t = block.take(t).clone()
+            leaves.append(t.to(device=device or leaf.device,
+                               dtype=leaf.dtype))
+            del t
+    return tree_lib.unflatten(template, leaves)
 
 
 class AsyncCheckpointer:
@@ -100,16 +167,19 @@ class AsyncCheckpointer:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
-    def save(self, step: int, tree: Dict) -> None:
+    def save(self, step: int, tree: Dict, shardings=None) -> None:
+        """``shardings``: as `save`'s; the gathers run here, on the
+        caller's thread, on every rank."""
         self.wait()  # at most one in-flight save
         # a synchronous copy: the caller may update the tensors in place
         # as soon as this returns
-        host_tree = tree_lib.map_(
-            lambda t: t.detach().to("cpu", copy=True), tree)
+        host_flat = host_tree(tree, shardings)
+        if host_flat is None:
+            return
 
         def work():
             try:
-                save(self.ckpt_dir, step, host_tree)
+                _write(self.ckpt_dir, step, host_flat)
             except BaseException as e:  # surfaced on the next wait()
                 self._error = e
 

@@ -10,7 +10,8 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig, ParallelConfig, TrainConfig)
 
 ARCHS: List[str] = [
     "granite_moe_3b_a800m",

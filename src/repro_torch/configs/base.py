@@ -4,9 +4,13 @@ The port's own copies of the reference's ``ModelConfig`` and
 ``TrainConfig``, with the same names, defaults and meaning, so one config
 reads the same in both packages: every family of the reference (dense,
 MoE with MLA, the VLM's M-RoPE, ssm, hybrid, enc-dec). The sharding-only
-field ``attn_batch_fallback`` has no counterpart here; ``TrainConfig``'s
-``zero1`` and ``grad_compression`` are read by nothing on one card, as by
-the reference's train step.
+field ``attn_batch_fallback`` has no counterpart here. ``TrainConfig``'s
+``zero1`` splits the Adam moments over the "data" axis in the
+data-parallel step (`train.steps.make_train_step` with a mesh);
+``grad_compression`` is read by nothing, as by the reference's train step
+(`optim.compress` is there for a caller that wants it).
+``ParallelConfig`` is the reference's; `launch.mesh.make_mesh` refuses
+what this port does not run yet (``fsdp``, a pipeline "pod" axis).
 """
 
 from __future__ import annotations
@@ -121,3 +125,11 @@ class TrainConfig:
     grad_compression: bool = False  # int8 all-reduce of the gradients
     checkpoint_every: int = 100
     seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    fsdp: bool = False           # shard params over data axis too (ZeRO-3)
+    pod_axis_role: str = "data"  # data | pipeline
+    seq_shard_decode: bool = False    # shard decode KV along sequence
+    seq_axes: Tuple[str, ...] = ("model",)  # physical axes for "seq"

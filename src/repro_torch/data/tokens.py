@@ -10,6 +10,10 @@ The sequences follow an increment rule with rare random jumps
 (x[t+1] = x[t] + stride, ~5% restarts), so next-token entropy is far below
 uniform and a small model learns the rule within tens of steps, while the
 jump floor keeps the loss from collapsing to zero.
+
+Data parallel: every rank builds the global batch of a step from the seed
+and keeps its own contiguous rows (`TokenDataset.rows_for_step`), so the
+ranks together see the batch one device would.
 """
 
 from __future__ import annotations
@@ -60,7 +64,19 @@ class TokenDataset:
                 (b, s, d))).astype(np.float32)
         return out
 
+    def rows_for_step(self, step: int, index: int, extent: int
+                      ) -> Dict[str, np.ndarray]:
+        """Rank ``index`` of ``extent``'s contiguous rows of
+        `batch_for_step` (raises unless ``extent`` divides the batch)."""
+        if self.batch % extent:
+            raise ValueError(f"a global batch of {self.batch} rows does "
+                             f"not split over {extent} ranks")
+        k = self.batch // extent
+        return {name: x[index * k:(index + 1) * k]
+                for name, x in self.batch_for_step(step).items()}
+
     def iter_from(self, step: int) -> Iterator[Dict[str, np.ndarray]]:
         while True:
             yield self.batch_for_step(step)
             step += 1
+

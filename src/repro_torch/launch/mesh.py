@@ -1,0 +1,88 @@
+"""Meshes of ranks and their logical-axis bindings.
+
+The port of the reference's ``repro.launch.mesh``. A mesh is a
+``torch.distributed`` ``DeviceMesh`` with named axes over the ranks of
+the default process group (NCCL on the card, gloo on the CPU), one rank
+per device; the caller starts the group (``torchrun``, or
+``init_process_group`` with an address, world size and rank).
+
+Production: single pod (data=16, model=16), 256 ranks; multi-pod
+(pod=2, data=16, model=16), 512 ranks.
+
+This port splits the batch only: every axis but "data" has extent 1.
+`make_mesh` raises `NotImplementedError` for a "model" or "pod" extent
+above 1, for ``ParallelConfig.fsdp`` and for a pipeline "pod" axis
+(ROADMAP A.4), so nothing is replicated where the reference would split
+it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+from repro_torch.configs.base import ParallelConfig
+from repro_torch.runtime import sharding as shlib
+
+_TODO = "ROADMAP A.4 (training across cards: {})"
+
+
+def make_mesh(shape: Sequence[int] = None,
+              axes: Sequence[str] = ("data", "model"), *,
+              parallel: Optional[ParallelConfig] = None,
+              device_type: Optional[str] = None):
+    """A ``DeviceMesh`` of ``shape`` (default: every rank on "data")
+    with ``axes`` as its dimension names, over the default process
+    group. ``device_type`` defaults to "cuda" where the group's backend
+    is NCCL alone, else "cpu" (the mesh's groups serve the tensors of
+    every device their backend takes either way)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    parallel = parallel or ParallelConfig()
+    axes = tuple(axes)
+    world = dist.get_world_size()
+    if shape is None:
+        shape = tuple(world if a == "data" else 1 for a in axes)
+    shape = tuple(int(n) for n in shape)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} for axes {axes}")
+    for a, n in zip(axes, shape):
+        if a != "data" and n > 1:
+            raise NotImplementedError(_TODO.format(f'a "{a}" axis of {n}'))
+    if parallel.fsdp:
+        raise NotImplementedError(_TODO.format("ParallelConfig.fsdp"))
+    if parallel.pod_axis_role == "pipeline":
+        raise NotImplementedError(_TODO.format('a pipeline "pod" axis'))
+    n = 1
+    for s in shape:
+        n *= s
+    if n != world:
+        raise ValueError(f"mesh {dict(zip(axes, shape))} over {world} "
+                         "ranks")
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    import torch.distributed as dist
+    want = 512 if multi_pod else 256
+    if not dist.is_initialized() or dist.get_world_size() != want:
+        raise ValueError(f"the production mesh {shape} needs {want} ranks")
+    return make_mesh(shape, axes)
+
+
+def mesh_axes(mesh) -> Tuple[Tuple[str, int], ...]:
+    """((name, extent), ...) of a mesh."""
+    return tuple(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def binding_for(mesh, parallel: Optional[ParallelConfig] = None,
+                ) -> shlib.Binding:
+    parallel = parallel or ParallelConfig()
+    axis_sizes = {a: int(n) for a, n in mesh_axes(mesh)}
+    rules = (shlib.MULTI_POD_RULES if "pod" in axis_sizes
+             else shlib.SINGLE_POD_RULES)
+    return shlib.Binding(rules, axis_sizes, fsdp=parallel.fsdp, mesh=mesh)

@@ -3,24 +3,32 @@
 The port of the reference's ``repro.launch.train``: deterministic data
 pipeline -> train step -> async checkpointing -> preemption and hang
 handling -> restart from the latest checkpoint. Runs on the card unless
-asked for the CPU (``--device cpu``), on one device.
+asked for the CPU (``--device cpu``), on one device, or data-parallel over
+the ranks of a ``torchrun`` (``--data N``, one card a rank; ``--batch``
+is the global batch):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
       --smoke --device cpu --steps 50 --batch 8 --seq 128 --ckpt-dir CKPT
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch gemma3-1b --steps 20 --batch 16 --seq 2048 --data 4
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint as ckpt_lib
-from repro_torch.configs import TrainConfig, get_config, get_smoke
+from repro_torch.configs import (ParallelConfig, TrainConfig, get_config,
+                                 get_smoke)
 from repro_torch.core.pipeline import resolve_device
 from repro_torch.data.tokens import TokenDataset
+from repro_torch.launch.mesh import binding_for, make_mesh
 from repro_torch.models import get_model
 from repro_torch.models.api import family_module
 from repro_torch.optim import adamw_init
@@ -36,31 +44,62 @@ def train_loop(cfg, tcfg: TrainConfig, *, batch: int, seq: int,
                fail_at_step: Optional[int] = None,
                log_every: int = 10,
                metrics_out: Optional[list] = None,
-               device=None) -> int:
+               device=None, mesh=None,
+               parallel: Optional[ParallelConfig] = None) -> int:
     """Run (or resume from ``ckpt_dir``'s latest step) training to
     ``steps``. Returns the last completed step.
 
     On ``device`` (CUDA unless "cpu"; without a card the default
     raises), under `steps_lib.deterministic_algorithms`, so a run cut and
     resumed repeats the uncut run bit for bit. A failure inside the loop
-    first waits for the checkpoint in flight, so the restart finds it."""
+    first waits for the checkpoint in flight, so the restart finds it.
+
+    With a ``mesh`` (`launch.mesh.make_mesh`; every rank calls this with
+    the same arguments), the data-parallel step on each rank's rows of
+    the global ``batch``: rank 0 picks the step to resume from and writes
+    the checkpoints (whole, in the one-device layout, so a run resumes at
+    any number of ranks), the ranks agree on preemption through one
+    all-reduce of the flag a step, and only rank 0 prints."""
     dev = resolve_device(device)
     model = get_model(cfg, device=dev)
     data = TokenDataset(cfg, batch, seq, seed=tcfg.seed)
-    train_step = steps_lib.make_train_step(model, tcfg)
+    train_step = steps_lib.make_train_step(model, tcfg, mesh, parallel)
+    spec = family_module(cfg).init_params(cfg, None, torch.device("meta"))
+    blocks = steps_lib.state_blocks(spec, tcfg, mesh, parallel)
+    axis = (binding_for(mesh, parallel).axis_group(("data",))
+            if mesh is not None else None)
+    shardings = blocks if mesh is not None else None
+    lead = axis is None or dist.get_rank() == 0
 
     start_step = 0
     state = None
     if ckpt_dir:
         latest = ckpt_lib.latest_step(ckpt_dir)
+        if axis is not None:
+            # rank 0's view (its last save has been waited for)
+            box = [latest]
+            dist.broadcast_object_list(box, src=0)
+            latest = box[0]
         if latest is not None:
-            spec = family_module(cfg).init_params(cfg, None,
-                                                  torch.device("meta"))
             template = {"params": spec, "opt": adamw_init(spec)}
-            state = ckpt_lib.restore(ckpt_dir, latest, template, device=dev)
+            state = ckpt_lib.restore(ckpt_dir, latest, template, device=dev,
+                                     shardings=shardings)
             start_step = latest
     if state is None:
-        state = steps_lib.init_train_state(model, tcfg.seed)
+        state = steps_lib.init_train_state(model, tcfg.seed, blocks)
+
+    def rows(step):
+        if axis is None:
+            return data.batch_for_step(step)
+        return data.rows_for_step(step, axis.index, axis.extent)
+
+    def preempted() -> bool:
+        flag = preemption is not None and preemption.preempted
+        if axis is None:
+            return flag
+        t = torch.tensor([int(flag)], device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=axis.group)
+        return bool(t.item())
 
     saver = ckpt_lib.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     step = start_step
@@ -69,7 +108,7 @@ def train_loop(cfg, tcfg: TrainConfig, *, batch: int, seq: int,
         try:
             for step in range(start_step + 1, steps + 1):
                 batch_t = {k: torch.from_numpy(v).to(dev)
-                           for k, v in data.batch_for_step(step).items()}
+                           for k, v in rows(step).items()}
                 state, metrics = train_step(state, batch_t)
                 if fail_at_step is not None and step == fail_at_step:
                     raise TransientError(f"injected failure at step {step}")
@@ -78,7 +117,7 @@ def train_loop(cfg, tcfg: TrainConfig, *, batch: int, seq: int,
                 if metrics_out is not None:
                     metrics_out.append(
                         {k: float(v) for k, v in metrics.items()})
-                if step % log_every == 0 or step == steps:
+                if lead and (step % log_every == 0 or step == steps):
                     dt = time.time() - t_last
                     t_last = time.time()
                     tok_s = batch * seq * log_every / max(dt, 1e-9)
@@ -87,12 +126,13 @@ def train_loop(cfg, tcfg: TrainConfig, *, batch: int, seq: int,
                           f"tok/s={tok_s:,.0f}", flush=True)
                 if saver and (step % tcfg.checkpoint_every == 0
                               or step == steps):
-                    saver.save(step, state)
-                if preemption is not None and preemption.preempted:
+                    saver.save(step, state, shardings)
+                if preempted():
                     if saver:
-                        saver.save(step, state)
-                    print(f"preempted: checkpointed at step {step}",
-                          flush=True)
+                        saver.save(step, state, shardings)
+                    if lead:
+                        print(f"preempted: checkpointed at step {step}",
+                              flush=True)
                     return step
         finally:
             if saver:
@@ -115,6 +155,9 @@ def main() -> None:
     ap.add_argument("--hang-timeout", type=float, default=600.0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="default: cuda (fails without a CUDA device)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel ranks (under torchrun, one card "
+                    "a rank; --batch is the global batch)")
     args = ap.parse_args()
 
     cfg = (get_smoke(args.arch) if args.smoke else get_config(args.arch))
@@ -123,12 +166,41 @@ def main() -> None:
                        microbatches=args.microbatches,
                        checkpoint_every=args.ckpt_every)
 
+    mesh, device = None, args.device
+    if args.data > 1:
+        mesh, device = start_ranks(args.data, args.device)
     watchdog = HangWatchdog(args.hang_timeout).start()
-    with PreemptionHandler() as pre:
-        train_loop(cfg, tcfg, batch=args.batch, seq=args.seq,
-                   steps=args.steps, ckpt_dir=args.ckpt_dir,
-                   preemption=pre, watchdog=watchdog, device=args.device)
-    watchdog.stop()
+    try:
+        with PreemptionHandler() as pre:
+            train_loop(cfg, tcfg, batch=args.batch, seq=args.seq,
+                       steps=args.steps, ckpt_dir=args.ckpt_dir,
+                       preemption=pre, watchdog=watchdog, device=device,
+                       mesh=mesh)
+    finally:
+        watchdog.stop()
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def start_ranks(n: int, device: str):
+    """The process group of a ``torchrun`` of ``n`` ranks (its
+    environment: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT) and its
+    mesh of ``n`` on "data"; NCCL with one card a rank (set before the
+    group starts), gloo on the CPU. -> (mesh, this rank's device)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != n:
+        raise ValueError(f"--data {n} under a world of {world} ranks "
+                         "(start it with torchrun --nproc-per-node)")
+    if device == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        resolve_device("cuda")
+        torch.cuda.set_device(local)
+        dist.init_process_group("nccl")
+        dev = torch.device("cuda", local)
+    else:
+        dist.init_process_group("gloo")
+        dev = "cpu"
+    return make_mesh((n, 1), ("data", "model")), dev
 
 
 if __name__ == "__main__":

@@ -261,9 +261,9 @@ def gqa_project_qkv(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     the device as the reference's traced ``jnp.where``."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(b, s, h, dh)
-    k = (x @ params["wk"]).reshape(b, s, hkv, dh)
-    v = (x @ params["wv"]).reshape(b, s, hkv, dh)
+    q = common.matmul(x, params["wq"]).reshape(b, s, h, dh)
+    k = common.matmul(x, params["wk"]).reshape(b, s, hkv, dh)
+    v = common.matmul(x, params["wv"]).reshape(b, s, hkv, dh)
     if cfg.qk_norm:
         q = common.rmsnorm(params["q_norm"], q)
         k = common.rmsnorm(params["k_norm"], k)
@@ -305,7 +305,7 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                                 chunk=cfg.attn_chunk,
                                 softcap=cfg.attn_logit_softcap)
     b, s = x.shape[:2]
-    y = out.reshape(b, s, -1) @ params["wo"]
+    y = common.matmul(out.reshape(b, s, -1), params["wo"])
     if return_kv:
         return y, (k, v)
     return y

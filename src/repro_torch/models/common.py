@@ -23,6 +23,8 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.runtime import collectives
+from repro_torch.runtime import sharding as shlib
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -210,9 +212,20 @@ def mlp_params(d: int, ff: int, dtype, gen, device, lead=()) -> Dict:
 
 
 def mlp_apply(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    gate = F.silu(x @ params["wi_gate"])
-    up = x @ params["wi_up"]
-    return (gate * up) @ params["wo"]
+    gate = F.silu(matmul(x, params["wi_gate"]))
+    up = matmul(x, params["wi_up"])
+    return matmul(gate * up, params["wo"])
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the wider of the two dtypes, as jnp promotes: an f32
+    activation meets a bf16 weight in f32 (the weight cast up for the
+    product); equal dtypes, as everywhere but the encoder of an
+    enc-dec model fed f32 frames, are multiplied as they are."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
 
 
 # ---------------------------------------------------------------------------
@@ -247,13 +260,24 @@ def logits_from_hidden(params: Dict, cfg: ModelConfig,
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token cross entropy; logits (..., V) f32, labels (...)."""
+    """Mean next-token cross entropy; logits (..., V) f32, labels (...).
+
+    Where the batch is split over n > 1 ranks (`runtime.sharding.
+    batch_axis`), the mean is the global batch's, as the reference's
+    partitioned mean: this rank's sum over the global token count (the
+    mask's sum added over the ranks, without gradient). That is the
+    rank's share; the shares add up to the global mean over the ranks,
+    and so do their gradients (`train.steps`)."""
     logz = torch.logsumexp(logits, -1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
+    axis = shlib.batch_axis()
     if mask is not None:
         mask = mask.to(nll.dtype)
-        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+        count = collectives.sum_over(mask.sum().detach(), axis)
+        return (nll * mask).sum() / count.clamp(min=1.0)
+    if axis is not None:
+        return nll.sum() / (nll.numel() * axis.extent)
     return nll.mean()
 
 

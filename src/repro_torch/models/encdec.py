@@ -66,10 +66,13 @@ def encode(params: Dict, cfg: ModelConfig, enc_embeds: torch.Tensor
            ) -> torch.Tensor:
     """(B, S_enc, D) precomputed frame embeddings -> encoder states.
 
-    The frames enter in the compute dtype (``synth_train_batch`` makes
-    them so; ``TokenDataset``'s are f32, which the reference's encoder
-    meets by promoting its bf16 products to f32: ROADMAP C)."""
-    h = enc_embeds.to(dtype_of(cfg.compute_dtype))
+    Frames wider than the compute dtype stay so, and every product and
+    norm they meet runs in their dtype, as the reference's jnp promotion
+    runs them (`common.matmul`): ``TokenDataset``'s f32 frames give a
+    bf16 model f32 encoder states, whose cross K/V are f32 too.
+    ``synth_train_batch``'s frames are in the compute dtype."""
+    h = enc_embeds.to(torch.promote_types(enc_embeds.dtype,
+                                          dtype_of(cfg.compute_dtype)))
     positions = common.positions_of(h)
 
     def body(hcur, lp):
@@ -92,9 +95,9 @@ def cross_kv(params: Dict, cfg: ModelConfig, enc_out: torch.Tensor
     b, s, _ = enc_out.shape
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
     xattn = params["dec_layers"]["cross_attn"]
-    ks = [(enc_out @ w).reshape(b, s, hkv, dh)
+    ks = [common.matmul(enc_out, w).reshape(b, s, hkv, dh)
           for w in torch.unbind(xattn["wk"])]
-    vs = [(enc_out @ w).reshape(b, s, hkv, dh)
+    vs = [common.matmul(enc_out, w).reshape(b, s, hkv, dh)
           for w in torch.unbind(xattn["wv"])]
     return torch.stack(ks), torch.stack(vs)
 

@@ -25,6 +25,14 @@ one routing decision runs as
 With the same capacity all three give the same output up to rounding.
 Routing (f32 softmax, top-k, capacity ranking by cumsum) is shared. These
 are plain PyTorch ops: the reference computes them outside any kernel.
+
+Where the batch is split over n > 1 ranks (`runtime.sharding.batch_axis`)
+the statistics that span it are the global batch's, as the reference's
+partitioned program computes them: the load-balance fractions and the
+z-loss over all tokens (each rank returns its share of the losses; the
+shares add up to the global values), V1/V3's capacity and ranking over
+all b*s tokens (the lower ranks' tokens first), and V2's group size from
+the global token count. No collective is differentiated.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.config import Variant
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
+from repro_torch.runtime import collectives
+from repro_torch.runtime import sharding as shlib
 
 def moe_params(cfg: ModelConfig, dtype, gen, device, lead=()) -> Dict:
     """Router (f32 in every dtype), experts (E_eff, d, f) incl. the dead
@@ -73,10 +83,20 @@ def route(cfg: ModelConfig, router_w: torch.Tensor, x_flat: torch.Tensor):
     # Aux: load balance (Switch) + router z-loss.
     e = cfg.n_experts
     onehot_any = F.one_hot(idx, e).float().sum(dim=1)
-    frac_tokens = onehot_any.mean(dim=0)                    # (E,)
-    frac_probs = probs.mean(dim=0)
+    axis = shlib.batch_axis()
+    if axis is None:
+        frac_tokens = onehot_any.mean(dim=0)                # (E,)
+        frac_probs = probs.mean(dim=0)
+        z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    else:
+        # the global fractions of tokens; this rank's share of the
+        # probabilities' mean and of the z-loss
+        t_all = x_flat.shape[0] * axis.extent
+        frac_tokens = collectives.sum_over(onehot_any.sum(dim=0),
+                                           axis) / t_all
+        frac_probs = probs.sum(dim=0) / t_all
+        z_loss = (torch.logsumexp(logits, dim=-1) ** 2).sum() / t_all
     lb_loss = e * (frac_tokens * frac_probs).sum()
-    z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
     return w, idx, {"moe_lb_loss": lb_loss,
                     "moe_z_loss": cfg.router_z_loss * z_loss}
 
@@ -99,31 +119,59 @@ def _cumsum_tokens(oh: torch.Tensor, block: int = 256) -> torch.Tensor:
     return (blocks + earlier).reshape(oh.shape)
 
 
-def _rank(idx: torch.Tensor, n: int, cap: int):
+def _rank(idx: torch.Tensor, n: int, cap: int, across=None):
     """Ranks of idx (..., T, k) in their experts' queues, k-major (all
     first choices before second ones), then by token: (rank, keep) of
-    idx's shape, keep = rank < cap; the queues count kept ones only."""
+    idx's shape, keep = rank < cap; the queues count kept ones only.
+
+    ``across`` (T being this rank's share of a batch split over ranks):
+    (earlier, total), each (k, n), the tokens of each choice and expert
+    on the lower ranks and on all ranks. The queues then run over the
+    global batch, the lower ranks' tokens first: a choice's ranks here
+    start after the lower ranks' and its kept count is its total clipped
+    to the room left, the same integers one device computes."""
     count = torch.zeros(idx.shape[:-2] + (1, n), dtype=torch.int64,
                         device=idx.device)
     ranks, keeps = [], []
     for kk in range(idx.shape[-1]):
         oh = F.one_hot(idx[..., kk], n)                    # (..., T, n)
         r = _cumsum_tokens(oh) - oh + count
+        if across is not None:
+            r = r + across[0][kk]
         rank_k = (r * oh).sum(dim=-1)
         keep_k = rank_k < cap
         ranks.append(rank_k)
         keeps.append(keep_k)
-        count = count + (oh * keep_k[..., None]).sum(dim=-2, keepdim=True)
+        if across is None:
+            count = count + (oh * keep_k[..., None]).sum(dim=-2,
+                                                         keepdim=True)
+        else:
+            count = count + torch.minimum((cap - count).clamp(min=0),
+                                          across[1][kk])
     return torch.stack(ranks, dim=-1), torch.stack(keeps, dim=-1)
+
+
+def _counts_across(idx: torch.Tensor, n: int, axis):
+    """(earlier, total) of `_rank` for idx (T, k) on each rank of
+    ``axis``: one all-gather of the (k, n) counts."""
+    counts = F.one_hot(idx, n).sum(dim=0)                  # (k, n)
+    every = collectives.gathered(counts, axis)             # (ranks, k, n)
+    return every[:axis.index].sum(dim=0), every.sum(dim=0)
 
 
 def capacity_and_rank(cfg: ModelConfig, idx: torch.Tensor, n_tokens: int,
                       ) -> Tuple[int, torch.Tensor, torch.Tensor]:
     """(capacity, rank (T, k), keep (T, k) bool): a fixed, data-independent
-    priority, k-major then token order."""
+    priority, k-major then token order; over the global batch where it
+    is split over ranks (module doc)."""
     e, k = cfg.n_experts, cfg.n_experts_per_tok
+    axis = shlib.batch_axis()
+    across = None
+    if axis is not None:
+        n_tokens *= axis.extent
+        across = _counts_across(idx, e, axis)
     cap = _capacity(n_tokens, k, cfg.capacity_factor, e)
-    rank, keep = _rank(idx, e, cap)
+    rank, keep = _rank(idx, e, cap, across)
     return cap, rank, keep
 
 
@@ -197,7 +245,12 @@ def group_size(cfg: ModelConfig, n_tokens: int) -> int:
 def _dispatch_onehot(cfg, params, x_flat, w, idx):
     t, d = x_flat.shape
     e, k = cfg.n_experts_eff, cfg.n_experts_per_tok
-    tg = group_size(cfg, t)
+    axis = shlib.batch_axis()
+    tg = group_size(cfg, t * (axis.extent if axis is not None else 1))
+    if t % tg:
+        raise NotImplementedError(
+            f"a dispatch group of {tg} tokens would straddle two ranks "
+            f"holding {t} tokens each (ROADMAP A.4)")
     g = t // tg
     # capacity per group and per real expert (dead padding gets empty
     # slots); ranks recomputed within each group

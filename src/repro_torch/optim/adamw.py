@@ -10,11 +10,18 @@ f32, in the reference's order of operations. `adamw_update` writes the
 new moments and parameters into the old tensors (in place) and returns
 trees of those same tensors: one copy of each lives on the card, beside
 f32 temporaries of at most one piece of a leaf (`_PIECE`).
+
+The clip can be applied piece by piece (``adamw_update(..., scale=)``,
+the same products as `global_norm_clip`'s), so no f32 copy of the whole
+gradient tree is made. ZeRO-1 (``blocks``): a rank holds only its block
+of each moment (`runtime.param_sharding.zero1_blocks`) and updates only
+that block of the parameter, with the decay mask of the whole leaf; the
+train step then gathers the parameters' blocks.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,21 +48,36 @@ def _f32_copy(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32, copy=True)
 
 
+def global_norm(grads: Dict) -> torch.Tensor:
+    """The f32 global norm of a gradient tree, one f32 temporary a leaf
+    at a time (the squares run in place on a copy)."""
+    return torch.sqrt(sum(torch.sum(_f32_copy(g).square_())
+                          for g in tree.leaves(grads)))
+
+
+def clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+
+
 def global_norm_clip(grads: Dict, max_norm: float) -> Tuple[Dict, torch.Tensor]:
     """(grads in f32 scaled to a global norm of at most ``max_norm``, the
-    global norm before the scaling). One f32 temporary a leaf at a time:
-    the squares and the scaling run in place on a copy."""
-    gnorm = torch.sqrt(sum(torch.sum(_f32_copy(g).square_())
-                           for g in tree.leaves(grads)))
-    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    global norm before the scaling)."""
+    gnorm = global_norm(grads)
+    scale = clip_scale(gnorm, max_norm)
     return tree.map_(lambda g: _f32_copy(g).mul_(scale), grads), gnorm
 
 
-def adamw_init(params: Dict) -> Dict:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+def adamw_init(params: Dict, blocks: Optional[Dict] = None) -> Dict:
+    """Zero moments, f32; of each leaf's `Block` where ``blocks`` (a tree
+    of the parameters' structure, None leaves: whole) gives one."""
+    def zeros(p, blk):
+        shape = p.shape if blk is None else blk.shape(p.shape)
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    if blocks is None:
+        blocks = tree.map_(lambda _: None, params)
     device = tree.leaves(params)[0].device
-    return {"m": tree.map_(zeros, params), "v": tree.map_(zeros, params),
+    return {"m": tree.map_(zeros, params, blocks),
+            "v": tree.map_(zeros, params, blocks),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
@@ -74,9 +96,14 @@ def _decay_mask(leaf: torch.Tensor) -> bool:
 
 @torch.no_grad()
 def adamw_update(tcfg: TrainConfig, params: Dict, grads: Dict, state: Dict,
-                 ) -> Tuple[Dict, Dict, Dict]:
-    """-> (new_params, new_state, {"lr"}); grads f32 (after clipping).
-    The parameters and moments are updated in place (module doc)."""
+                 *, scale: Optional[torch.Tensor] = None,
+                 blocks: Optional[Dict] = None) -> Tuple[Dict, Dict, Dict]:
+    """-> (new_params, new_state, {"lr"}); grads f32 after clipping, or,
+    with ``scale``, before it: each piece is then clipped as it is read
+    (``f32(g) * scale``). With ``blocks`` (a tree of `Block` or None),
+    only this rank's block of a split leaf is updated, against moments of
+    that block. The parameters and moments are updated in place (module
+    doc)."""
     step = state["step"] + 1
     lr = cosine_schedule(tcfg)(step)
     b1, b2, eps = tcfg.b1, tcfg.b2, tcfg.eps
@@ -86,7 +113,7 @@ def adamw_update(tcfg: TrainConfig, params: Dict, grads: Dict, state: Dict,
     def upd(p, g, m, v, decay):
         # the reference's expression, one operation at a time in place
         # (the same roundings), so at most two f32 temporaries live
-        g = g.float()
+        g = g.float() if scale is None else _f32_copy(g).mul_(scale)
         m.mul_(b1).add_(g * (1.0 - b1))
         v.mul_(b2).add_((g * (1.0 - b2)).mul_(g))
         delta = torch.div(m, c1).div_(torch.div(v, c2).sqrt_().add_(eps))
@@ -94,8 +121,10 @@ def adamw_update(tcfg: TrainConfig, params: Dict, grads: Dict, state: Dict,
             delta.add_(_f32_copy(p).mul_(tcfg.weight_decay))
         p.copy_(_f32_copy(p).sub_(delta.mul_(lr)))
 
-    def upd_leaf(p, g, m, v):
+    def upd_leaf(p, g, m, v, blk):
         decay = _decay_mask(p)            # of the stored leaf, not a piece
+        if blk is not None:
+            p, g = blk.take(p), blk.take(g)
         if p.ndim == 0:
             return upd(p, g, m, v, decay)
         # elementwise, so pieces along the leading axis change nothing
@@ -103,6 +132,8 @@ def adamw_update(tcfg: TrainConfig, params: Dict, grads: Dict, state: Dict,
         for piece in zip(*(t.split(rows) for t in (p, g, m, v))):
             upd(*piece, decay)
 
-    tree.map_(upd_leaf, params, grads, state["m"], state["v"])
+    if blocks is None:
+        blocks = tree.map_(lambda _: None, params)
+    tree.map_(upd_leaf, params, grads, state["m"], state["v"], blocks)
     return params, {"m": state["m"], "v": state["v"], "step": step}, \
         {"lr": lr}

@@ -1,1 +1,2 @@
-"""Runtime support of the port's training loop (fault tolerance)."""
+"""Runtime support of the port's training loop: fault tolerance, the
+logical-axis sharding rules and the collectives of data parallelism."""

@@ -1,0 +1,102 @@
+"""The collectives of data-parallel training, on ``torch.distributed``.
+
+The reference leaves them to the partitioner; the port calls them
+explicitly (NCCL on the card, gloo on the CPU). None of them is
+differentiated: a statistic over the global batch is summed without
+gradient, and the gradients are summed after the backward.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.distributed as dist
+
+# f32 entries a gradient bucket holds (256 MB)
+BUCKET = 2 ** 26
+
+
+def all_gather_into(out: torch.Tensor, t: torch.Tensor, group) -> None:
+    """``out`` (extent * t.shape[0], ...) <- every rank's ``t`` in rank
+    order along dim 0: ``all_gather_single``, which replaces the
+    deprecated ``all_gather_into_tensor`` from torch 2.13 on, where torch
+    has it (the card's torch 2.11 has only the latter)."""
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    fn(out, t, group=group)
+
+
+def gathered(t: torch.Tensor, axis) -> torch.Tensor:
+    """(extent, *t.shape): ``t`` of every rank of ``axis``."""
+    out = t.new_empty((axis.extent,) + tuple(t.shape))
+    all_gather_into(out, t.reshape((1,) + tuple(t.shape)).contiguous(),
+                    axis.group)
+    return out
+
+
+def sum_over(t: torch.Tensor, axis) -> torch.Tensor:
+    """``t`` summed over the ranks of ``axis``, in place; returned."""
+    if axis is not None and axis.group is not None:
+        dist.all_reduce(t, group=axis.group)
+    return t
+
+
+def sum_in_f32_buckets(tensors: Sequence[torch.Tensor], axis,
+                       bucket: int = BUCKET) -> None:
+    """Each tensor summed over the ranks of ``axis`` in place: packed in
+    order into f32 buckets of at most ``bucket`` entries, each bucket one
+    all-reduce, the sums written back in each tensor's dtype. No f32 copy
+    of the whole set lives at once."""
+    if axis is None or axis.group is None:
+        return
+    flat: List[torch.Tensor] = []
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("sum_in_f32_buckets takes contiguous tensors")
+        flat.extend(t.view(-1).split(bucket))
+    total = sum(p.numel() for p in flat)
+    if not total:
+        return
+    buf = torch.empty(min(bucket, total), dtype=torch.float32,
+                      device=flat[0].device)
+    pending: List[torch.Tensor] = []
+    used = 0
+
+    def flush():
+        dist.all_reduce(buf[:used], group=axis.group)
+        off = 0
+        for piece in pending:
+            piece.copy_(buf[off:off + piece.numel()])
+            off += piece.numel()
+
+    for piece in flat:
+        if used + piece.numel() > buf.numel():
+            flush()
+            pending, used = [], 0
+        buf[used:used + piece.numel()].copy_(piece)
+        pending.append(piece)
+        used += piece.numel()
+    flush()
+
+
+def gather_block(full: torch.Tensor, local: torch.Tensor, block,
+                 piece: int = BUCKET) -> None:
+    """``full`` <- every rank's ``local`` block (`Block` ``block``) in its
+    place along ``block.dim`` (``full`` contiguous). Along dim 0 the
+    blocks are gathered straight into ``full``; along a later dim, in
+    pieces of whole rows of dim 0 of at most ``piece`` entries, through a
+    buffer."""
+    axis = block.axis
+    if block.dim == 0:
+        # a copy: ``local`` may be a view of ``full``
+        all_gather_into(full, local.clone(
+            memory_format=torch.contiguous_format), axis.group)
+        return
+    k = block.size(full.shape[block.dim])
+    rows = max(1, piece * full.shape[0] // max(full.numel(), 1))
+    for r0 in range(0, full.shape[0], rows):
+        dst = full[r0:r0 + rows]
+        parts = gathered(local[r0:r0 + rows], axis)
+        for r in range(axis.extent):
+            dst.narrow(block.dim, r * k, k).copy_(parts[r])

@@ -1,0 +1,188 @@
+"""Logical-axis sharding: models name *logical* axes; the launcher binds
+them to the axes of a mesh of ranks.
+
+The port of the reference's ``repro.runtime.sharding``: the same rules,
+the same `Binding`, `current_binding` / `use_binding` and `resolve`.
+`resolve` returns a plain spec, a tuple with one entry per dimension: a
+mesh-axis name, a tuple of names, or ``None`` (replicated), the
+counterpart of a ``PartitionSpec``.
+
+Resolution is divisibility-safe: a logical axis whose physical extent
+does not divide the array dimension is dropped (replicated), and a mesh
+axis already claimed by an earlier dimension is dropped from later ones.
+
+The port runs its collectives explicitly (`torch.distributed`), so a
+binding also carries the mesh (`launch.mesh.make_mesh`), and
+`batch_axis` gives the process group, extent and index of the ranks
+that split the batch. `shard` and `shard_pin` are the identity: each
+rank already holds its own block of every tensor.
+
+The active binding is the process's, not the thread's (the reference
+keeps it per thread): the mesh is one per process, and on the card
+autograd runs the backward on a thread of its own, where a layer body
+under `models.common.remat` is recomputed and must see the binding its
+forward saw (MoE's capacity, ranks and group size, the loss's token
+count).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+Logical = Union[str, None, Tuple[str, ...]]
+Spec = Tuple[Union[str, None, Tuple[str, ...]], ...]
+
+_active: list = [None]   # the process's binding (module doc)
+
+# Default logical -> physical bindings.
+SINGLE_POD_RULES: Dict[str, Tuple[str, ...]] = {
+    "batch": ("data",),
+    "model": ("model",),
+    "expert": ("model",),
+    "vocab": ("model",),
+    "seq": ("data",),      # long-context KV sharding (decode)
+    "kv_heads": ("model",),
+    "fsdp": ("data",),     # only consulted when ParallelConfig.fsdp
+    # fallback batch sharding over the whole mesh (attention whose head
+    # count does not divide the model axis)
+    "attn_batch": ("data", "model"),
+}
+
+MULTI_POD_RULES: Dict[str, Tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "model": ("model",),
+    "expert": ("model",),
+    "vocab": ("model",),
+    "seq": ("data",),
+    "kv_heads": ("model",),
+    "fsdp": ("pod", "data"),
+    "attn_batch": ("pod", "data", "model"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """The ranks that share one block of a tensor split over mesh axes:
+    their process group (None where there is none to run), their number
+    and this rank's index among them."""
+    group: object
+    extent: int
+    index: int
+
+
+class Binding:
+    """Active logical->physical binding plus mesh axis sizes (and, in the
+    port, the mesh whose process groups run the collectives)."""
+
+    def __init__(self, rules: Dict[str, Tuple[str, ...]],
+                 axis_sizes: Dict[str, int], fsdp: bool = False,
+                 mesh=None):
+        self.rules = dict(rules)
+        self.axis_sizes = dict(axis_sizes)
+        # When False, "fsdp" axes are stripped from *parameter* specs
+        # (ZeRO-1 moments still use them — see param_sharding.py).
+        self.fsdp_params = fsdp
+        self.mesh = mesh
+
+    def extent(self, phys: Tuple[str, ...]) -> int:
+        n = 1
+        for a in phys:
+            n *= self.axis_sizes.get(a, 1)
+        return n
+
+    def axis_group(self, phys: Tuple[str, ...]) -> AxisGroup:
+        """The ranks over the mesh axes ``phys``. Only one of them may
+        have an extent above 1 (`launch.mesh.make_mesh` allows no more).
+        At extent 1 the group is the mesh's own one-rank group of a single
+        named axis, else None."""
+        wide = [a for a in phys if self.axis_sizes.get(a, 1) > 1]
+        if not wide:
+            if (self.mesh is not None and len(phys) == 1
+                    and phys[0] in self.mesh.mesh_dim_names):
+                return AxisGroup(self.mesh.get_group(phys[0]), 1, 0)
+            return AxisGroup(None, 1, 0)
+        if len(wide) > 1 or self.mesh is None:
+            raise NotImplementedError(
+                f"collectives over mesh axes {wide} (ROADMAP A.4)")
+        return AxisGroup(self.mesh.get_group(wide[0]),
+                         self.axis_sizes[wide[0]],
+                         self.mesh.get_local_rank(wide[0]))
+
+
+def current_binding() -> Optional[Binding]:
+    return _active[0]
+
+
+@contextlib.contextmanager
+def use_binding(binding: Optional[Binding]):
+    prev = _active[0]
+    _active[0] = binding
+    try:
+        yield
+    finally:
+        _active[0] = prev
+
+
+def batch_axis() -> Optional[AxisGroup]:
+    """The ranks that split the batch under the active binding, or None
+    without a binding or where they are one rank: then every statistic
+    over the batch is local, as on one device."""
+    binding = current_binding()
+    if binding is None:
+        return None
+    axis = binding.axis_group(binding.rules.get("batch", ()))
+    return axis if axis.extent > 1 else None
+
+
+def _phys_for(binding: Binding, ax: Logical) -> Tuple[str, ...]:
+    if ax is None:
+        return ()
+    if isinstance(ax, tuple):
+        return sum((binding.rules.get(a, ()) for a in ax), ())
+    return binding.rules.get(ax, ())
+
+
+def resolve(shape: Optional[Sequence[int]], *logical: Logical) -> Spec:
+    """Logical axis names -> spec under the active binding (``()``
+    without one, as ``P()``).
+
+    If `shape` is given, axes that don't divide are dropped (replicated).
+    A mesh axis already claimed by an earlier dim is dropped from later
+    dims (lets rules say ("expert", None, "model"): EP takes the model
+    axis when the expert count divides, TP over the ffn dim otherwise).
+    """
+    binding = current_binding()
+    if binding is None:
+        return ()
+    spec = []
+    used: set = set()
+    for i, ax in enumerate(logical):
+        phys = _phys_for(binding, ax)
+        phys = tuple(a for a in phys if a not in used)
+        if phys and shape is not None:
+            if shape[i] % binding.extent(phys) != 0:
+                phys = ()
+        used.update(phys)
+        if not phys:
+            spec.append(None)
+        elif len(phys) == 1:
+            spec.append(phys[0])
+        else:
+            spec.append(phys)
+    return tuple(spec)
+
+
+def shard(x, *logical: Logical):
+    """The identity: each rank already holds its block of ``x`` (the
+    reference constrains a global array's layout here)."""
+    binding = current_binding()
+    if binding is not None:
+        assert len(logical) == x.ndim, (logical, x.shape)
+    return x
+
+
+def shard_pin(x, **dims: Logical):
+    """The identity, as `shard` (the reference pins the given dims)."""
+    return x

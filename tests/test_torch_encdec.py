@@ -177,3 +177,62 @@ def test_init_cache_takes_the_encoder_length(port):
     tail = (cfg.n_kv_heads, cfg.head_dim)
     assert cache["k"].shape == (cfg.n_layers, 3, 40) + tail
     assert cache["xv"].shape == (cfg.n_layers, 3, 17) + tail
+
+
+def test_bf16_encoder_promotes_f32_frames_as_the_reference():
+    """bf16 seamless smoke fed ``TokenDataset``'s f32 frames: jnp
+    promotion makes the reference's encoder states f32; the port's are
+    f32 too and agree within rtol 1e-5, atol 1e-5 * max|ref| (a port
+    that casts the frames to bf16 is 0.047 off at a max|ref| of 3.3).
+
+    The decoder runs in bf16 in both, and its rounding differs between
+    the two packages whatever the frames: on paths this repair leaves
+    alone (``synth_train_batch``'s bf16 frames; the gemma3 and mamba2
+    smokes in bf16) one train step's loss differs by 2.8e-5 to 8.7e-5
+    relative and its grad norm (of bf16 gradients) by 2.8e-4 to 2.1e-3.
+    So the loss and the xent are held to rtol 1e-4, the grad norm to
+    5e-3, the lr exactly."""
+    from repro.configs import TrainConfig as JTrainConfig
+    from repro.data.tokens import TokenDataset as JTokenDataset
+    from repro.train import steps as j_steps
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenDataset
+    from repro_torch.models import encdec
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    train = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    cfg_j = j_get_smoke(ARCH, **bf16)
+    model_j = j_get_model(cfg_j)
+    state_j = j_steps.init_train_state(model_j, jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, state_j["params"])
+    batch_np = JTokenDataset(cfg_j, B, S, seed=0).batch_for_step(1)
+    batch_j = jax.tree.map(jnp.asarray, batch_np)
+    from repro.models import encdec as j_encdec
+    enc_j = j_encdec.encode(state_j["params"], cfg_j, batch_j["enc_embeds"])
+    loss_j, _ = model_j.loss_fn(state_j["params"], batch_j)
+    _, metrics_j = jax.jit(j_steps.make_train_step(
+        model_j, JTrainConfig(**train)))(state_j, batch_j)
+
+    cfg = get_smoke(ARCH, **bf16)
+    model = get_model(cfg, device="cpu")
+    params = params_from_numpy(cfg, tree, device="cpu")
+    batch_p = TokenDataset(cfg, B, S, seed=0).batch_for_step(1)
+    for k in batch_np:
+        assert np.array_equal(batch_p[k], batch_np[k]), k
+    batch = {k: torch.from_numpy(v) for k, v in batch_p.items()}
+    with torch.no_grad():
+        enc = encdec.encode(params, cfg, batch["enc_embeds"])
+        loss, _ = model.loss_fn(params, batch)
+    assert enc_j.dtype == jnp.float32 and enc.dtype == torch.float32
+    _close(enc.numpy(), np.asarray(enc_j))
+    np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-4)
+    _, metrics = make_train_step(model, TrainConfig(**train))(
+        {"params": params, "opt": adamw_init(params)}, batch)
+    assert set(metrics) == set(metrics_j)
+    rtol = dict(loss=1e-4, xent=1e-4, grad_norm=5e-3, lr=0.0)
+    for k in metrics_j:
+        np.testing.assert_allclose(float(metrics[k]), float(metrics_j[k]),
+                                   rtol=rtol[k], err_msg=k)

@@ -283,15 +283,20 @@ def _imports(path: Path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
     assert len(files) > 40
-    # the training slice's modules are among them
-    names = {str(f.relative_to(ROOT / "src")) for f in files[:-1]}
+    # the training slices' modules are among them
+    names = {str(f.relative_to(ROOT / "src")) for f in files}
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "dist_train_scaling.py"]
     assert {"repro_torch/data/tokens.py", "repro_torch/optim/adamw.py",
             "repro_torch/train/steps.py", "repro_torch/tree.py",
             "repro_torch/checkpoint/checkpoint.py",
             "repro_torch/runtime/fault_tolerance.py",
-            "repro_torch/launch/train.py"} <= names
+            "repro_torch/launch/train.py",
+            "repro_torch/runtime/sharding.py",
+            "repro_torch/runtime/param_sharding.py",
+            "repro_torch/runtime/collectives.py",
+            "repro_torch/optim/compress.py",
+            "repro_torch/launch/mesh.py"} <= names
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]

@@ -1,0 +1,527 @@
+#!/usr/bin/env python3
+"""Data-parallel training over the cards of one host: scaling, ZeRO-1's
+memory, an f32 check against one card, and qwen3-8b at full size.
+
+Run from the repository root on a machine with CUDA cards:
+
+    python3 tools/dist_train_scaling.py                 # every card
+    python3 tools/dist_train_scaling.py --worlds 1 2 4 --qwen
+    python3 tools/dist_train_scaling.py --worlds 2 4 --f32-only
+
+Each world size runs in its own spawn of one process a card (NCCL for
+CUDA tensors, gloo for CPU ones, over tcp://localhost on a free port),
+through the port's entry points (`launch.mesh.make_mesh`,
+`train.steps.make_train_step(..., mesh)`), under
+`train.steps.deterministic_algorithms`:
+
+  - gemma3-1b, bf16, full width and depth, random weights from seed 0,
+    TokenDataset batches of (4, 2048) a card: one warm step and
+    ``--steps`` timed steps (CUDA events on rank 0; the collectives keep
+    the ranks in step), ZeRO-1 on, then off: step ms, tok/s over every
+    card, scale efficiency against world 1 (same call), peak MB a card
+    (the largest over the ranks), loss and grad norm finite;
+  - at world >= 2, gemma3-1b in f32 at full width with remat, a global
+    batch of (2n, 256): one data-parallel step against the single-card
+    step on the global batch (rank 0's card), by `f32_check`: the
+    metrics, the moments in each leaf's relative L2 norm, and the
+    parameters against AdamW's step from the run's own moments (at full
+    width the per-entry rule of tests/test_torch_train_models.py does
+    not hold: rounding-level gradients are common there); then the same
+    step with the gradients left unsummed, and with the ZeRO-1 blocks of
+    the parameters left ungathered, each of which the check must fail;
+  - with ``--qwen`` at the largest world: qwen3-8b, bf16, full width and
+    depth, (1, 2048) a card, ZeRO-1: a warm step and ``--steps`` timed
+    ones: tok/s, peak MB a card, loss and grad norm finite; and its
+    state on one card reckoned by bytes (parameters and gradients in
+    bf16, two f32 moments: 12 B a parameter).
+
+Prints the card's name and power limit (``nvidia-smi``) and each result
+line; writes the results as JSON to ``--out`` (default
+build/dist_train_scaling.json). Exits non-zero if a check fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
+
+BF16_SHAPE = (4, 2048)          # a card
+QWEN_SHAPE = (1, 2048)          # a card
+F32_SEQ = 256
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def card() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "nvidia-smi not available"
+
+
+# ---------------------------------------------------------------------------
+# One rank
+# ---------------------------------------------------------------------------
+
+
+def _start(rank: int, world: int, port: int, device: str):
+    """The process group and mesh of one rank; its card set first."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "cpu:gloo,cuda:nccl" if device == "cuda" else "gloo",
+        init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
+    return make_mesh((world, 1), ("data", "model"), device_type=device)
+
+
+def _dev():
+    if torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _config(arch: str, dtype: str, smoke: bool, **overrides):
+    from repro_torch.configs import get_config, get_smoke
+    return (get_smoke if smoke else get_config)(
+        arch, param_dtype=dtype, compute_dtype=dtype, **overrides)
+
+
+class _Timer:
+    """CUDA events on the card, the host clock on the CPU (a debug run)."""
+
+    def __init__(self, dev):
+        self.cuda = dev.type == "cuda"
+
+    def sync(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    def start(self):
+        self.sync()
+        if self.cuda:
+            self.s, self.e = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+            self.s.record()
+        self.t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        if self.cuda:
+            self.e.record()
+            self.sync()
+            return self.s.elapsed_time(self.e)
+        return (time.perf_counter() - self.t0) * 1e3
+
+
+def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
+              dtype: str = "bfloat16", smoke: bool = False) -> dict:
+    """Warm step + ``steps`` timed data-parallel steps of ``arch`` at
+    ``shape`` rows a card; rank 0's CUDA-event times, every rank's peak
+    memory."""
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenDataset
+    from repro_torch.launch.mesh import binding_for
+    from repro_torch.models import get_model
+    from repro_torch.models.api import family_module
+    from repro_torch.train.steps import (deterministic_algorithms,
+                                         init_train_state, make_train_step,
+                                         state_blocks)
+
+    cfg = _config(arch, dtype, smoke)
+    world = mesh.size()
+    axis = binding_for(mesh).axis_group(("data",))
+    dev = _dev()
+    timer = _Timer(dev)
+    if timer.cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, device=dev)
+    tcfg = TrainConfig(zero1=zero1)
+    blocks = state_blocks(
+        family_module(cfg).init_params(cfg, None, torch.device("meta")),
+        tcfg, mesh)
+    state = init_train_state(model, 0, blocks)
+    step_fn = make_train_step(model, tcfg, mesh)
+    data = TokenDataset(cfg, shape[0] * world, shape[1], seed=0)
+    ms, losses, norms = [], [], []
+    with deterministic_algorithms():
+        for i in range(steps + 1):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                     data.rows_for_step(i + 1, axis.index,
+                                        axis.extent).items()}
+            dist.barrier()
+            timer.start()
+            state, metrics = step_fn(state, batch)
+            ms.append(timer.stop())
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+    peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e6
+                         if timer.cuda else float("nan")], device=dev)
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    n_params = sum(p.numel() for p in tree.leaves(state["params"]))
+    del state, step_fn, model
+    if timer.cuda:
+        torch.cuda.empty_cache()
+    timed = ms[1:]
+    toks = shape[0] * shape[1] * world
+    return dict(arch=arch, dtype=dtype, world=world, zero1=zero1,
+                rows_a_card=shape[0], seq=shape[1], params=n_params,
+                warm_ms=ms[0], step_ms=timed,
+                tok_s=toks / np.mean(timed) * 1e3,
+                peak_mb_a_card=float(peak.item()), loss=losses,
+                grad_norm=norms,
+                finite=bool(np.all(np.isfinite(losses + norms))))
+
+
+F32_LIMIT = 1e-5                # rtol of the metrics and the parameters
+# each leaf's moments, relative L2: four times the worst reading at
+# gemma3-1b's full width on H100s (6.85e-6 at 2 cards, 6.99e-6 at 4),
+# rounded up; the unsummed fault reads 0.997-1.69 there
+MOMENT_LIMIT = 5e-5
+# faults the f32 check must catch: the gradients left unsummed over
+# "data", and the parameters' ZeRO-1 blocks left ungathered
+CONTROLS = ("unsummed", "ungathered")
+
+
+def _dp_step(mesh, model, tcfg, data, fault=None):
+    """One data-parallel step from ``model.init_params(0)`` on the global
+    batch's rows of this rank; ``fault`` (one of CONTROLS) breaks it. The
+    whole state on rank 0's host, and the metrics."""
+    from repro_torch import checkpoint
+    from repro_torch.launch.mesh import binding_for
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import collectives
+    from repro_torch.train.steps import (deterministic_algorithms,
+                                         make_train_step, state_blocks)
+    axis = binding_for(mesh).axis_group(("data",))
+    dev = _dev()
+    params = model.init_params(0)
+    blocks = state_blocks(params, tcfg, mesh)
+    state = {"params": params, "opt": adamw_init(params, blocks["opt"]["m"])}
+    rows = data.rows_for_step(1, axis.index, axis.extent)
+    name = {"unsummed": "sum_in_f32_buckets",
+            "ungathered": "gather_block"}.get(fault)
+    kept = getattr(collectives, name) if name else None
+    try:
+        if name:
+            setattr(collectives, name, lambda *a, **k: None)
+        with deterministic_algorithms():
+            state, metrics = make_train_step(model, tcfg, mesh)(
+                state, {k: torch.from_numpy(v).to(dev)
+                        for k, v in rows.items()})
+    finally:
+        if name:
+            setattr(collectives, name, kept)
+    return (checkpoint.host_tree(state, blocks),
+            {k: float(v) for k, v in metrics.items()})
+
+
+def _held(dp, dp_metrics, one, one_metrics, init, tcfg, lr) -> dict:
+    """`f32_check`'s criterion: one data-parallel step ``dp`` against the
+    single card's ``one`` (whole states by path; ``init`` the parameters
+    they started from)."""
+    dev = _dev()
+    worst_metric = max(abs(dp_metrics[k] - one_metrics[k])
+                       / max(abs(one_metrics[k]), 1e-30) for k in one_metrics)
+    worst_moment, worst_param, apart = 0.0, 0.0, 0
+    bad = []
+    for leaf, p0 in init.items():
+        for name in ("m", "v"):
+            ref = one[f"opt/{name}/{leaf}"].double()
+            got = dp[f"opt/{name}/{leaf}"].to(dev).double()
+            rel = float((got - ref).norm() / ref.norm().clamp(min=1e-300))
+            worst_moment = max(worst_moment, rel)
+            if rel > MOMENT_LIMIT:
+                bad.append(f"opt/{name}/{leaf}")
+        m = dp[f"opt/m/{leaf}"].to(dev).double() / (1 - tcfg.b1)
+        v = dp[f"opt/v/{leaf}"].to(dev).double() / (1 - tcfg.b2)
+        p0 = p0.double()
+        delta = m / (v.sqrt() + tcfg.eps)
+        if p0.ndim >= 2:
+            delta = delta + tcfg.weight_decay * p0
+        want = p0 - lr * delta
+        got = dp[f"params/{leaf}"].to(dev).double()
+        # the error over its tolerance: within it at most 1
+        over = float(((got - want).abs() / (
+            F32_LIMIT * (want.abs() + want.abs().max()))).max())
+        worst_param = max(worst_param, over)
+        if over > 1:
+            bad.append(f"params/{leaf}")
+        ref = one[f"params/{leaf}"].double()
+        apart += int(((got - ref).abs() > F32_LIMIT * ref.abs()
+                      + F32_LIMIT * ref.abs().max()).sum())
+    n = sum(p.numel() for p in init.values())
+    return dict(loss=[dp_metrics["loss"], one_metrics["loss"]],
+                grad_norm=[dp_metrics["grad_norm"],
+                           one_metrics["grad_norm"]],
+                worst_metric_rel=worst_metric,
+                worst_moment_rel_l2=worst_moment,
+                param_err_over_tol=worst_param, params_apart=apart / n,
+                leaves_off=bad, ok=worst_metric <= F32_LIMIT and not bad)
+
+
+def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
+              overrides: dict = None) -> dict:
+    """``arch`` in f32 with remat (``overrides`` on its config), global
+    batch (2n, F32_SEQ): one data-parallel step against the single-card
+    step on the global batch (rank 0), by `_held`: the metrics within
+    rtol F32_LIMIT; each leaf's moments m and v (the clipped gradient and
+    its square) within MOMENT_LIMIT of the single card's in the relative
+    L2 norm; and every parameter equal, within rtol F32_LIMIT and atol
+    F32_LIMIT * max|p|, to its initial value moved by AdamW's step-1
+    update computed in float64 from the data-parallel run's own moments
+    (which catches a block the ZeRO-1 gather left stale). Parameters are
+    not held to the single card's entry by entry: step 1 moves each by
+    about lr * g / (|g| + eps), so a gradient at rounding level, common
+    at full width, moves it by up to lr either way. The step is then run
+    with each fault of CONTROLS, and each must fail the criterion
+    (``controls_caught``)."""
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import TokenDataset
+    from repro_torch.launch.mesh import binding_for
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.train.steps import (deterministic_algorithms,
+                                         make_train_step)
+
+    world = mesh.size()
+    cfg = _config(arch, "float32", smoke, remat=True, **(overrides or {}))
+    dev = _dev()
+    model = get_model(cfg, device=dev)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    data = TokenDataset(cfg, 2 * world, F32_SEQ, seed=0)
+    lead = binding_for(mesh).axis_group(("data",)).index == 0
+    one = one_metrics = init = None
+    if lead:
+        params = model.init_params(0)
+        with deterministic_algorithms():
+            one, metrics = make_train_step(model, tcfg)(
+                {"params": params, "opt": adamw_init(params)},
+                {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_for_step(1).items()})
+        one = dict(tree.items(one))
+        one_metrics = {k: float(v) for k, v in metrics.items()}
+        init = dict(tree.items(model.init_params(0)))
+    dist.barrier()
+    lr = float(cosine_schedule(tcfg)(1))
+    out = None
+    for fault in (None,) + CONTROLS:
+        dp, dp_metrics = _dp_step(mesh, model, tcfg, data, fault)
+        if lead:
+            held = _held(dp, dp_metrics, one, one_metrics, init, tcfg, lr)
+            if fault is None:
+                out = dict(arch=cfg.name, world=world,
+                           global_batch=[2 * world, F32_SEQ], **held,
+                           controls={})
+            else:
+                out["controls"][fault] = {
+                    k: held[k] for k in ("worst_metric_rel",
+                                         "worst_moment_rel_l2",
+                                         "param_err_over_tol", "ok")}
+        del dp
+        dist.barrier()
+    if lead:
+        out["controls_caught"] = not any(c["ok"] for c in
+                                         out["controls"].values())
+        out["ok"] = out["ok"] and out["controls_caught"]
+    del one, init
+    return out
+
+
+def rank_main(rank: int, world: int, port: int, jobs: list,
+              out_path: str, device: str, smoke: bool) -> None:
+    import torch.distributed as dist
+    mesh = _start(rank, world, port, device)
+    results = []
+    try:
+        for job in jobs:
+            if job[0] == "timed":
+                results.append(timed_run(mesh, *job[1:], smoke=smoke))
+            elif job[0] == "f32":
+                results.append(f32_check(mesh, smoke, *job[1:]))
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+
+
+def run_world(world: int, jobs: list, tmp: str, device: str = "cuda",
+              smoke: bool = False) -> list:
+    """``jobs`` on ``world`` cards, one process a card; rank 0's
+    results."""
+    path = os.path.join(tmp, f"world{world}.json")
+    mp.start_processes(rank_main, args=(world, free_port(), jobs, path,
+                                        device, smoke),
+                       nprocs=world, join=True, start_method="spawn")
+    with open(path) as f:
+        return json.load(f)
+
+
+# ---------------------------------------------------------------------------
+
+
+def gemma_jobs(steps: int) -> list:
+    return [("timed", "gemma3-1b", BF16_SHAPE, steps, True),
+            ("timed", "gemma3-1b", BF16_SHAPE, steps, False)]
+
+
+def report_timed(r: dict, base: dict = None) -> str:
+    eff = ""
+    if base is not None:
+        e = r["tok_s"] / (base["tok_s"] * r["world"])
+        eff = f"; scale efficiency {e:.3f} against world 1"
+    return (f"[dist] {r['arch']} {r['dtype']} world {r['world']} zero1 "
+            f"{'on' if r['zero1'] else 'off'}, ({r['rows_a_card']}, "
+            f"{r['seq']}) a card, {r['params'] / 1e9:.3f} B parameters: "
+            f"warm {r['warm_ms']:.1f} ms; steps "
+            + ", ".join(f"{t:.1f}" for t in r["step_ms"])
+            + f" ms = {r['tok_s']:.0f} tok/s{eff}; peak "
+            f"{r['peak_mb_a_card']:.1f} MB a card; loss "
+            + ", ".join(f"{x:.4f}" for x in r["loss"]) + "; grad_norm "
+            + ", ".join(f"{x:.4f}" for x in r["grad_norm"]))
+
+
+def report_f32(r: dict) -> str:
+    lim = f"{F32_LIMIT:.0e}"
+    controls = "; ".join(
+        f"{k}: metric {c['worst_metric_rel']:.2e}, moments "
+        f"{c['worst_moment_rel_l2']:.2e}, parameters' error over tolerance "
+        f"{c['param_err_over_tol']:.2e}, {'passed' if c['ok'] else 'failed'}"
+        for k, c in r["controls"].items())
+    return (f"[dist] {r['arch']} f32 world {r['world']}, global batch "
+            f"{tuple(r['global_batch'])}, one step against one card: loss "
+            f"{r['loss'][0]:.7f} / {r['loss'][1]:.7f}, grad_norm "
+            f"{r['grad_norm'][0]:.7f} / {r['grad_norm'][1]:.7f} (worst "
+            f"metric rel {r['worst_metric_rel']:.2e}, rtol {lim}); moments "
+            f"m, v: worst relative L2 {r['worst_moment_rel_l2']:.2e} "
+            f"({MOMENT_LIMIT:.0e})"
+            f"; parameters against AdamW's step from the run's own "
+            f"moments: worst error over its tolerance (rtol {lim}, atol "
+            f"{lim} max|p|) {r['param_err_over_tol']:.2e} (1); {100 * r['params_apart']:.4f} % of the "
+            f"parameters apart from one card's by more than that (gradients"
+            f" at rounding level); leaves off: {r['leaves_off'] or 'none'}"
+            + (f"; controls (each must fail): {controls}" if controls
+               else ""))
+
+
+def qwen_reckoning() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import family_module
+    from repro_torch.tree import leaves
+    cfg = get_config("qwen3-8b")
+    n = sum(p.numel() for p in leaves(family_module(cfg).init_params(
+        cfg, None, torch.device("meta"))))
+    card_bytes = (torch.cuda.get_device_properties(0).total_memory
+                  if torch.cuda.is_available() else float("nan"))
+    return dict(params=n, one_card_gb=n * 12 / 1e9,
+                zero1_4_gb=n * (2 + 2 + 8 / 4) / 1e9,
+                card_gb=card_bytes / 1e9)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--worlds", type=int, nargs="*", default=None,
+                    help="world sizes (default 1, 2, 4 up to the cards)")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--qwen", action="store_true",
+                    help="qwen3-8b at full size over the largest world")
+    ap.add_argument("--out", default=os.path.join(
+        ROOT, "build", "dist_train_scaling.json"))
+    ap.add_argument("--f32-only", action="store_true",
+                    help="only the f32 check (at worlds >= 2)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="smoke configs (a check of the script itself)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cpu: gloo ranks on the CPU, host-clock times, "
+                    "with --smoke")
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("FAILED: no CUDA device")
+    n_cards = (torch.cuda.device_count() if args.device == "cuda"
+               else max(args.worlds or [1]))
+    worlds = args.worlds or [w for w in (1, 2, 4, 8) if w <= n_cards]
+    if max(worlds) > n_cards:
+        raise SystemExit(f"FAILED: {max(worlds)} ranks, {n_cards} cards")
+    say(f"[dist] {card()} x {n_cards}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    tmp = os.path.dirname(os.path.abspath(args.out))
+    os.makedirs(tmp, exist_ok=True)
+    out = {"card": card(), "cards": n_cards, "timed": [], "f32": [],
+           "qwen": None}
+    base = {}
+    ok = True
+    t_all = time.perf_counter()
+    for world in worlds:
+        t0 = time.perf_counter()
+        jobs = [("f32", "gemma3-1b")] if world >= 2 else []
+        if not args.f32_only:
+            jobs += gemma_jobs(args.steps)
+        if args.qwen and world == max(worlds):
+            jobs.append(("timed", "qwen3-8b", QWEN_SHAPE, args.steps, True))
+        results = run_world(world, jobs, tmp, args.device, args.smoke)
+        for r in results:
+            if "tok_s" in r:
+                if r["world"] == 1:
+                    base[r["arch"], r["zero1"]] = r
+                say(report_timed(r, base.get((r["arch"], r["zero1"]))
+                                 if r["world"] > 1 else None))
+                ok &= r["finite"]
+                out["timed"].append(r)
+            else:
+                say(report_f32(r))
+                ok &= r["ok"]
+                out["f32"].append(r)
+        say(f"[dist] world {world} took {time.perf_counter() - t0:.1f}s")
+    if args.qwen:
+        rk = qwen_reckoning()
+        out["qwen"] = rk
+        say(f"[dist] qwen3-8b: {rk['params'] / 1e9:.3f} B parameters; "
+            f"state on one card {rk['one_card_gb']:.1f} GB (bf16 "
+            f"parameters and gradients, f32 m and v: 12 B a parameter) "
+            f"against {rk['card_gb']:.1f} GB a card: does not fit; with "
+            f"ZeRO-1 over 4 cards {rk['zero1_4_gb']:.1f} GB a card before "
+            "activations")
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    say(f"[dist] done in {time.perf_counter() - t_all:.1f}s; results in "
+        f"{args.out}")
+    if not ok:
+        say("FAILED: a check did not hold")
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
