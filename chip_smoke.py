@@ -142,6 +142,24 @@ last line):
                peak MB a card) and gemma3-1b f32 at a global (2n, 256),
                one step against one card (its `f32_check`, with the
                faults it must catch);
+  8e. tp     — tensor parallelism over "model": in this process, the
+               step on a mesh of (1, 1), which takes the one-device
+               path (at a "model" extent of 1 `model_axis` is None:
+               every piece is whole and no "model" collective runs; the
+               Megatron pair, the vocab-parallel loss and the shared
+               gradients' sum run only from two cards), on mamba2-130m
+               bf16 at full width and depth, (4, 2048), two steps
+               against `make_train_step` bit for bit; with two or more
+               cards,
+               tools/dist_train_scaling.py --meshes (its own process) at
+               (1, n) and, from 4 cards, (n / 2, 2): gemma3-1b bf16 at a
+               global (16, 2048) (tok/s, peak MB a card) and the f32
+               step against one card for gemma3-1b (one KV head shared
+               by every rank) and mamba2-130m (in_proj's segments, the
+               gated norm over the whole width), each with the faults it
+               must catch (the shared KV head's "model" sum left out,
+               the gated norm over the rank's width); no kernel launched
+               (the counts zeroed before the phase, and the tool's own);
   9. launches — how many CUDA launches one call of each multi-launch
                kernel makes, and the device time of each (torch.profiler,
                after every timed phase): the fused spans at the paper's
@@ -225,7 +243,6 @@ from repro_torch.models.hybrid import n_attn_invocations  # noqa: E402
 from repro_torch import tree as tree_lib  # noqa: E402
 from repro_torch.checkpoint import host_tree  # noqa: E402
 from repro_torch.launch.mesh import binding_for, make_mesh  # noqa: E402
-from repro_torch.models.api import family_module  # noqa: E402
 from repro_torch.optim.compress import compressed_psum_mean  # noqa: E402
 from repro_torch.runtime.sharding import use_binding  # noqa: E402
 from repro_torch.train.steps import state_blocks  # noqa: E402
@@ -2180,9 +2197,7 @@ def dist_world1() -> None:
                             rank=0, world_size=1)
     try:
         mesh = make_mesh((1, 1), ("data", "model"))
-        spec = family_module(cfg).init_params(cfg, None,
-                                              torch.device("meta"))
-        blocks = state_blocks(spec, tcfg, mesh)
+        blocks = state_blocks(cfg, tcfg, mesh)
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         ms, got = [], []
@@ -2282,6 +2297,106 @@ def phase_dist() -> None:
     say(f"[dist] took {time.perf_counter() - t0:.1f}s")
 
 
+TP_ARCH = "mamba2-130m"    # the one-card check: the SSM's pieces at 1
+TP_STEPS = 2
+
+
+def tp_model1() -> None:
+    """[tp] in this process, over one NCCL rank: the step on the mesh
+    (1, 1) against `make_train_step` without a mesh, TP_STEPS steps of
+    TP_ARCH at full width and depth (bf16, remat, TokenDataset at
+    SCORE_SHAPE, deterministic mode): parameters, moments and metrics
+    bit for bit. At a "model" extent of 1 `runtime.sharding.model_axis`
+    is None, so `runtime.param_sharding.tp_pieces` gives every leaf
+    whole and no "model" collective runs: this confirms that a mesh of
+    (1, 1) takes the one-device path (the mesh binding, `state_blocks`,
+    the state built and gathered by its blocks, the step's order), not
+    the Megatron pair, which needs two cards."""
+    import torch.distributed as dist
+    cfg, name = lm_config(TP_ARCH)
+    model = get_model(cfg)
+    tcfg = TrainConfig()
+    data = TokenDataset(cfg, *SCORE_SHAPE, seed=0)
+    batches = [_on_card(data.batch_for_step(i), torch.device("cuda"))
+               for i in range(1, TP_STEPS + 1)]
+    runs = []
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        for mesh in (None, make_mesh((1, 1), ("data", "model"))):
+            blocks = state_blocks(cfg, tcfg, mesh)
+            pieces = [s.piece for s in tree_lib.leaves(blocks["params"])
+                      if s is not None and s.piece is not None]
+            check(not pieces, f"[tp] pieces at model 1: {pieces[:2]}")
+            with deterministic_algorithms():
+                state = init_train_state(model, 0, blocks)
+                step = make_train_step(model, tcfg, mesh)
+                got = []
+                for batch in batches:
+                    state, metrics = step(state, batch)
+                    got.append({k: float(v) for k, v in metrics.items()})
+            whole = host_tree(state, blocks if mesh is not None else None)
+            runs.append(({k: v.to("cpu") for k, v in whole.items()}, got))
+            del state, step, whole
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    (plain, m_plain), (tp, m_tp) = runs
+    differ = [k for k in plain if not torch.equal(plain[k], tp[k])]
+    say(f"[tp] mesh (1, 1) in this process, {name} {cfg.param_dtype}, "
+        f"{SCORE_SHAPE}, {TP_STEPS} steps: against make_train_step "
+        f"{len(plain)} arrays of parameters and moments, {len(differ)} "
+        f"differ; metrics {'equal' if m_plain == m_tp else 'differ'} "
+        "(loss " + ", ".join(f"{m['loss']:.6f}" for m in m_tp) + ")")
+    check(not differ, f"[tp] mesh (1, 1) differs: {differ[:4]}")
+    check(m_plain == m_tp, f"[tp] mesh (1, 1) metrics {m_tp} != {m_plain}")
+
+
+def phase_tp() -> None:
+    """8e [tp]: tensor parallelism over "model". The launch counts are
+    zeroed first and must read 0 after: no kernel lies on the training
+    path. In this process `tp_model1`; with two or more cards,
+    tools/dist_train_scaling.py --meshes in a process of its own (one
+    more a card) at (1, n) and, from 4 cards, (n / 2, 2), whose results
+    (and each job's own launch counts) come back through its JSON."""
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    tp_model1()
+    n = torch.cuda.device_count()
+    if n >= 2:
+        meshes = [f"1x{n}"] + ([f"{n // 2}x2"] if n >= 4 and n % 2 == 0
+                               else [])
+        root = os.path.dirname(os.path.abspath(__file__))
+        out = os.path.join(root, "build", f"tp_{os.getpid()}.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "tools",
+                                          "dist_train_scaling.py"),
+             "--meshes", *meshes, "--steps", str(TP_STEPS), "--out", out],
+            capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            if line.startswith(("[tp]", "FAILED")):
+                say(line)
+        check(proc.returncode == 0, f"[tp] over {n} cards: exit "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(out) as f:
+            results = json.load(f)
+        os.remove(out)
+        jobs = results["timed"] + results["f32"]
+        tool_launched = {k: v for r in jobs
+                         for k, v in r["launches"].items() if v}
+        check(not tool_launched, f"[tp] the tool launched {tool_launched}")
+        check(all(r["controls_caught"] for r in results["f32"]),
+              "[tp] a fault passed the f32 check")
+    else:
+        say("[tp] the tensor-parallel step across cards needs two or "
+            "more cards; one here")
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    say(f"[tp] kernels launched: {launched or 'none'}; took "
+        f"{time.perf_counter() - t0:.1f}s")
+    check(not launched, f"[tp] launched {launched}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # constants are built afresh: the disk tier is on only in its own
@@ -2313,6 +2428,7 @@ def main() -> None:
     phase_products()
     phase_train()
     phase_dist()
+    phase_tp()
     phase_launches()
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": [

@@ -16,11 +16,12 @@ other.
   * async: `AsyncCheckpointer` copies the tree to host memory on the
     caller's thread, then writes it on a background thread, so the train
     loop does not wait for the disk.
-  * elastic: with ``shardings`` (a tree of `runtime.param_sharding.Block`
+  * elastic: with ``shardings`` (a tree of `runtime.param_sharding.Shard`
     or None, `train.steps.state_blocks`), the split leaves (ZeRO-1
-    moments) are gathered first, every rank taking part, and rank 0
-    alone writes the whole state in the same layout; `restore` with
-    ``shardings`` splits a whole state again, for any number of ranks.
+    blocks of the moments over "data", pieces of the parameters and
+    moments over "model") are gathered first, every rank taking part,
+    and rank 0 alone writes the whole state in the same layout; `restore`
+    with ``shardings`` splits a whole state again, for any mesh.
   * host memory: a save holds the whole state on the writer's host in
     its own dtypes, and one leaf at a time as the f32 array written; a
     restore holds one whole leaf at a time.
@@ -49,14 +50,19 @@ def _host(leaf: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _whole(leaf: torch.Tensor, block) -> torch.Tensor:
-    """The whole leaf of which ``leaf`` is this rank's ``block`` (every
-    rank of the block's axis calls this together)."""
-    if block is None:
+def _whole(leaf: torch.Tensor, shard) -> torch.Tensor:
+    """The whole leaf of which ``leaf`` is this rank's `Shard` ``shard``
+    (every rank calls this together): its ZeRO-1 block gathered over
+    "data", then its piece over "model"."""
+    if shard is None:
         return leaf
-    full = leaf.new_empty(block.full_shape(leaf.shape))
-    collectives.gather_block(full, leaf, block)
-    return full
+    if shard.block is not None:
+        full = leaf.new_empty(shard.block.full_shape(leaf.shape))
+        collectives.gather_block(full, leaf, shard.block)
+        leaf = full
+    if shard.piece is not None:
+        leaf = collectives.gather_piece(leaf, shard.piece)
+    return leaf
 
 
 def _writes(shardings) -> bool:
@@ -135,8 +141,8 @@ def restore(ckpt_dir: str, step: int, template: Dict, device=None,
     """Load ``step`` into ``template``'s structure and dtypes (the whole
     state's shapes), on ``device`` (default: each template leaf's
     device; a template on the meta device needs one); where
-    ``shardings`` gives a leaf a `Block`, only this rank's block of it,
-    whatever number of ranks wrote it (elastic). The arrays are read one
+    ``shardings`` gives a leaf a `Shard`, only this rank's part of it,
+    whatever mesh wrote it (elastic). The arrays are read one
     at a time, each narrowed to its block and moved before the next, so
     the host holds one whole leaf at most."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
@@ -150,9 +156,9 @@ def restore(ckpt_dir: str, step: int, template: Dict, device=None,
                 raise ValueError(f"checkpoint {key}: shape "
                                  f"{tuple(t.shape)}, expected "
                                  f"{tuple(leaf.shape)}")
-            block = blocks.get(key)
-            if block is not None:
-                t = block.take(t).clone()
+            shard = blocks.get(key)
+            if shard is not None:
+                t = shard.take(t).clone()
             leaves.append(t.to(device=device or leaf.device,
                                dtype=leaf.dtype))
             del t

@@ -9,11 +9,15 @@ per device; the caller starts the group (``torchrun``, or
 Production: single pod (data=16, model=16), 256 ranks; multi-pod
 (pod=2, data=16, model=16), 512 ranks.
 
-This port splits the batch only: every axis but "data" has extent 1.
-`make_mesh` raises `NotImplementedError` for a "model" or "pod" extent
-above 1, for ``ParallelConfig.fsdp`` and for a pipeline "pod" axis
-(ROADMAP A.4), so nothing is replicated where the reference would split
-it.
+The port runs a 2-D mesh (data = d, model = m), d x m = world:
+"data" splits the batch, "model" the heads, the MLP's width, the SSM's
+heads and the vocabulary (Megatron tensor parallelism, `models.common`,
+`runtime.param_sharding.tp_pieces`). `make_mesh` raises
+`NotImplementedError` for a "pod" extent above 1, for
+``ParallelConfig.fsdp`` and for a pipeline "pod" axis (ROADMAP A.4.2,
+A.4.5), so nothing is replicated where the reference would split it;
+`train.steps.make_train_step` refuses the configs that "model" cannot
+split yet (experts, A.4.3; heads it does not divide, A.4.6).
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ def make_mesh(shape: Sequence[int] = None,
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} for axes {axes}")
     for a, n in zip(axes, shape):
-        if a != "data" and n > 1:
+        if a not in ("data", "model") and n > 1:
             raise NotImplementedError(_TODO.format(f'a "{a}" axis of {n}'))
     if parallel.fsdp:
         raise NotImplementedError(_TODO.format("ParallelConfig.fsdp"))

@@ -3,14 +3,17 @@
 The port of the reference's ``repro.launch.train``: deterministic data
 pipeline -> train step -> async checkpointing -> preemption and hang
 handling -> restart from the latest checkpoint. Runs on the card unless
-asked for the CPU (``--device cpu``), on one device, or data-parallel over
-the ranks of a ``torchrun`` (``--data N``, one card a rank; ``--batch``
-is the global batch):
+asked for the CPU (``--device cpu``), on one device, or over the ranks of
+a ``torchrun`` on a mesh of (data = N / M, model = M) (``--data N`` ranks
+in all, one card a rank, ``--model M`` of them splitting the model;
+``--batch`` is the global batch):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
       --smoke --device cpu --steps 50 --batch 8 --seq 128 --ckpt-dir CKPT
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch gemma3-1b --steps 20 --batch 16 --seq 2048 --data 4
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen3-8b --steps 20 --batch 4 --seq 2048 --data 4 --model 4
 """
 
 from __future__ import annotations
@@ -55,17 +58,19 @@ def train_loop(cfg, tcfg: TrainConfig, *, batch: int, seq: int,
     first waits for the checkpoint in flight, so the restart finds it.
 
     With a ``mesh`` (`launch.mesh.make_mesh`; every rank calls this with
-    the same arguments), the data-parallel step on each rank's rows of
-    the global ``batch``: rank 0 picks the step to resume from and writes
-    the checkpoints (whole, in the one-device layout, so a run resumes at
-    any number of ranks), the ranks agree on preemption through one
-    all-reduce of the flag a step, and only rank 0 prints."""
+    the same arguments), the step across ranks on the rows of each
+    rank's "data" coordinate of the global ``batch`` (the ranks of
+    "model" share them) and its pieces of the model: rank 0 picks the
+    step to resume from and writes the checkpoints (whole, in the
+    one-device layout, so a run resumes at any mesh), the ranks agree on
+    preemption through one all-reduce of the flag a step over all of
+    them, and only rank 0 prints."""
     dev = resolve_device(device)
     model = get_model(cfg, device=dev)
     data = TokenDataset(cfg, batch, seq, seed=tcfg.seed)
     train_step = steps_lib.make_train_step(model, tcfg, mesh, parallel)
     spec = family_module(cfg).init_params(cfg, None, torch.device("meta"))
-    blocks = steps_lib.state_blocks(spec, tcfg, mesh, parallel)
+    blocks = steps_lib.state_blocks(cfg, tcfg, mesh, parallel)
     axis = (binding_for(mesh, parallel).axis_group(("data",))
             if mesh is not None else None)
     shardings = blocks if mesh is not None else None
@@ -98,7 +103,7 @@ def train_loop(cfg, tcfg: TrainConfig, *, batch: int, seq: int,
         if axis is None:
             return flag
         t = torch.tensor([int(flag)], device=dev)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=axis.group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return bool(t.item())
 
     saver = ckpt_lib.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
@@ -156,8 +161,12 @@ def main() -> None:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="default: cuda (fails without a CUDA device)")
     ap.add_argument("--data", type=int, default=1,
-                    help="data-parallel ranks (under torchrun, one card "
-                    "a rank; --batch is the global batch)")
+                    help="ranks in all (under torchrun, one card a rank; "
+                    "--batch is the global batch)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="of the --data ranks, how many split the model "
+                    "(tensor parallelism): a mesh of (data / model, "
+                    "model)")
     args = ap.parse_args()
 
     cfg = (get_smoke(args.arch) if args.smoke else get_config(args.arch))
@@ -168,7 +177,10 @@ def main() -> None:
 
     mesh, device = None, args.device
     if args.data > 1:
-        mesh, device = start_ranks(args.data, args.device)
+        mesh, device = start_ranks(args.data, args.device, args.model)
+    elif args.model > 1:
+        raise ValueError(f"--model {args.model} needs --data of at least "
+                         "as many ranks")
     watchdog = HangWatchdog(args.hang_timeout).start()
     try:
         with PreemptionHandler() as pre:
@@ -182,11 +194,14 @@ def main() -> None:
             dist.destroy_process_group()
 
 
-def start_ranks(n: int, device: str):
+def start_ranks(n: int, device: str, model: int = 1):
     """The process group of a ``torchrun`` of ``n`` ranks (its
     environment: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT) and its
-    mesh of ``n`` on "data"; NCCL with one card a rank (set before the
-    group starts), gloo on the CPU. -> (mesh, this rank's device)."""
+    mesh of (n / model, model) on ("data", "model"); NCCL with one card
+    a rank (set before the group starts), gloo on the CPU. -> (mesh,
+    this rank's device)."""
+    if model < 1 or n % model:
+        raise ValueError(f"--model {model} does not divide --data {n}")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world != n:
         raise ValueError(f"--data {n} under a world of {world} ranks "
@@ -200,7 +215,7 @@ def start_ranks(n: int, device: str):
     else:
         dist.init_process_group("gloo")
         dev = "cpu"
-    return make_mesh((n, 1), ("data", "model")), dev
+    return make_mesh((n // model, model), ("data", "model")), dev
 
 
 if __name__ == "__main__":

@@ -18,6 +18,14 @@ A window may be a Python int or a 0-d tensor (gemma3's per-layer window,
 picked on the device as the reference's traced ``jnp.where``); a tensor
 is never read back to the host. Only an int 0 takes the flash kernel.
 
+Under a "model" axis (`runtime.sharding.model_axis`) `gqa_attention`
+runs on the rank's query heads and the KV heads they read, their counts
+taken from the pieces of wq and wk (`runtime.param_sharding.tp_pieces`):
+the input enters through `collectives.copy_in`, wo is row-parallel and
+its product leaves through `collectives.reduce_out`. q_norm and k_norm
+are whole (one scale a head dim). Cross attention takes K and V that
+its caller computed the same way (`encdec.cross_kv`).
+
 Storage-dtype operands with f32 accumulation, as the reference's
 ``preferred_element_type=f32``: every attention product goes through
 `common.f32_product`, which on the card without autograd reads bf16
@@ -37,6 +45,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.config import Variant
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
+from repro_torch.runtime import collectives
+from repro_torch.runtime import sharding as shlib
 
 NEG_INF = -1e30
 
@@ -258,9 +268,13 @@ def gqa_project_qkv(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     """q, k, v of ``x``; q and k rms-normed per head under ``qk_norm``
     and rotated. Where the config has a local rope base (gemma3), a layer
     whose ``is_local`` (a 0-d bool tensor) is set takes it, picked on
-    the device as the reference's traced ``jnp.where``."""
+    the device as the reference's traced ``jnp.where``. The head counts
+    are those of the pieces of wq and wk (module doc); under a "model"
+    axis ``x`` enters through `collectives.copy_in`."""
     b, s, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    h, hkv = params["wq"].shape[-1] // dh, params["wk"].shape[-1] // dh
+    x = collectives.copy_in(x, shlib.model_axis())
     q = common.matmul(x, params["wq"]).reshape(b, s, h, dh)
     k = common.matmul(x, params["wk"]).reshape(b, s, hkv, dh)
     v = common.matmul(x, params["wv"]).reshape(b, s, hkv, dh)
@@ -305,7 +319,9 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                                 chunk=cfg.attn_chunk,
                                 softcap=cfg.attn_logit_softcap)
     b, s = x.shape[:2]
-    y = common.matmul(out.reshape(b, s, -1), params["wo"])
+    y = collectives.reduce_out(
+        common.matmul(out.reshape(b, s, -1), params["wo"]),
+        shlib.model_axis())
     if return_kv:
         return y, (k, v)
     return y

@@ -10,6 +10,18 @@ without a mesh they do nothing in the reference either. Its
 
 Numerics follow the reference: `rmsnorm` and `apply_rope` compute in
 float32 and return the input's dtype; logits are float32.
+
+Tensor parallelism (a binding whose "model" axis is wider than 1,
+`runtime.sharding.model_axis`): each rank holds its piece of the
+parameters (`runtime.param_sharding.tp_pieces`), and the layers read
+their local widths from the pieces' shapes. A replicated activation
+enters a column-parallel product through `collectives.copy_in`, and a
+row-parallel product leaves through `collectives.reduce_out`: `mlp_apply`
+here, attention and the SSM block in their modules. Where "model"
+divides the vocabulary, `embed_tokens`, `logits_from_hidden` and
+`softmax_xent` run vocab-parallel; elsewhere the vocabulary is whole on
+every rank, as the reference's divisibility-safe ``resolve`` leaves it.
+Without a wide "model" axis every function here runs as on one device.
 """
 
 from __future__ import annotations
@@ -152,10 +164,19 @@ def rmsnorm_params(d: int, dtype, device, lead=()) -> Dict:
                                 device=device)}
 
 
-def rmsnorm(params: Dict, x: torch.Tensor, eps: float = 1e-6
-            ) -> torch.Tensor:
+def rmsnorm(params: Dict, x: torch.Tensor, eps: float = 1e-6,
+            axis=None) -> torch.Tensor:
+    """RMS norm over the last dim; with ``axis`` (the "model" ranks)
+    that dim is split over its ranks, and the mean of squares is the
+    whole dim's: the local sums added over ``axis`` (the Mamba2 gated
+    norm on local heads). Its gradient is summed over ``axis`` too,
+    since every rank's piece uses it."""
     xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
+    if axis is None:
+        var = (xf * xf).mean(-1, keepdim=True)
+    else:
+        ss = collectives.reduce_out((xf * xf).sum(-1, keepdim=True), axis)
+        var = collectives.copy_in(ss, axis) / (xf.shape[-1] * axis.extent)
     out = xf * torch.rsqrt(var + eps)
     return (out * params["scale"].float()).to(x.dtype)
 
@@ -212,9 +233,13 @@ def mlp_params(d: int, ff: int, dtype, gen, device, lead=()) -> Dict:
 
 
 def mlp_apply(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU; under a "model" axis on the rank's columns of wi_* and
+    rows of wo (column- then row-parallel)."""
+    axis = shlib.model_axis()
+    x = collectives.copy_in(x, axis)
     gate = F.silu(matmul(x, params["wi_gate"]))
     up = matmul(x, params["wi_up"])
-    return matmul(gate * up, params["wo"])
+    return collectives.reduce_out(matmul(gate * up, params["wo"]), axis)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -242,14 +267,44 @@ def embed_params(cfg: ModelConfig, dtype, gen, device) -> Dict:
     return p
 
 
-def embed_tokens(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embedding"][tokens.long()]
+def vocab_split(params: Dict, cfg: ModelConfig) -> bool:
+    """Whether the rank holds a slice of the vocabulary (a wide "model"
+    axis that divides it: `runtime.param_sharding.tp_pieces`)."""
+    return params["embedding"].shape[0] != cfg.vocab_size
+
+
+def _vocab_start(n_local: int):
+    """(the first id of this rank's vocabulary slice of ``n_local``,
+    the "model" ranks)."""
+    axis = shlib.model_axis()
+    return axis.index * n_local, axis
+
+
+def embed_tokens(params: Dict, tokens: torch.Tensor,
+                 cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+    """The embedding rows of ``tokens``. Vocab-parallel (``cfg`` given
+    and `vocab_split`): the rank looks up the ids in its slice, zeros
+    the rest, and the rows are summed over "model"."""
+    table = params["embedding"]
+    if cfg is None or not vocab_split(params, cfg):
+        return table[tokens.long()]
+    start, axis = _vocab_start(table.shape[0])
+    local = tokens.long() - start
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return collectives.reduce_out(
+        torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                       device=rows.device)),
+        axis)
 
 
 def logits_from_hidden(params: Dict, cfg: ModelConfig,
                        h: torch.Tensor) -> torch.Tensor:
-    """f32 logits (..., V) for a stable softmax and loss."""
+    """f32 logits (..., V) for a stable softmax and loss; under
+    `vocab_split`, this rank's slice of them (column-parallel)."""
     w = params["embedding"].T if cfg.tie_embeddings else params["lm_head"]
+    if vocab_split(params, cfg):
+        h = collectives.copy_in(h, shlib.model_axis())
     return h.float() @ w.float()
 
 
@@ -259,7 +314,8 @@ def logits_from_hidden(params: Dict, cfg: ModelConfig,
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 mask: Optional[torch.Tensor] = None, *,
+                 split: bool = False) -> torch.Tensor:
     """Mean next-token cross entropy; logits (..., V) f32, labels (...).
 
     Where the batch is split over n > 1 ranks (`runtime.sharding.
@@ -267,9 +323,27 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     partitioned mean: this rank's sum over the global token count (the
     mask's sum added over the ranks, without gradient). That is the
     rank's share; the shares add up to the global mean over the ranks,
-    and so do their gradients (`train.steps`)."""
-    logz = torch.logsumexp(logits, -1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    and so do their gradients (`train.steps`). The count and the shares
+    run over "data" only: the ranks of "model" hold the same rows.
+
+    With ``split`` (`vocab_split`) the logits are this rank's slice of
+    the vocabulary: the max is taken over "model" without gradient, the
+    sum of exponentials is summed over "model", and the gold logit comes
+    from the rank whose slice holds the label."""
+    if split:
+        start, axis = _vocab_start(logits.shape[-1])
+        mx = collectives.max_over(logits.max(-1).values, axis)
+        sumexp = collectives.reduce_out(
+            torch.exp(logits - mx[..., None]).sum(-1), axis)
+        logz = torch.log(sumexp) + mx
+        local = labels.long() - start
+        mine = (local >= 0) & (local < logits.shape[-1])
+        gold = torch.gather(logits, -1, local.clamp(
+            0, logits.shape[-1] - 1)[..., None])[..., 0]
+        gold = collectives.reduce_out(torch.where(mine, gold, 0.0), axis)
+    else:
+        logz = torch.logsumexp(logits, -1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     axis = shlib.batch_axis()
     if mask is not None:

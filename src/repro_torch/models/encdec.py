@@ -7,7 +7,10 @@ is non-causal, so it runs `chunked_attention`; the decoder's causal
 self-attention takes the CUDA flash kernel where the config sets
 ``use_flash_kernel`` (the reference's condition: a Python-int window 0,
 no cross KV); its cross-attention runs chunked against the encoder's
-K/V. Per-layer parameters are stacked on leading layer axes
+K/V. Under a "model" axis every attention and MLP runs on the rank's
+heads and columns (`models.attention`, `common.mlp_apply`), and the
+vocabulary is split where "model" divides it (256,206 at 2 ranks, not
+at 4). Per-layer parameters are stacked on leading layer axes
 (``enc_layers``, ``dec_layers``) and run as Python loops, each layer's
 body under `common.remat` where the reference checkpoints it.
 
@@ -27,6 +30,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common
 from repro_torch.models.common import dtype_of
+from repro_torch.runtime import collectives
+from repro_torch.runtime import sharding as shlib
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
@@ -91,10 +96,14 @@ def encode(params: Dict, cfg: ModelConfig, enc_embeds: torch.Tensor
 def cross_kv(params: Dict, cfg: ModelConfig, enc_out: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each decoder layer's cross K/V of the encoder states, computed
-    once: two (L, B, S_enc, hkv, dh)."""
+    once: two (L, B, S_enc, hkv, dh); under a "model" axis, of the
+    rank's KV heads (the encoder states enter through
+    `collectives.copy_in`)."""
     b, s, _ = enc_out.shape
-    hkv, dh = cfg.n_kv_heads, cfg.head_dim
     xattn = params["dec_layers"]["cross_attn"]
+    dh = cfg.head_dim
+    hkv = xattn["wk"].shape[-1] // dh
+    enc_out = collectives.copy_in(enc_out, shlib.model_axis())
     ks = [common.matmul(enc_out, w).reshape(b, s, hkv, dh)
           for w in torch.unbind(xattn["wk"])]
     vs = [common.matmul(enc_out, w).reshape(b, s, hkv, dh)
@@ -109,7 +118,7 @@ def cross_kv(params: Dict, cfg: ModelConfig, enc_out: torch.Tensor
 
 def _decoder(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
              xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
-    h = common.embed_tokens(params["embed"], tokens)
+    h = common.embed_tokens(params["embed"], tokens, cfg)
     positions = common.positions_of(tokens)
 
     def body(hcur, lp, xk_l, xv_l):
@@ -139,8 +148,9 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict
 def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):
     h, _ = forward(params, cfg, batch)
     logits = common.logits_from_hidden(params["embed"], cfg, h)
-    xent = common.softmax_xent(logits, batch["labels"],
-                               batch.get("loss_mask"))
+    xent = common.softmax_xent(
+        logits, batch["labels"], batch.get("loss_mask"),
+        split=common.vocab_split(params["embed"], cfg))
     return xent, {"xent": xent}
 
 

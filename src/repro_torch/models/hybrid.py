@@ -83,7 +83,7 @@ def _shared_attn_block(cfg: ModelConfig, shared: Dict, h, positions,
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict
             ) -> Tuple[torch.Tensor, Dict]:
-    h = common.embed_tokens(params["embed"], batch["tokens"])
+    h = common.embed_tokens(params["embed"], batch["tokens"], cfg)
     positions = common.positions_of(batch["tokens"])
     segs = _segments(cfg)
     layers = common.unstacked(params["layers"], cfg.n_layers)
@@ -99,8 +99,9 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict
 def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):
     h, _ = forward(params, cfg, batch)
     logits = common.logits_from_hidden(params["embed"], cfg, h)
-    xent = common.softmax_xent(logits, batch["labels"],
-                               batch.get("loss_mask"))
+    xent = common.softmax_xent(
+        logits, batch["labels"], batch.get("loss_mask"),
+        split=common.vocab_split(params["embed"], cfg))
     return xent, {"xent": xent}
 
 

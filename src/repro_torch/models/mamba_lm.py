@@ -39,7 +39,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict
             ) -> Tuple[torch.Tensor, Dict]:
-    h = common.embed_tokens(params["embed"], batch["tokens"])
+    h = common.embed_tokens(params["embed"], batch["tokens"], cfg)
 
     def body(hcur, lp):
         return hcur + ssm.ssm_apply(lp["ssm"], cfg,
@@ -54,8 +54,9 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict
 def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):
     h, _ = forward(params, cfg, batch)
     logits = common.logits_from_hidden(params["embed"], cfg, h)
-    xent = common.softmax_xent(logits, batch["labels"],
-                               batch.get("loss_mask"))
+    xent = common.softmax_xent(
+        logits, batch["labels"], batch.get("loss_mask"),
+        split=common.vocab_split(params["embed"], cfg))
     return xent, {"xent": xent}
 
 

@@ -9,6 +9,8 @@ leading axes, ``shared_attn``, the ``q_norm``/``k_norm`` leaves, the
 with the dead padding, ``shared``) and MLA's ``attn/*`` leaves
 included; every key, shape and dtype is checked against the port's own
 layout, and a bf16 leaf (numpy's ml_dtypes bfloat16) keeps its bits.
+Under tensor parallelism it takes each rank's piece of the whole leaves
+(``shards``).
 """
 
 from __future__ import annotations
@@ -33,26 +35,33 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _carry(spec, tree, device, path: str):
+def _carry(spec, tree, device, path: str, shards):
     if isinstance(spec, dict):
         if not isinstance(tree, dict) or set(tree) != set(spec):
             got = sorted(tree) if isinstance(tree, dict) else type(tree)
             raise ValueError(f"params{path}: keys {got}, expected "
                              f"{sorted(spec)}")
-        return {k: _carry(spec[k], tree[k], device, f"{path}/{k}")
+        return {k: _carry(spec[k], tree[k], device, f"{path}/{k}",
+                          None if shards is None else shards[k])
                 for k in spec}
-    t = _tensor(np.asarray(tree), device)
+    t = _tensor(np.asarray(tree), "cpu")
     if tuple(t.shape) != tuple(spec.shape) or t.dtype != spec.dtype:
         raise ValueError(f"params{path}: {tuple(t.shape)} {t.dtype}, "
                          f"expected {tuple(spec.shape)} {spec.dtype}")
-    return t
+    if shards is not None:
+        t = shards.take(t)
+    return t.to(device, memory_format=torch.contiguous_format)
 
 
-def params_from_numpy(cfg: ModelConfig, tree: Dict, device=None) -> Dict:
-    """The port's parameters from the reference's (numpy leaves)."""
+def params_from_numpy(cfg: ModelConfig, tree: Dict, device=None,
+                      shards: Dict = None) -> Dict:
+    """The port's parameters from the reference's (numpy leaves); with
+    ``shards`` (a tree of `runtime.param_sharding.Shard` or None, e.g.
+    ``train.steps.state_blocks(...)["params"]``), this rank's piece of
+    each leaf."""
     mod = family_module(cfg)
     dev = resolve_device(device)
     # the port's layout: shapes and dtypes only, nothing allocated
     spec = mod.init_params(cfg, None, torch.device("meta"))
-    return _carry(spec, tree, dev, "")
+    return _carry(spec, tree, dev, "", shards)
 

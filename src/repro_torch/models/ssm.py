@@ -12,6 +12,14 @@ its Pallas kernel: ``use_ssd_kernel`` set and no state asked for
 
 Layout: d_inner = ssm_expand * d_model, heads = d_inner / ssm_head_dim.
 B and C are shared across heads (one group).
+
+Under a "model" axis (`runtime.sharding.model_axis`) `ssm_apply` runs
+on the rank's heads: its piece of in_proj is [z | x | B | C | dt] at the
+local widths (z, x and dt of its heads, B and C whole), the causal conv
+runs on [x_local | B | C], the SSD on the local heads, the gated norm
+takes its mean of squares over the whole d_inner (`common.rmsnorm` with
+the axis), and out_proj is row-parallel (`collectives.reduce_out`). The
+local widths come from the pieces' shapes (`_local_dims`).
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import dense_init, softplus
+from repro_torch.runtime import collectives
+from repro_torch.runtime import sharding as shlib
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -59,8 +69,18 @@ def ssm_params(cfg: ModelConfig, dtype, gen, device, lead=()) -> Dict:
     }
 
 
-def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
-    d_inner, nh, hd, ns = _dims(cfg)
+def _local_dims(params: Dict, cfg: ModelConfig
+                ) -> Tuple[int, int, int, int]:
+    """`_dims` of the heads whose parameters ``params`` holds: all of
+    them, or the rank's under a "model" axis."""
+    nh = params["a_log"].shape[-1]
+    return nh * cfg.ssm_head_dim, nh, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def _split_proj(dims, proj: torch.Tensor):
+    """in_proj's output -> (z, [x | B | C], dt) at ``dims``
+    (`_local_dims`)."""
+    d_inner, nh, hd, ns = dims
     return torch.split(proj, [d_inner, d_inner + 2 * ns, nh], dim=-1)
 
 
@@ -144,11 +164,12 @@ def ssm_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     With return_state=True also returns the streaming cache (final SSM
     state + conv tail) so a prefill can hand off to decode.
     """
-    d_inner, nh, hd, ns = _dims(cfg)
+    dims = d_inner, nh, hd, ns = _local_dims(params, cfg)
     bsz, s, _ = x.shape
+    axis = shlib.model_axis()
 
-    proj = x @ params["in_proj"]
-    z, xbc_raw, dt = _split_proj(cfg, proj)
+    proj = collectives.copy_in(x, axis) @ params["in_proj"]
+    z, xbc_raw, dt = _split_proj(dims, proj)
     xbc, conv_state = _causal_conv(params["conv_w"], params["conv_b"],
                                    xbc_raw)
     xbc = F.silu(xbc)
@@ -170,8 +191,8 @@ def ssm_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
 
     y = y + params["d_skip"][None, None, :, None] * xh.float()
     y = y.reshape(bsz, s, d_inner).to(x.dtype)
-    y = common.rmsnorm(params["norm"], y * F.silu(z))
-    out = y @ params["out_proj"]
+    y = common.rmsnorm(params["norm"], y * F.silu(z), axis=axis)
+    out = collectives.reduce_out(y @ params["out_proj"], axis)
     if return_state:
         return out, {"conv": conv_state, "ssm": h_last}
     return out
@@ -198,11 +219,11 @@ def ssm_init_cache(cfg: ModelConfig, batch: int, dtype, device,
 def ssm_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                cache: Dict) -> Tuple[torch.Tensor, Dict]:
     """One-step decode. x (B, 1, d_model). No dynamic indexing anywhere."""
-    d_inner, nh, hd, ns = _dims(cfg)
+    dims = d_inner, nh, hd, ns = _local_dims(params, cfg)
     bsz = x.shape[0]
 
     proj = x @ params["in_proj"]
-    z, xbc, dt = _split_proj(cfg, proj)
+    z, xbc, dt = _split_proj(dims, proj)
     xbc, conv_state = _causal_conv(params["conv_w"], params["conv_b"],
                                    xbc, state=cache["conv"])
     xbc = F.silu(xbc)

@@ -90,7 +90,7 @@ def embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict
                  ) -> torch.Tensor:
     """Token embeddings; with a frontend (the VLM's stub) the batch's
     precomputed ``embeds`` replace them where ``embed_mask`` is 1."""
-    h = common.embed_tokens(params["embed"], batch["tokens"])
+    h = common.embed_tokens(params["embed"], batch["tokens"], cfg)
     if cfg.frontend != "none" and "embeds" in batch:
         m = batch["embed_mask"][..., None].to(h.dtype)
         h = h * (1.0 - m) + batch["embeds"].to(h.dtype) * m
@@ -161,8 +161,9 @@ def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):
     """xent + 0.01 * load-balance loss + z-loss, and the three terms."""
     h, aux = forward(params, cfg, batch)
     logits = common.logits_from_hidden(params["embed"], cfg, h)
-    xent = common.softmax_xent(logits, batch["labels"],
-                               batch.get("loss_mask"))
+    xent = common.softmax_xent(
+        logits, batch["labels"], batch.get("loss_mask"),
+        split=common.vocab_split(params["embed"], cfg))
     loss = xent + 0.01 * aux["moe_lb_loss"] + aux["moe_z_loss"]
     return loss, {"xent": xent, **aux}
 

@@ -16,11 +16,15 @@ the same products as `global_norm_clip`'s), so no f32 copy of the whole
 gradient tree is made. ZeRO-1 (``blocks``): a rank holds only its block
 of each moment (`runtime.param_sharding.zero1_blocks`) and updates only
 that block of the parameter, with the decay mask of the whole leaf; the
-train step then gathers the parameters' blocks.
+train step then gathers the parameters' blocks. Under tensor
+parallelism the parameters, gradients and moments given are the rank's
+pieces (`runtime.param_sharding.tp_pieces`), and ``blocks`` are blocks
+of those pieces.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -48,11 +52,30 @@ def _f32_copy(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32, copy=True)
 
 
-def global_norm(grads: Dict) -> torch.Tensor:
+def global_norm(grads: Dict, pieces: Optional[Dict] = None, axis=None
+                ) -> torch.Tensor:
     """The f32 global norm of a gradient tree, one f32 temporary a leaf
-    at a time (the squares run in place on a copy)."""
-    return torch.sqrt(sum(torch.sum(_f32_copy(g).square_())
-                          for g in tree.leaves(grads)))
+    at a time (the squares run in place on a copy).
+
+    Under tensor parallelism (``pieces``, a tree of
+    `runtime.param_sharding.Piece` or None, and ``axis``, the "model"
+    ranks) the norm of the whole leaves: the squares of the parts each
+    rank counts (`Piece.counted`: its own, and a shared part once) are
+    summed over ``axis``, and a leaf whole on every rank is counted once,
+    on every rank alike."""
+    from repro_torch.runtime import collectives
+    leaves = tree.leaves(grads)
+    split = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    whole = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for g, piece in zip(leaves, itertools.repeat(None) if pieces is None
+                        else tree.leaves(pieces)):
+        if piece is None:
+            whole = whole + torch.sum(_f32_copy(g).square_())
+            continue
+        for off, n in piece.counted():
+            split = split + torch.sum(_f32_copy(
+                g.narrow(piece.dim, off, n)).square_())
+    return torch.sqrt(collectives.sum_over(split, axis) + whole)
 
 
 def clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -90,7 +113,10 @@ _PIECE = 2 ** 26
 
 def _decay_mask(leaf: torch.Tensor) -> bool:
     """Weight decay only on leaves of 2 or more dims, as stored: matrices,
-    and also the layer-stacked (L, D) norm scales (as the reference's)."""
+    and also the layer-stacked (L, D) norm scales (as the reference's).
+    A rank's piece of a leaf (tensor parallelism) or block of it (ZeRO-1)
+    has the whole leaf's number of dims, so the mask is the whole
+    leaf's."""
     return leaf.ndim >= 2
 
 

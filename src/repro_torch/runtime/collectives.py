@@ -1,9 +1,19 @@
-"""The collectives of data-parallel training, on ``torch.distributed``.
+"""The collectives of training across ranks, on ``torch.distributed``.
 
 The reference leaves them to the partitioner; the port calls them
-explicitly (NCCL on the card, gloo on the CPU). None of them is
-differentiated: a statistic over the global batch is summed without
+explicitly (NCCL on the card, gloo on the CPU). Over "data" none of them
+is differentiated: a statistic over the global batch is summed without
 gradient, and the gradients are summed after the backward.
+
+Over "model" (tensor parallelism) the two conjugate operators of the
+Megatron pattern are differentiated (`copy_in`, `reduce_out`): a
+replicated activation enters a column-parallel product through
+`copy_in` (identity forward, all-reduce of its gradient backward), and
+a row-parallel product's partial sums leave through `reduce_out`
+(all-reduce forward, identity backward). Both run inside the layer
+bodies that `models.common.remat` recomputes, so a recompute on
+autograd's device thread issues them again, on every rank in the same
+order (the binding is the process's: `runtime.sharding`).
 """
 
 from __future__ import annotations
@@ -39,6 +49,53 @@ def sum_over(t: torch.Tensor, axis) -> torch.Tensor:
     """``t`` summed over the ranks of ``axis``, in place; returned."""
     if axis is not None and axis.group is not None:
         dist.all_reduce(t, group=axis.group)
+    return t
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_in(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` (the same on every rank of ``axis``) into a rank-local
+    branch: the identity, whose backward sums the branches' partial
+    gradients over ``axis``. ``axis`` None: ``x`` itself."""
+    return x if axis is None else _CopyIn.apply(x, axis.group)
+
+
+def reduce_out(x: torch.Tensor, axis) -> torch.Tensor:
+    """The rank-local partial sums ``x`` summed over ``axis`` (an
+    all-reduce), whose backward hands each rank the gradient of the sum
+    as it is. ``axis`` None: ``x`` itself."""
+    return x if axis is None else _ReduceOut.apply(x, axis.group)
+
+
+def max_over(t: torch.Tensor, axis) -> torch.Tensor:
+    """``t`` (no gradient) maxed over the ranks of ``axis``: a copy."""
+    t = t.detach().clone(memory_format=torch.contiguous_format)
+    if axis is not None and axis.group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=axis.group)
     return t
 
 
@@ -100,3 +157,14 @@ def gather_block(full: torch.Tensor, local: torch.Tensor, block,
         parts = gathered(local[r0:r0 + rows], axis)
         for r in range(axis.extent):
             dst.narrow(block.dim, r * k, k).copy_(parts[r])
+
+
+def gather_piece(local: torch.Tensor, piece) -> torch.Tensor:
+    """The whole leaf of which every "model" rank holds its
+    `runtime.param_sharding.Piece` ``piece`` (``local`` here): the
+    pieces gathered over the piece's axis and each laid in its place."""
+    parts = gathered(local.contiguous(), piece.axis)
+    full = local.new_empty(piece.full_shape(local.shape))
+    for r in range(piece.axis.extent):
+        piece.place(full, parts[r], r)
+    return full

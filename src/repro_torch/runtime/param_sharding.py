@@ -13,14 +13,31 @@ TP (model axis) follows the Megatron pattern: column-parallel in
 axis. FSDP adds the data axis onto a free dim of every matrix; ZeRO-1
 applies the same to the Adam moments only.
 
-`Block` and `zero1_blocks` are the port's: the block of a leaf that this
-rank holds under a spec (the reference lets the partitioner place it).
+The rest is the port's (the reference lets the partitioner place each
+block): `tp_pieces` gives the `Piece` of each leaf that a rank holds over
+"model", `zero1_blocks` the ZeRO-1 `Block` of each moment over "data"
+(of the piece), and `Shard` the two together, the layout of a train
+state's leaf (`train.steps.state_blocks`, `checkpoint`). A piece keeps
+the reference's spec where that cuts at head or segment boundaries
+(wq, wo, wi_*, out_proj, and embedding / lm_head where "model" divides
+the vocabulary), and takes a head-aligned layout of its own where a
+contiguous split would cut through a head or a segment: wk / wv with
+fewer KV heads than ranks (gemma3-1b's one KV head of 256 columns), the
+SSM's in_proj [z | x | B | C | dt] and conv [x | B | C] (z, x, dt by
+head, B and C whole), its gated norm, a_log, dt_bias and d_skip by head.
+The parts that several ranks hold (a shared KV head, B and C, the
+per-head q_norm / k_norm scales) each use in part: their gradients are
+partial and are summed over "model" (`Piece.shared`). Leaves whole on
+every rank (the norms on the replicated residual stream, a vocabulary
+"model" does not divide) get the whole gradient on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.runtime import sharding as shlib
@@ -133,7 +150,7 @@ def zero1_moment_axes(logical_tree: Dict, shapes_tree: Dict) -> Dict:
 
 
 # ---------------------------------------------------------------------------
-# The port's: blocks held by this rank
+# The port's: the pieces and blocks held by this rank
 # ---------------------------------------------------------------------------
 
 
@@ -163,43 +180,225 @@ class Block:
         return tuple(out)
 
 
-def block_of(spec, binding: shlib.Binding):
-    """The `Block` a resolved spec gives this rank, or None where every
-    rank holds the whole leaf. A spec split over more than one dim, or
-    over axes other than ZeRO-1's, is not run by this port yet."""
-    split = [(i, (e,) if isinstance(e, str) else e)
-             for i, e in enumerate(spec) if e is not None
-             and binding.extent((e,) if isinstance(e, str) else e) > 1]
-    if not split:
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """``length`` entries of a leaf's dim from ``start``, cut into
+    ``parts`` equal parts: rank r of the m ranks of "model" holds part
+    r * parts // m. At ``parts`` = m each rank holds its own part; below
+    m, m / parts ranks hold the same one and each uses it in part (a KV
+    head shared by their query heads, the SSM's B and C columns)."""
+    start: int
+    length: int
+    parts: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Piece:
+    """This rank's piece of a leaf over "model": along ``dim``, its part
+    of each of ``segments`` (which tile the dim), concatenated in order.
+    ``axis``: the "model" ranks (`runtime.sharding.model_axis`)."""
+    dim: int
+    segments: Tuple[Segment, ...]
+    axis: shlib.AxisGroup
+
+    def spans(self, index: Optional[int] = None) -> List[Tuple[int, int]]:
+        """(start in the whole leaf, length) of each part that rank
+        ``index`` (default: this rank) holds, in its piece's order."""
+        r = self.axis.index if index is None else index
+        m = self.axis.extent
+        return [(s.start + (r * s.parts // m) * (s.length // s.parts),
+                 s.length // s.parts) for s in self.segments]
+
+    def shared(self) -> List[Tuple[Segment, int, int]]:
+        """(segment, offset in the piece, length) of each part that
+        other ranks hold too: its gradients are partial on each of them
+        and summed over "model" (`train.steps`)."""
+        out, off = [], 0
+        for s, (_, n) in zip(self.segments, self.spans()):
+            if s.parts < self.axis.extent:
+                out.append((s, off, n))
+            off += n
+        return out
+
+    def counted(self) -> List[Tuple[int, int]]:
+        """(offset in the piece, length) of the parts that this rank
+        counts in a sum over "model" of a statistic of the whole leaf
+        (`optim.adamw.global_norm`): its own parts, and a shared part on
+        the first of the ranks that hold it."""
+        out, off = [], 0
+        m, r = self.axis.extent, self.axis.index
+        for s, (_, n) in zip(self.segments, self.spans()):
+            if r % (m // s.parts) == 0:
+                out.append((off, n))
+            off += n
+        return out
+
+    def size(self) -> int:
+        return sum(n for _, n in self.spans())
+
+    def take(self, full):
+        """The rank's piece of the whole leaf ``full``: a view where it
+        is one part, else a new tensor."""
+        parts = [full.narrow(self.dim, a, n) for a, n in self.spans()]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, self.dim)
+
+    def place(self, full, piece, index: int) -> None:
+        """Write rank ``index``'s ``piece`` into its place in ``full``."""
+        off = 0
+        for a, n in self.spans(index):
+            full.narrow(self.dim, a, n).copy_(piece.narrow(self.dim, off, n))
+            off += n
+
+    def shape(self, full_shape) -> Tuple[int, ...]:
+        out = list(full_shape)
+        out[self.dim] = self.size()
+        return tuple(out)
+
+    def full_shape(self, piece_shape) -> Tuple[int, ...]:
+        out = list(piece_shape)
+        out[self.dim] = sum(s.length for s in self.segments)
+        return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """What this rank holds of a whole leaf: its `Piece` over "model"
+    (None: the whole leaf) and, of that piece, its ZeRO-1 `Block` over
+    "data" (None: the whole piece)."""
+    piece: Optional[Piece] = None
+    block: Optional[Block] = None
+
+    def take(self, full):
+        t = full if self.piece is None else self.piece.take(full)
+        return t if self.block is None else self.block.take(t)
+
+
+def tp_refusal(cfg, extent: int) -> Optional[str]:
+    """Why "model" of ``extent`` cannot split ``cfg`` in this port (None
+    where it can): experts (ROADMAP A.4.3), and heads or widths that
+    ``extent`` does not divide, or KV heads that neither divide nor are
+    divided by it (the reference's ``attn_batch`` fallback, A.4.6)."""
+    if extent <= 1:
         return None
-    if len(split) > 1:
-        raise NotImplementedError(
-            f"a leaf split along dims {[i for i, _ in split]} "
-            "(ROADMAP A.4)")
-    dim, phys = split[0]
-    return Block(dim, binding.axis_group(phys))
+    if cfg.n_experts:
+        return (f"{cfg.name}: experts over \"model\" ({extent}) "
+                "(ROADMAP A.4.3)")
+    counts = []
+    if cfg.family != "ssm":
+        hkv = cfg.n_kv_heads
+        counts += [("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff)]
+        if hkv % extent and extent % hkv:
+            counts.append(("n_kv_heads", hkv))
+    if cfg.family in ("ssm", "hybrid"):
+        counts.append(("SSM heads",
+                       cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim))
+    bad = [f"{name} {n}" for name, n in counts if n % extent]
+    if bad:
+        return (f"{cfg.name}: \"model\" of {extent} does not divide "
+                f"{', '.join(bad)} (the attn_batch fallback, ROADMAP "
+                "A.4.6)")
+    return None
 
 
-def zero1_blocks(params_shape: Dict, zero1: bool = True) -> Dict:
-    """Tree (of the parameters' structure) of the `Block` of each Adam
-    moment that this rank holds under the active binding, None where it
-    holds the whole moment: with ``zero1``, the reference's
-    ``specs_from_logical(zero1_moment_axes(...), keep_fsdp=True)``;
-    without, the parameters' own specs. Parameters themselves are whole
-    on every rank (`launch.mesh.make_mesh` refuses fsdp)."""
-    binding = shlib.current_binding()
-    if binding is None:
+def _tp_segments(names: Sequence[str], shape, cfg, m: int, spec):
+    """(dim, segments) of a leaf's piece over "model" of ``m``, or None
+    (whole on every rank). The reference's spec where it cuts at head or
+    segment boundaries; the port's own head-aligned layout where a
+    contiguous split would cut through a head or a segment."""
+    leaf, last = names[-1], len(shape) - 1
+    parent = names[-2] if len(names) > 1 else ""
+    if "ssm" in names:
+        d_inner = cfg.ssm_expand * cfg.d_model
+        nh, ns = d_inner // cfg.ssm_head_dim, cfg.ssm_state
+        # in_proj [z | x | B | C | dt]; conv [x | B | C]: z, x, dt by
+        # head, B and C whole (one group, shared by every head)
+        if leaf == "in_proj":
+            return last, (Segment(0, d_inner, m),
+                          Segment(d_inner, d_inner, m),
+                          Segment(2 * d_inner, ns, 1),
+                          Segment(2 * d_inner + ns, ns, 1),
+                          Segment(2 * d_inner + 2 * ns, nh, m))
+        if leaf in ("conv_w", "conv_b"):
+            return last, (Segment(0, d_inner, m), Segment(d_inner, ns, 1),
+                          Segment(d_inner + ns, ns, 1))
+        if leaf in ("a_log", "dt_bias", "d_skip"):
+            return last, (Segment(0, nh, m),)
+        if parent == "norm":                      # gated norm over d_inner
+            return last, (Segment(0, d_inner, m),)
+    if leaf in ("wk", "wv") and cfg.n_kv_heads % m:
+        # fewer KV heads than ranks: each rank holds the one its query
+        # heads read (m / n_kv_heads ranks share it)
+        n = cfg.n_kv_heads
+        return last, (Segment(0, n * cfg.head_dim, n),)
+    if parent in ("q_norm", "k_norm"):
+        # one scale a head dim, applied to every rank's heads
+        return last, (Segment(0, shape[last], 1),)
+    dims = [i for i, e in enumerate(spec)
+            if e == "model" or (isinstance(e, tuple) and "model" in e)]
+    if not dims:
+        return None
+    return dims[0], (Segment(0, shape[dims[0]], m),)
+
+
+def tp_pieces(params_shape: Dict, cfg) -> Dict:
+    """Tree (of the parameters' structure) of the `Piece` of each leaf
+    that this rank holds over "model" under the active binding, None
+    where it holds the whole leaf (every leaf without a binding, or at a
+    "model" extent of 1). Raises `NotImplementedError` where
+    `tp_refusal` refuses ``cfg``."""
+    axis = shlib.model_axis()
+    if axis is None:
         return tree_lib.map_(lambda _: None, params_shape)
-    logical = logical_param_axes(params_shape)
-    for path, spec in tree_lib.items(
-            specs_from_logical(logical, params_shape)):
-        if block_of(spec, binding) is not None:
+    why = tp_refusal(cfg, axis.extent)
+    if why:
+        raise NotImplementedError(why)
+    specs = dict(tree_lib.items(param_pspecs(params_shape)))
+    out = []
+    for path, leaf in tree_lib.items(params_shape):
+        seg = _tp_segments(path.split("/"), tuple(leaf.shape), cfg,
+                           axis.extent, specs[path])
+        out.append(None if seg is None else Piece(seg[0], seg[1], axis))
+    return tree_lib.unflatten(params_shape, out)
+
+
+def zero1_blocks(params_shape: Dict, zero1: bool = True,
+                 pieces: Optional[Dict] = None) -> Dict:
+    """Tree (of the parameters' structure) of the `Block` over "data" of
+    each Adam moment that this rank holds under the active binding, of
+    its piece over "model" where ``pieces`` (`tp_pieces`) gives one;
+    None where it holds the whole moment (of its piece). With ``zero1``
+    the block lies along the dim where the reference's
+    ``specs_from_logical(zero1_moment_axes(...), keep_fsdp=True)`` names
+    "data", where the piece's extent there divides; without, every
+    moment is whole, as the parameters are over "data"
+    (`launch.mesh.make_mesh` refuses fsdp)."""
+    binding = shlib.current_binding()
+    if binding is None or not zero1:
+        return tree_lib.map_(lambda _: None, params_shape)
+    if pieces is None:
+        pieces = tree_lib.map_(lambda _: None, params_shape)
+    specs = specs_from_logical(
+        zero1_moment_axes(logical_param_axes(params_shape), params_shape),
+        params_shape, keep_fsdp=True)
+
+    def block(spec, leaf, piece):
+        split = []
+        for i, e in enumerate(spec):
+            phys = tuple(a for a in ((e,) if isinstance(e, str) else
+                                     (e or ())) if a != "model")
+            if phys and binding.extent(phys) > 1:
+                split.append((i, phys))
+        if not split:
+            return None
+        if len(split) > 1:
             raise NotImplementedError(
-                f"parameter {path} split as {spec} (ROADMAP A.4)")
-    if zero1:
-        specs = specs_from_logical(
-            zero1_moment_axes(logical, params_shape), params_shape,
-            keep_fsdp=True)
-    else:
-        specs = specs_from_logical(logical, params_shape)
-    return tree_lib.map_(lambda s: block_of(s, binding), specs)
+                f"a moment split along dims {[i for i, _ in split]} "
+                "(ROADMAP A.4)")
+        dim, phys = split[0]
+        local = (piece.size() if piece is not None and piece.dim == dim
+                 else leaf.shape[dim])
+        if local % binding.extent(phys):
+            return None
+        return Block(dim, binding.axis_group(phys))
+
+    return tree_lib.map_(block, specs, params_shape, pieces)

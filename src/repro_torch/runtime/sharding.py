@@ -12,10 +12,12 @@ does not divide the array dimension is dropped (replicated), and a mesh
 axis already claimed by an earlier dimension is dropped from later ones.
 
 The port runs its collectives explicitly (`torch.distributed`), so a
-binding also carries the mesh (`launch.mesh.make_mesh`), and
-`batch_axis` gives the process group, extent and index of the ranks
-that split the batch. `shard` and `shard_pin` are the identity: each
-rank already holds its own block of every tensor.
+binding also carries the mesh (`launch.mesh.make_mesh`): `batch_axis`
+gives the process group, extent and index of the ranks that split the
+batch ("data"), and `model_axis` those of the ranks that split the heads,
+the MLP's width and the vocabulary ("model"). `shard` and `shard_pin`
+are the identity: each rank already holds its own block of every
+tensor.
 
 The active binding is the process's, not the thread's (the reference
 keeps it per thread): the mesh is one per process, and on the card
@@ -93,9 +95,12 @@ class Binding:
         return n
 
     def axis_group(self, phys: Tuple[str, ...]) -> AxisGroup:
-        """The ranks over the mesh axes ``phys``. Only one of them may
-        have an extent above 1 (`launch.mesh.make_mesh` allows no more).
-        At extent 1 the group is the mesh's own one-rank group of a single
+        """The ranks over the mesh axes ``phys`` that share this rank's
+        coordinates on every other axis. A 2-D mesh has two wide axes,
+        "data" and "model", but each collective runs over one of them:
+        only one of ``phys`` may have an extent above 1 (a collective
+        over both is the ``attn_batch`` fallback, ROADMAP A.4.6). At
+        extent 1 the group is the mesh's own one-rank group of a single
         named axis, else None."""
         wide = [a for a in phys if self.axis_sizes.get(a, 1) > 1]
         if not wide:
@@ -105,7 +110,7 @@ class Binding:
             return AxisGroup(None, 1, 0)
         if len(wide) > 1 or self.mesh is None:
             raise NotImplementedError(
-                f"collectives over mesh axes {wide} (ROADMAP A.4)")
+                f"collectives over mesh axes {wide} (ROADMAP A.4.6)")
         return AxisGroup(self.mesh.get_group(wide[0]),
                          self.axis_sizes[wide[0]],
                          self.mesh.get_local_rank(wide[0]))
@@ -133,6 +138,18 @@ def batch_axis() -> Optional[AxisGroup]:
     if binding is None:
         return None
     axis = binding.axis_group(binding.rules.get("batch", ()))
+    return axis if axis.extent > 1 else None
+
+
+def model_axis() -> Optional[AxisGroup]:
+    """The ranks that split the model (heads, the MLP's width, the
+    vocabulary: the "model" rule) under the active binding, or None
+    without a binding or where they are one rank: then every layer runs
+    whole, as on one device."""
+    binding = current_binding()
+    if binding is None:
+        return None
+    axis = binding.axis_group(binding.rules.get("model", ()))
     return axis if axis.extent > 1 else None
 
 

@@ -8,20 +8,27 @@ A kernel flag set under autograd raises (the reference has no backward
 for its kernels either: ROADMAP queue C). Prefill and serve run without
 autograd.
 
-Data parallel (``make_train_step(..., mesh=)``): each rank holds its
-contiguous rows of the global batch (`data.tokens.TokenDataset.
-rows_for_step`) and runs the loss under the mesh's binding, where every
-statistic over the batch is the global batch's and the loss is the
-rank's share of the global loss (`models.common.softmax_xent`,
-`models.moe`). The shares' gradients are summed over "data" in f32
-buckets (`runtime.collectives.sum_in_f32_buckets`), written back in the
-gradients' dtype; the global-norm clip is taken from that sum on every
-rank alike; then AdamW, with ZeRO-1 (``TrainConfig.zero1``) on each
-rank's block of the moments, and the parameters' blocks gathered. The
-loss, grad norm, metrics and new state are those of the single-device
-step on the global batch, up to the order of the sums. With
-``microbatches`` m, each rank splits its own rows into m: microbatch i
-of the step is then rows i of every rank's split.
+Across ranks (``make_train_step(..., mesh=)``, a mesh of (data = d,
+model = m)): each rank holds the contiguous rows of its "data"
+coordinate of the global batch (`data.tokens.TokenDataset.
+rows_for_step`) and, under tensor parallelism (m > 1), its pieces of the
+parameters (`runtime.param_sharding.tp_pieces`), and runs the loss under
+the mesh's binding, where every statistic over the batch is the global
+batch's, the loss is the rank's share of the global loss
+(`models.common.softmax_xent`, `models.moe`), and the layers run on
+local heads (`models.common`). Then, in order: the loss and metrics
+summed over "data"; the gradients of the parts that several "model"
+ranks use in part summed over "model" (`sum_shared_grads`); the
+gradients summed over "data" in f32 buckets
+(`runtime.collectives.sum_in_f32_buckets`), written back in their
+dtype; the global-norm clip from the whole leaves' norm
+(`optim.adamw.global_norm`), on every rank alike; AdamW on the pieces,
+with ZeRO-1 (``TrainConfig.zero1``) on each rank's block of the moments;
+and the parameters' blocks gathered over "data". The loss, grad norm,
+metrics and new state are those of the single-device step on the global
+batch, up to the order of the sums. With ``microbatches`` k, each rank
+splits its own rows into k: microbatch i of the step is then rows i of
+every rank's split.
 """
 
 from __future__ import annotations
@@ -34,39 +41,90 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ParallelConfig, TrainConfig
-from repro_torch.launch.mesh import binding_for
+from repro_torch.launch.mesh import binding_for, mesh_axes
 from repro_torch.models.api import Model, family_module
 from repro_torch.optim.adamw import (adamw_init, adamw_update, clip_scale,
                                      global_norm)
 from repro_torch.runtime import collectives
 from repro_torch.runtime import sharding as shlib
-from repro_torch.runtime.param_sharding import zero1_blocks
+from repro_torch.runtime.param_sharding import (Shard, tp_pieces,
+                                                tp_refusal, zero1_blocks)
 
 
-def state_blocks(params: Dict, tcfg: TrainConfig, mesh=None,
+def state_blocks(cfg, tcfg: TrainConfig, mesh=None,
                  parallel: Optional[ParallelConfig] = None) -> Dict:
-    """The `Block` of each leaf of a train state that this rank holds
-    (None: the whole leaf), for the state of the parameters ``params``
-    (a tree of their shapes serves, e.g. on the ``meta`` device): the
-    parameters whole, the moments split by ZeRO-1 where ``tcfg.zero1``;
-    all None without a mesh. `checkpoint` reads and writes states by it."""
+    """The `Shard` of each leaf of a train state of ``cfg`` that this
+    rank holds (None: the whole leaf): the parameters' pieces over
+    "model" (`runtime.param_sharding.tp_pieces`), and the moments'
+    pieces split further over "data" by ZeRO-1 where ``tcfg.zero1``;
+    all None without a mesh. `checkpoint` reads and writes states by
+    it. Raises `NotImplementedError` for a config "model" cannot split
+    (`runtime.param_sharding.tp_refusal`)."""
+    spec = family_module(cfg).init_params(cfg, None, torch.device("meta"))
     if mesh is None:
-        mb = tree.map_(lambda _: None, params)
-    else:
-        with shlib.use_binding(binding_for(mesh, parallel)):
-            mb = zero1_blocks(params, tcfg.zero1)
-    return {"params": tree.map_(lambda _: None, params),
-            "opt": {"m": mb, "v": mb, "step": None}}
+        none = tree.map_(lambda _: None, spec)
+        return {"params": none, "opt": {"m": none, "v": none, "step": None}}
+    with shlib.use_binding(binding_for(mesh, parallel)):
+        pieces = tp_pieces(spec, cfg)
+        blocks = zero1_blocks(spec, tcfg.zero1, pieces)
+
+    def shard(piece, block):
+        return None if piece is None and block is None else \
+            Shard(piece, block)
+    params = tree.map_(lambda p: shard(p, None), pieces)
+    moments = tree.map_(shard, pieces, blocks)
+    return {"params": params, "opt": {"m": moments, "v": moments,
+                                      "step": None}}
+
+
+def moment_blocks(layout: Dict) -> Dict:
+    """The ZeRO-1 `Block` of each moment of a `state_blocks` layout (of
+    the rank's piece; None: the whole piece), as `optim.adamw` takes
+    them."""
+    return tree.map_(lambda s: None if s is None else s.block,
+                     layout["opt"]["m"])
 
 
 def init_train_state(model: Model, seed: int = 0,
                      blocks: Optional[Dict] = None) -> Dict:
-    """Parameters from ``seed`` (the same on every rank) and zero
-    moments, of their blocks where ``blocks`` (`state_blocks`) gives
-    them."""
+    """Parameters from ``seed`` (the whole leaves, the same on every
+    rank, so one seed gives one model at any layout) and zero moments;
+    where ``blocks`` (`state_blocks`) gives them, the rank's pieces of
+    the parameters and the blocks of its moments."""
     params = model.init_params(seed)
-    return {"params": params, "opt": adamw_init(
-        params, None if blocks is None else blocks["opt"]["m"])}
+    if blocks is None:
+        return {"params": params, "opt": adamw_init(params)}
+    params = tree.map_(
+        lambda p, s: p if s is None else s.take(p).clone(
+            memory_format=torch.contiguous_format),
+        params, blocks["params"])
+    return {"params": params,
+            "opt": adamw_init(params, moment_blocks(blocks))}
+
+
+def sum_shared_grads(grads: Dict, pieces: Dict, axis) -> None:
+    """The gradients of the parts of pieces that several "model" ranks
+    hold (`runtime.param_sharding.Piece.shared`: a shared KV head, the
+    SSM's B and C columns, the q_norm / k_norm scales), each rank's
+    partial, summed over ``axis`` in place: each part is laid in a
+    buffer of its whole segment, at its place (zeros elsewhere), and the
+    buffers are summed in f32 buckets (`collectives.sum_in_f32_buckets`);
+    a part then reads its sum back."""
+    work = []
+    for g, piece in zip(tree.leaves(grads), tree.leaves(pieces)):
+        if piece is None:
+            continue
+        for seg, off, n in piece.shared():
+            mine = g.narrow(piece.dim, off, n)
+            at = (piece.axis.index * seg.parts // piece.axis.extent) * n
+            shape = list(mine.shape)
+            shape[piece.dim] = seg.length
+            buf = g.new_zeros(shape)
+            buf.narrow(piece.dim, at, n).copy_(mine)
+            work.append((mine, buf, piece.dim, at, n))
+    collectives.sum_in_f32_buckets([w[1] for w in work], axis)
+    for mine, buf, dim, at, n in work:
+        mine.copy_(buf.narrow(dim, at, n))
 
 
 @contextlib.contextmanager
@@ -97,22 +155,33 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
     norm clip and AdamW. Metrics are 0-d tensors {"loss", "grad_norm",
     the model's, "lr"}.
 
-    With a ``mesh`` (`launch.mesh.make_mesh`), the data-parallel step of
-    the module doc: ``batch`` is this rank's rows, ``state`` has the
-    moments of `state_blocks`, and the metrics are the global batch's on
-    every rank. At a "data" extent of 1 it computes what the step
-    without a mesh computes, bit for bit.
+    With a ``mesh`` (`launch.mesh.make_mesh`), the step of the module
+    doc: ``batch`` is the rows of this rank's "data" coordinate,
+    ``state`` holds the pieces and blocks of `state_blocks`, and the
+    metrics are the global batch's on every rank. At a mesh of (1, 1)
+    it takes the step without a mesh's path (no "model" axis: every
+    piece whole, no collective over "model") and computes what that step
+    computes, bit for bit.
+    Raises `NotImplementedError`, before any collective runs, for a
+    config that the mesh's "model" axis cannot split
+    (`runtime.param_sharding.tp_refusal`: experts, ROADMAP A.4.3; heads
+    or widths it does not divide, A.4.6).
 
     The new state reuses the old state's storage: parameters and moments
     are updated in place (`optim.adamw.adamw_update`), so the state
     passed in is the state returned."""
-    binding = binding_for(mesh, parallel) if mesh is not None else None
-    # the moments' blocks, from the parameters' shapes: the same
-    # `state_blocks` gives the caller for the state it passes in
-    blocks = None if mesh is None else state_blocks(
-        family_module(model.cfg).init_params(model.cfg, None,
-                                             torch.device("meta")),
-        tcfg, mesh, parallel)["opt"]["m"]
+    binding = blocks = pieces = None
+    if mesh is not None:
+        why = tp_refusal(model.cfg, dict(mesh_axes(mesh)).get("model", 1))
+        if why:
+            raise NotImplementedError(why)
+        binding = binding_for(mesh, parallel)
+        # the layout `state_blocks` gives the caller for the state it
+        # passes in
+        layout = state_blocks(model.cfg, tcfg, mesh, parallel)
+        blocks = moment_blocks(layout)
+        pieces = tree.map_(lambda s: None if s is None else s.piece,
+                           layout["params"])
 
     def grads_of(params: Dict, batch: Dict):
         live = tree.map_(lambda p: p.detach().requires_grad_(), params)
@@ -129,9 +198,11 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
 
     def step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         params = state["params"]
-        # the ranks that split the batch (one rank: a group of one)
+        # the ranks that split the batch (one rank: a group of one), and
+        # those that split the model (None at one)
         axis = (binding.axis_group(binding.rules["batch"])
                 if binding is not None else None)
+        model_axis = shlib.model_axis()
         m = tcfg.microbatches
         rows = next(iter(batch.values())).shape[0]
         if rows % m:
@@ -157,15 +228,18 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
             loss, metrics, grads = grads_of(params, batch)
 
         if axis is not None:
-            # the shares of the loss and metrics, and their gradients,
-            # summed over the ranks
+            # the shares of the loss and metrics summed over the ranks
+            # of "data" (those of "model" computed the same ones)
             names = sorted(metrics)
             summed = collectives.sum_over(torch.stack(
                 [loss] + [metrics[k] for k in names]), axis)
             loss, metrics = summed[0], dict(zip(names, summed[1:]))
             grads = tree.map_(lambda g: g.contiguous(), grads)
+            if model_axis is not None:
+                sum_shared_grads(grads, pieces, model_axis)
+            # the shares' gradients summed over "data"
             collectives.sum_in_f32_buckets(tree.leaves(grads), axis)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, pieces, model_axis)
         scale = clip_scale(gnorm, tcfg.grad_clip)
         new_params, new_opt, opt_metrics = adamw_update(
             tcfg, params, grads, state["opt"], scale=scale, blocks=blocks)

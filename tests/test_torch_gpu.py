@@ -1239,7 +1239,7 @@ def test_dp_step_world1_equals_make_train_step(cuda, world1, arch):
     data = TokenDataset(cfg, 4, 64, seed=0)
     runs = []
     for mesh in (None, world1):
-        blocks = state_blocks(model.init_params(0), tcfg, mesh)
+        blocks = state_blocks(cfg, tcfg, mesh)
         state = init_train_state(model, 0, blocks)
         step = make_train_step(model, tcfg, mesh)
         metrics = []
@@ -1339,6 +1339,26 @@ def test_dp_step_across_cards_matches_one_card(cuda, tmp_path, arch,
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
                                     "tools"))
     import dist_train_scaling as dts
-    (result,) = dts.run_world(2, [("f32", arch, overrides)],
+    (result,) = dts.run_world(2, [("f32", (2, 1), arch, overrides)],
                               str(tmp_path), "cuda", smoke=True)
     assert result["ok"], result
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-130m"])
+def test_tp_step_across_cards_matches_one_card(cuda, tmp_path, arch):
+    """A smoke config in f32 with remat on the mesh (data 1, model 2)
+    over two cards: one tensor-parallel step against the one-card step
+    on the global batch, by tools/dist_train_scaling.py's `f32_check`,
+    with the fault it must catch (gemma3: the shared KV head's "model"
+    sum left out; mamba2: the gated norm over the rank's width), and no
+    kernel launched."""
+    import os
+    import sys
+    _cards(2)
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    import dist_train_scaling as dts
+    (result,) = dts.run_world(2, [("f32", (1, 2), arch)], str(tmp_path),
+                              "cuda", smoke=True)
+    assert result["ok"] and result["controls"], result
+    assert not any(result["launches"].values()), result["launches"]

@@ -1,21 +1,23 @@
 """Run a function on n CPU ranks of a gloo process group (for the port's
 data-parallel tests).
 
-`run_ranks(fn, n, tmp_dir, *args)` spawns n processes; each starts the
-group from a file under ``tmp_dir`` (no port, so it is safe under
-pytest-xdist), builds the mesh of n on "data" and returns ``fn(mesh,
-rank, *args)``; the parent gets the n results in rank order. This module
+`run_ranks(fn, n, tmp_dir, *args, shape=None)` spawns n processes; each
+starts the group from a file under ``tmp_dir`` (no port, so it is safe
+under pytest-xdist), builds the mesh of ``shape`` on ("data", "model")
+(default (n, 1): every rank on "data") and returns ``fn(mesh, rank,
+*args)``; the parent gets the n results in rank order. This module
 imports neither JAX nor the reference, so the ranks start quickly.
 """
 
 import os
+import pickle
 import traceback
 
 import torch
 import torch.multiprocessing as mp
 
 
-def _rank_main(rank, n, tmp_dir, fn, args, threads):
+def _rank_main(rank, n, tmp_dir, threads, shape):
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_mesh
@@ -23,11 +25,13 @@ def _rank_main(rank, n, tmp_dir, fn, args, threads):
     torch.set_num_threads(threads)
     out = os.path.join(tmp_dir, f"rank{rank}.pt")
     try:
+        with open(os.path.join(tmp_dir, "args.pkl"), "rb") as f:
+            fn, args = pickle.load(f)
         dist.init_process_group(
             "gloo", init_method="file://" + os.path.join(tmp_dir, "group"),
             rank=rank, world_size=n)
         try:
-            mesh = make_mesh((n, 1), ("data", "model"))
+            mesh = make_mesh(shape or (n, 1), ("data", "model"))
             result = fn(mesh, rank, *args)
         finally:
             dist.destroy_process_group()
@@ -37,14 +41,19 @@ def _rank_main(rank, n, tmp_dir, fn, args, threads):
         raise
 
 
-def start_ranks(fn, n, tmp_dir, *args, threads=1):
+def start_ranks(fn, n, tmp_dir, *args, threads=1, shape=None):
     """Start `run_ranks`'s n processes; `join_ranks` of the returned
     handle waits for them and returns their results."""
     tmp_dir = str(tmp_dir)
     os.makedirs(tmp_dir, exist_ok=True)
+    # the function and its arguments go through a file: a spawned
+    # process's start waits until the child has read what it is handed,
+    # which it reads only after importing what unpickling it needs
+    with open(os.path.join(tmp_dir, "args.pkl"), "wb") as f:
+        pickle.dump((fn, args), f)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, n, tmp_dir, fn, args, threads))
+                         args=(r, n, tmp_dir, threads, shape))
              for r in range(n)]
     for p in procs:
         p.start()
@@ -72,11 +81,11 @@ def join_ranks(handle, timeout=600):
     return results
 
 
-def run_ranks(fn, n, tmp_dir, *args, threads=1, timeout=600):
+def run_ranks(fn, n, tmp_dir, *args, threads=1, timeout=600, shape=None):
     """[fn(mesh, rank, *args) for each rank] (module doc); raises with the
     first failing rank's traceback."""
-    return join_ranks(start_ranks(fn, n, tmp_dir, *args, threads=threads),
-                      timeout)
+    return join_ranks(start_ranks(fn, n, tmp_dir, *args, threads=threads,
+                                  shape=shape), timeout)
 
 
 # ---------------------------------------------------------------------------
@@ -124,15 +133,17 @@ def dp_run(mesh, arch, overrides, init, shape, steps, zero1=True,
     from repro_torch.launch.mesh import binding_for
     from repro_torch.models import get_model, params_from_numpy
     from repro_torch.optim import adamw_init
-    from repro_torch.train.steps import make_train_step, state_blocks
+    from repro_torch.train.steps import (make_train_step, moment_blocks,
+                                         state_blocks)
 
     cfg = _smoke(arch, overrides)
     model = get_model(cfg, device="cpu")
     tcfg = TrainConfig(zero1=zero1, microbatches=microbatches, **TRAIN)
+    blocks = state_blocks(cfg, tcfg, mesh)
     params = params_from_numpy(cfg, tree.map_(lambda a: a.copy(), init),
-                               device="cpu")
-    blocks = state_blocks(params, tcfg, mesh)
-    state = {"params": params, "opt": adamw_init(params, blocks["opt"]["m"])}
+                               device="cpu", shards=blocks["params"])
+    state = {"params": params, "opt": adamw_init(params,
+                                                 moment_blocks(blocks))}
     step_fn = make_train_step(model, tcfg, mesh)
     axis = binding_for(mesh).axis_group(("data",))
     data = TokenDataset(cfg, *shape, seed=0)
@@ -253,7 +264,7 @@ def restored_state(mesh, root, name, step):
 
     cfg = _smoke(LOOP_ARCH, {})
     spec = family_module(cfg).init_params(cfg, None, torch.device("meta"))
-    blocks = state_blocks(spec, TrainConfig(), mesh)
+    blocks = state_blocks(cfg, TrainConfig(), mesh)
     state = checkpoint.restore(
         os.path.join(str(root), name), step,
         {"params": spec, "opt": adamw_init(spec)}, device="cpu",
@@ -293,14 +304,15 @@ def loop_rank_resume(mesh, rank, root):
 
 def refusals_rank(mesh, rank):
     """What `make_mesh` and `make_production_mesh` say to the layouts
-    this port does not run (None where one did not raise)."""
+    this port does not run (None where one did not raise), then the
+    axes of the (data 1, model 2) mesh that `make_mesh` now builds."""
     from repro_torch.configs import ParallelConfig
-    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.launch.mesh import (make_mesh, make_production_mesh,
+                                         mesh_axes)
     out = []
-    for kwargs in (dict(shape=(1, 2)), dict(shape=(2, 1),
-                                            parallel=ParallelConfig(
-                                                fsdp=True)),
-                   dict(shape=(1, 1, 2), axes=("pod", "data", "model")),
+    for kwargs in (dict(shape=(1, 2), axes=("data", "expert")),
+                   dict(shape=(2, 1), parallel=ParallelConfig(fsdp=True)),
+                   dict(shape=(2, 1, 1), axes=("pod", "data", "model")),
                    dict(parallel=ParallelConfig(pod_axis_role="pipeline"))):
         try:
             make_mesh(**kwargs)
@@ -312,4 +324,144 @@ def refusals_rank(mesh, rank):
         out.append(None)
     except ValueError as exc:
         out.append(str(exc))
+    out.append(mesh_axes(make_mesh((1, 2), ("data", "model"))))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (tests/test_torch_tp.py)
+# ---------------------------------------------------------------------------
+
+
+def _mesh_of(mesh, shape):
+    """``mesh`` where it has ``shape``, else a new mesh of ``shape`` over
+    the same ranks."""
+    from repro_torch.launch.mesh import make_mesh
+    if tuple(mesh.mesh.shape) == tuple(shape):
+        return mesh
+    return make_mesh(shape, ("data", "model"))
+
+
+def _smoke_params(cfg, seed=0):
+    from repro_torch.models import get_model
+    return get_model(cfg, device="cpu").init_params(seed)
+
+
+def tp_forward(mesh, seed=0):
+    """The forward-only cases on this rank's pieces under the mesh's
+    binding (``mesh`` None: on one device), each from the whole smoke
+    parameters of ``seed`` (the same on every rank) and inputs drawn by
+    numpy from ``seed``: {"mlp", "embed", "xent", "xent_masked", "attn",
+    "ssm"} as numpy."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.mesh import binding_for
+    from repro_torch.models import attention, common, ssm
+    from repro_torch.runtime.sharding import use_binding
+    from repro_torch.train.steps import state_blocks
+
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def local(cfg):
+        whole = _smoke_params(cfg, seed)
+        shards = state_blocks(cfg, TrainConfig(), mesh)["params"]
+        return tree.map_(lambda p, s: p if s is None else
+                         s.take(p).contiguous(), whole, shards)
+
+    x = torch.from_numpy(rng.standard_normal((2, 16, 64)).astype(np.float32))
+    with use_binding(None if mesh is None else binding_for(mesh)):
+        gemma = _smoke("gemma3-1b", {})
+        p = local(gemma)
+        lp = common.layer(p["layers"], 0)
+        out["mlp"] = common.mlp_apply(lp["mlp"], x)
+        pos = common.positions_of(x[..., 0])
+        out["attn"] = attention.gqa_attention(lp["attn"], gemma, x, pos)
+
+        qwen = _smoke("qwen3-8b", {})
+        p = local(qwen)
+        tokens = torch.from_numpy(rng.integers(0, qwen.vocab_size, (2, 16)))
+        labels = torch.from_numpy(rng.integers(0, qwen.vocab_size, (2, 16)))
+        mask = torch.from_numpy((rng.random((2, 16)) < 0.7).astype(
+            np.int32))
+        out["embed"] = common.embed_tokens(p["embed"], tokens, qwen)
+        logits = common.logits_from_hidden(p["embed"], qwen, x)
+        split = common.vocab_split(p["embed"], qwen)
+        out["xent"] = common.softmax_xent(logits, labels, split=split)
+        out["xent_masked"] = common.softmax_xent(logits, labels, mask,
+                                                 split=split)
+
+        mamba = _smoke("mamba2-130m", {})
+        p = local(mamba)
+        out["ssm"] = ssm.ssm_apply(common.layer(p["layers"], 0)["ssm"],
+                                   mamba, x)
+    return {k: v.detach().numpy() for k, v in out.items()}
+
+
+def tp_fault(mesh, fault, arch, init, shape):
+    """`dp_run` of one step with ``fault`` (tools/dist_train_scaling.py's
+    `fault_in`): "kv_unsummed" (the "model" sum of the attention's
+    shared wk / wv gradients left out) or "local_norm" (the SSM's gated
+    norm over the rank's width only)."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "..", "tools"))
+    from dist_train_scaling import fault_in
+    with fault_in(fault):
+        return dp_run(mesh, arch, {}, init, shape, 1)
+
+
+def tp_rank(mesh, rank, shapes, cases, extras=()):
+    """For each mesh shape of ``shapes`` (over this group): `dp_run` of
+    every case of ``cases`` ({name: {"arch", "overrides", "init",
+    "shape", "steps"}})
+    and, where ``extras`` names them, "forward" (`tp_forward`) and
+    "faults" (`tp_fault` of gemma3 and mamba2 at the mesh). Rank 0:
+    {shape: {name: result}}."""
+    out = {}
+    for shape in shapes:
+        m = _mesh_of(mesh, shape)
+        got = {name: dp_run(m, c["arch"], c["overrides"], c["init"],
+                            c["shape"], c["steps"])
+               for name, c in cases.items()}
+        if "forward" in extras:
+            got["forward"] = tp_forward(m)
+        if "faults" in extras:
+            for fault, name in (("kv_unsummed", "gemma3"),
+                                ("local_norm", "mamba2")):
+                c = cases[name]
+                got[fault] = tp_fault(m, fault, c["arch"], c["init"],
+                                      c["shape"])
+        out[tuple(shape)] = got
+    return out if rank == 0 else None
+
+
+TP_LOOP = "tp_uncut"
+
+
+def tp_loop_rank(mesh, rank, root):
+    """At (1, 2): an uncut 4-step `train_loop` of LOOP_ARCH and one cut
+    by a failure at step 3 and resumed from its step-2 checkpoint; then
+    at (2, 1), on the same ranks, the uncut run's step-2 checkpoint
+    restored (split and gathered again) and resumed in a copy to step 4.
+    """
+    import shutil
+
+    import torch.distributed as dist
+    uncut = loop_run(mesh, root, TP_LOOP, 4)
+    cut = loop_run(mesh, root, "tp_cut", 4, fail_at_step=3)
+    dp = _mesh_of(mesh, (2, 1))
+    restored = restored_state(dp, root, TP_LOOP, 2)
+    name = "tp_resumed21"
+    if rank == 0:
+        os.makedirs(os.path.join(str(root), name))
+        shutil.copy(os.path.join(str(root), TP_LOOP, "step_00000002.npz"),
+                    os.path.join(str(root), name))
+        with open(os.path.join(str(root), name, "MANIFEST.json"), "w") as f:
+            f.write('{"latest_step": 2}')
+    dist.barrier()
+    resumed = loop_run(dp, root, name, 4)
+    return (dict(uncut=uncut, cut=cut, restored=restored, resumed=resumed)
+            if rank == 0 else None)

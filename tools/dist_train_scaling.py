@@ -1,39 +1,50 @@
 #!/usr/bin/env python3
-"""Data-parallel training over the cards of one host: scaling, ZeRO-1's
-memory, an f32 check against one card, and qwen3-8b at full size.
+"""Training over the cards of one host: data-parallel scaling, ZeRO-1's
+memory, tensor parallelism on 2-D meshes, f32 checks against one card,
+and qwen3-8b at full size.
 
 Run from the repository root on a machine with CUDA cards:
 
     python3 tools/dist_train_scaling.py                 # every card
     python3 tools/dist_train_scaling.py --worlds 1 2 4 --qwen
     python3 tools/dist_train_scaling.py --worlds 2 4 --f32-only
+    python3 tools/dist_train_scaling.py --meshes 4x1 2x2 1x4 --qwen
+    python3 tools/dist_train_scaling.py --meshes 1x4 2x2 --steps 2
 
 Each world size runs in its own spawn of one process a card (NCCL for
 CUDA tensors, gloo for CPU ones, over tcp://localhost on a free port),
 through the port's entry points (`launch.mesh.make_mesh`,
 `train.steps.make_train_step(..., mesh)`), under
-`train.steps.deterministic_algorithms`:
+`train.steps.deterministic_algorithms`. ``--worlds n``: the mesh (n, 1),
+every card on "data"; ``--meshes DxM``: the mesh (data D, model M),
+tensor parallelism over M cards (each mesh of one world in that world's
+spawn).
 
   - gemma3-1b, bf16, full width and depth, random weights from seed 0,
-    TokenDataset batches of (4, 2048) a card: one warm step and
-    ``--steps`` timed steps (CUDA events on rank 0; the collectives keep
-    the ranks in step), ZeRO-1 on, then off: step ms, tok/s over every
-    card, scale efficiency against world 1 (same call), peak MB a card
-    (the largest over the ranks), loss and grad norm finite;
-  - at world >= 2, gemma3-1b in f32 at full width with remat, a global
-    batch of (2n, 256): one data-parallel step against the single-card
-    step on the global batch (rank 0's card), by `f32_check`: the
-    metrics, the moments in each leaf's relative L2 norm, and the
-    parameters against AdamW's step from the run's own moments (at full
-    width the per-entry rule of tests/test_torch_train_models.py does
-    not hold: rounding-level gradients are common there); then the same
-    step with the gradients left unsummed, and with the ZeRO-1 blocks of
-    the parameters left ungathered, each of which the check must fail;
-  - with ``--qwen`` at the largest world: qwen3-8b, bf16, full width and
-    depth, (1, 2048) a card, ZeRO-1: a warm step and ``--steps`` timed
-    ones: tok/s, peak MB a card, loss and grad norm finite; and its
-    state on one card reckoned by bytes (parameters and gradients in
-    bf16, two f32 moments: 12 B a parameter).
+    TokenDataset batches: one warm step and ``--steps`` timed steps
+    (CUDA events on rank 0; the collectives keep the ranks in step):
+    step ms, tok/s over every card, peak MB a card (the largest over
+    the ranks), loss and grad norm finite. ``--worlds``: (4, 2048) a
+    card, ZeRO-1 on, then off, and scale efficiency against world 1
+    (same call); ``--meshes``: a global (16, 2048), ZeRO-1 on (the --worlds
+    4-card batch, so the meshes of 4 cards compare with (4, 1));
+  - f32 checks (`f32_check`): at a "data" extent >= 2, gemma3-1b in f32
+    at full width with remat, a global batch of (2n, 256), one step
+    against the single-card step on the global batch (rank 0's card):
+    the metrics, the moments in each leaf's relative L2 norm, and the
+    parameters against AdamW's step from the run's own moments; then
+    the same step with each fault of `controls`, which the check must
+    fail: the gradients left unsummed over "data", the ZeRO-1 blocks of
+    the parameters left ungathered, and at a "model" extent >= 2 the
+    "model" sum of a shared KV head's gradient left out (gemma3-1b, one
+    KV head for all) or the SSM's gated norm over the rank's width
+    (mamba2-130m, which is checked too on meshes with "model" >= 2);
+  - with ``--qwen``: qwen3-8b, bf16, full width and depth, ZeRO-1, a
+    warm step and ``--steps`` timed ones: tok/s, peak MB a card, loss
+    and grad norm of each step. ``--worlds``: (1, 2048) a card at the
+    largest world; ``--meshes``: a global (4, 2048) on every mesh. And
+    its state on one card reckoned by bytes (parameters and gradients
+    in bf16, two f32 moments: 12 B a parameter).
 
 Prints the card's name and power limit (``nvidia-smi``) and each result
 line; writes the results as JSON to ``--out`` (default
@@ -43,6 +54,7 @@ build/dist_train_scaling.json). Exits non-zero if a check fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import socket
@@ -57,8 +69,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
 
-BF16_SHAPE = (4, 2048)          # a card
-QWEN_SHAPE = (1, 2048)          # a card
+BF16_SHAPE = (4, 2048)          # a card ("data" rank) of --worlds
+QWEN_SHAPE = (1, 2048)          # a card of --worlds
+TP_GEMMA = (16, 2048)           # global, --meshes
+TP_QWEN = (4, 2048)             # global, --meshes
 F32_SEQ = 256
 
 
@@ -87,17 +101,27 @@ def card() -> str:
 # ---------------------------------------------------------------------------
 
 
-def _start(rank: int, world: int, port: int, device: str):
-    """The process group and mesh of one rank; its card set first."""
+def _start(rank: int, world: int, port: int, device: str) -> None:
+    """The process group of one rank; its card set first."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch.distributed as dist
-    from repro_torch.launch.mesh import make_mesh
     if device == "cuda":
         torch.cuda.set_device(rank)
     dist.init_process_group(
         "cpu:gloo,cuda:nccl" if device == "cuda" else "gloo",
         init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
-    return make_mesh((world, 1), ("data", "model"), device_type=device)
+
+
+def _mesh(shape, device: str):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(tuple(shape), ("data", "model"), device_type=device)
+
+
+def _extents(mesh) -> tuple:
+    """(data, model) extents of a mesh."""
+    from repro_torch.launch.mesh import mesh_axes
+    sizes = dict(mesh_axes(mesh))
+    return sizes.get("data", 1), sizes.get("model", 1)
 
 
 def _dev():
@@ -140,9 +164,9 @@ class _Timer:
 
 def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
               dtype: str = "bfloat16", smoke: bool = False) -> dict:
-    """Warm step + ``steps`` timed data-parallel steps of ``arch`` at
-    ``shape`` rows a card; rank 0's CUDA-event times, every rank's peak
-    memory."""
+    """Warm step + ``steps`` timed steps of ``arch`` on the mesh at the
+    global batch ``shape``, each rank on the rows of its "data"
+    coordinate; rank 0's CUDA-event times, every rank's peak memory."""
     import torch.distributed as dist
     from repro_torch import tree
     from repro_torch.configs import TrainConfig
@@ -164,12 +188,9 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
         torch.cuda.reset_peak_memory_stats()
     model = get_model(cfg, device=dev)
     tcfg = TrainConfig(zero1=zero1)
-    blocks = state_blocks(
-        family_module(cfg).init_params(cfg, None, torch.device("meta")),
-        tcfg, mesh)
-    state = init_train_state(model, 0, blocks)
+    state = init_train_state(model, 0, state_blocks(cfg, tcfg, mesh))
     step_fn = make_train_step(model, tcfg, mesh)
-    data = TokenDataset(cfg, shape[0] * world, shape[1], seed=0)
+    data = TokenDataset(cfg, shape[0], shape[1], seed=0)
     ms, losses, norms = [], [], []
     with deterministic_algorithms():
         for i in range(steps + 1):
@@ -185,14 +206,17 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
     peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e6
                          if timer.cuda else float("nan")], device=dev)
     dist.all_reduce(peak, op=dist.ReduceOp.MAX)
-    n_params = sum(p.numel() for p in tree.leaves(state["params"]))
+    n_params = sum(p.numel() for p in tree.leaves(
+        family_module(cfg).init_params(cfg, None, torch.device("meta"))))
     del state, step_fn, model
     if timer.cuda:
         torch.cuda.empty_cache()
     timed = ms[1:]
-    toks = shape[0] * shape[1] * world
-    return dict(arch=arch, dtype=dtype, world=world, zero1=zero1,
-                rows_a_card=shape[0], seq=shape[1], params=n_params,
+    toks = shape[0] * shape[1]
+    return dict(arch=arch, dtype=dtype, world=world,
+                mesh=list(_extents(mesh)), zero1=zero1,
+                rows_a_card=shape[0] // axis.extent, global_rows=shape[0],
+                seq=shape[1], params=n_params,
                 warm_ms=ms[0], step_ms=timed,
                 tok_s=toks / np.mean(timed) * 1e3,
                 peak_mb_a_card=float(peak.item()), loss=losses,
@@ -205,40 +229,82 @@ F32_LIMIT = 1e-5                # rtol of the metrics and the parameters
 # gemma3-1b's full width on H100s (6.85e-6 at 2 cards, 6.99e-6 at 4),
 # rounded up; the unsummed fault reads 0.997-1.69 there
 MOMENT_LIMIT = 5e-5
-# faults the f32 check must catch: the gradients left unsummed over
-# "data", and the parameters' ZeRO-1 blocks left ungathered
-CONTROLS = ("unsummed", "ungathered")
+# faults the f32 check must catch (`controls`): the gradients left
+# unsummed over "data", the parameters' ZeRO-1 blocks left ungathered,
+# the "model" sum of a shared KV head's gradient left out, and the SSM's
+# gated norm over the rank's width only
+FAULTS = ("unsummed", "ungathered", "kv_unsummed", "local_norm")
+
+
+def controls(cfg, mesh) -> tuple:
+    """The faults of FAULTS that break the step of ``cfg`` on ``mesh``
+    (a fault the mesh does not reach would pass the check)."""
+    data, model = _extents(mesh)
+    out = ("unsummed", "ungathered") if data > 1 else ()
+    if model > 1 and cfg.family != "ssm" and cfg.n_kv_heads % model:
+        out += ("kv_unsummed",)
+    if model > 1 and cfg.family in ("ssm", "hybrid"):
+        out += ("local_norm",)
+    return out
+
+
+@contextlib.contextmanager
+def fault_in(fault):
+    """The step broken by ``fault`` (one of FAULTS, or None) inside the
+    block."""
+    from repro_torch.models import common
+    from repro_torch.runtime import collectives
+    from repro_torch.train import steps
+    kept = (collectives.sum_in_f32_buckets, collectives.gather_block,
+            steps.sum_shared_grads, common.rmsnorm)
+
+    def skip_kv(grads, pieces, axis):
+        from repro_torch import tree
+        names = [k.split("/")[-1] for k, _ in tree.items(pieces)]
+        pieces = tree.unflatten(pieces, [
+            None if n in ("wk", "wv") else p
+            for n, p in zip(names, tree.leaves(pieces))])
+        return kept[2](grads, pieces, axis)
+
+    def local_norm(params, x, eps=1e-6, axis=None):
+        return kept[3](params, x, eps)
+
+    try:
+        if fault == "unsummed":
+            collectives.sum_in_f32_buckets = lambda *a, **k: None
+        elif fault == "ungathered":
+            collectives.gather_block = lambda *a, **k: None
+        elif fault == "kv_unsummed":
+            steps.sum_shared_grads = skip_kv
+        elif fault == "local_norm":
+            common.rmsnorm = local_norm
+        elif fault is not None:
+            raise ValueError(fault)
+        yield
+    finally:
+        (collectives.sum_in_f32_buckets, collectives.gather_block,
+         steps.sum_shared_grads, common.rmsnorm) = kept
 
 
 def _dp_step(mesh, model, tcfg, data, fault=None):
-    """One data-parallel step from ``model.init_params(0)`` on the global
-    batch's rows of this rank; ``fault`` (one of CONTROLS) breaks it. The
-    whole state on rank 0's host, and the metrics."""
+    """One step on the mesh from ``model.init_params(0)`` (this rank's
+    pieces of it) on the rows of this rank's "data" coordinate of the
+    global batch; ``fault`` (one of FAULTS) breaks it. The whole state
+    on rank 0's host, and the metrics."""
     from repro_torch import checkpoint
     from repro_torch.launch.mesh import binding_for
-    from repro_torch.optim import adamw_init
-    from repro_torch.runtime import collectives
     from repro_torch.train.steps import (deterministic_algorithms,
-                                         make_train_step, state_blocks)
+                                         init_train_state, make_train_step,
+                                         state_blocks)
     axis = binding_for(mesh).axis_group(("data",))
     dev = _dev()
-    params = model.init_params(0)
-    blocks = state_blocks(params, tcfg, mesh)
-    state = {"params": params, "opt": adamw_init(params, blocks["opt"]["m"])}
+    blocks = state_blocks(model.cfg, tcfg, mesh)
+    state = init_train_state(model, 0, blocks)
     rows = data.rows_for_step(1, axis.index, axis.extent)
-    name = {"unsummed": "sum_in_f32_buckets",
-            "ungathered": "gather_block"}.get(fault)
-    kept = getattr(collectives, name) if name else None
-    try:
-        if name:
-            setattr(collectives, name, lambda *a, **k: None)
-        with deterministic_algorithms():
-            state, metrics = make_train_step(model, tcfg, mesh)(
-                state, {k: torch.from_numpy(v).to(dev)
-                        for k, v in rows.items()})
-    finally:
-        if name:
-            setattr(collectives, name, kept)
+    with fault_in(fault), deterministic_algorithms():
+        state, metrics = make_train_step(model, tcfg, mesh)(
+            state, {k: torch.from_numpy(v).to(dev)
+                    for k, v in rows.items()})
     return (checkpoint.host_tree(state, blocks),
             {k: float(v) for k, v in metrics.items()})
 
@@ -290,8 +356,9 @@ def _held(dp, dp_metrics, one, one_metrics, init, tcfg, lr) -> dict:
 def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
               overrides: dict = None) -> dict:
     """``arch`` in f32 with remat (``overrides`` on its config), global
-    batch (2n, F32_SEQ): one data-parallel step against the single-card
-    step on the global batch (rank 0), by `_held`: the metrics within
+    batch (2n, F32_SEQ), n the mesh's ranks: one step on the mesh against
+    the single-card step on the global batch (rank 0), by `_held`: the
+    metrics within
     rtol F32_LIMIT; each leaf's moments m and v (the clipped gradient and
     its square) within MOMENT_LIMIT of the single card's in the relative
     L2 norm; and every parameter equal, within rtol F32_LIMIT and atol
@@ -301,13 +368,12 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
     not held to the single card's entry by entry: step 1 moves each by
     about lr * g / (|g| + eps), so a gradient at rounding level, common
     at full width, moves it by up to lr either way. The step is then run
-    with each fault of CONTROLS, and each must fail the criterion
+    with each fault of `controls`, and each must fail the criterion
     (``controls_caught``)."""
     import torch.distributed as dist
     from repro_torch import tree
     from repro_torch.configs import TrainConfig
     from repro_torch.data import TokenDataset
-    from repro_torch.launch.mesh import binding_for
     from repro_torch.models import get_model
     from repro_torch.optim import adamw_init, cosine_schedule
     from repro_torch.train.steps import (deterministic_algorithms,
@@ -319,7 +385,7 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
     model = get_model(cfg, device=dev)
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
     data = TokenDataset(cfg, 2 * world, F32_SEQ, seed=0)
-    lead = binding_for(mesh).axis_group(("data",)).index == 0
+    lead = dist.get_rank() == 0
     one = one_metrics = init = None
     if lead:
         params = model.init_params(0)
@@ -334,12 +400,13 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
     dist.barrier()
     lr = float(cosine_schedule(tcfg)(1))
     out = None
-    for fault in (None,) + CONTROLS:
+    for fault in (None,) + controls(cfg, mesh):
         dp, dp_metrics = _dp_step(mesh, model, tcfg, data, fault)
         if lead:
             held = _held(dp, dp_metrics, one, one_metrics, init, tcfg, lr)
             if fault is None:
                 out = dict(arch=cfg.name, world=world,
+                           mesh=list(_extents(mesh)),
                            global_batch=[2 * world, F32_SEQ], **held,
                            controls={})
             else:
@@ -359,15 +426,30 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
 
 def rank_main(rank: int, world: int, port: int, jobs: list,
               out_path: str, device: str, smoke: bool) -> None:
+    """``jobs`` on this rank, each ``(kind, mesh shape, *args)`` with
+    kind "timed" (`timed_run`) or "f32" (`f32_check`); each result with
+    the job's kernel launch counts."""
     import torch.distributed as dist
-    mesh = _start(rank, world, port, device)
+    from repro_torch import kernels
+    _start(rank, world, port, device)
     results = []
     try:
-        for job in jobs:
-            if job[0] == "timed":
-                results.append(timed_run(mesh, *job[1:], smoke=smoke))
-            elif job[0] == "f32":
-                results.append(f32_check(mesh, smoke, *job[1:]))
+        for kind, shape, *args in jobs:
+            mesh = _mesh(shape, device)
+            kernels.reset_launch_counts()
+            if kind == "timed":
+                r = timed_run(mesh, *args, smoke=smoke)
+            else:
+                r = f32_check(mesh, smoke, *args)
+            # no kernel lies on the training path: each kernel's launches
+            # in this job, summed over the ranks
+            counts = kernels.launch_counts()
+            names = sorted(counts)
+            total = torch.tensor([float(counts[k]) for k in names])
+            dist.all_reduce(total)
+            if r is not None:
+                r["launches"] = dict(zip(names, (int(x) for x in total)))
+            results.append(r)
             if device == "cuda":
                 torch.cuda.empty_cache()
     finally:
@@ -379,8 +461,8 @@ def rank_main(rank: int, world: int, port: int, jobs: list,
 
 def run_world(world: int, jobs: list, tmp: str, device: str = "cuda",
               smoke: bool = False) -> list:
-    """``jobs`` on ``world`` cards, one process a card; rank 0's
-    results."""
+    """``jobs`` (`rank_main`) on ``world`` cards, one process a card;
+    rank 0's results."""
     path = os.path.join(tmp, f"world{world}.json")
     mp.start_processes(rank_main, args=(world, free_port(), jobs, path,
                                         device, smoke),
@@ -392,19 +474,55 @@ def run_world(world: int, jobs: list, tmp: str, device: str = "cuda",
 # ---------------------------------------------------------------------------
 
 
-def gemma_jobs(steps: int) -> list:
-    return [("timed", "gemma3-1b", BF16_SHAPE, steps, True),
-            ("timed", "gemma3-1b", BF16_SHAPE, steps, False)]
+def world_jobs(world: int, steps: int, f32_only: bool, qwen: bool) -> list:
+    """``--worlds``: the mesh (world, 1)."""
+    mesh = (world, 1)
+    jobs = [("f32", mesh, "gemma3-1b")] if world >= 2 else []
+    if not f32_only:
+        jobs += [("timed", mesh, "gemma3-1b",
+                  (BF16_SHAPE[0] * world, BF16_SHAPE[1]), steps, zero1)
+                 for zero1 in (True, False)]
+    if qwen:
+        jobs.append(("timed", mesh, "qwen3-8b",
+                     (QWEN_SHAPE[0] * world, QWEN_SHAPE[1]), steps, True))
+    return jobs
 
 
-def report_timed(r: dict, base: dict = None) -> str:
+def mesh_jobs(mesh, steps: int, f32_only: bool, qwen: bool) -> list:
+    """``--meshes``: the f32 checks (gemma3-1b at a "data" or "model"
+    extent >= 2, mamba2-130m at "model" >= 2), gemma3-1b bf16 at
+    TP_GEMMA, and qwen3-8b at TP_QWEN."""
+    data, model = mesh
+    jobs = []
+    if data > 1 or model > 1:
+        jobs.append(("f32", mesh, "gemma3-1b"))
+    if model > 1:
+        jobs.append(("f32", mesh, "mamba2-130m"))
+    if not f32_only:
+        jobs.append(("timed", mesh, "gemma3-1b", TP_GEMMA, steps, True))
+    if qwen:
+        jobs.append(("timed", mesh, "qwen3-8b", TP_QWEN, steps, True))
+    return jobs
+
+
+def _where(r: dict) -> str:
+    d, m = r["mesh"]
+    return f"world {r['world']}" if m == 1 else f"mesh (data {d}, model {m})"
+
+
+def report_timed(r: dict, tag: str, base: dict = None,
+                 against: str = "world 1") -> str:
     eff = ""
-    if base is not None:
+    if base is not None and base["world"] == 1:
         e = r["tok_s"] / (base["tok_s"] * r["world"])
-        eff = f"; scale efficiency {e:.3f} against world 1"
-    return (f"[dist] {r['arch']} {r['dtype']} world {r['world']} zero1 "
-            f"{'on' if r['zero1'] else 'off'}, ({r['rows_a_card']}, "
-            f"{r['seq']}) a card, {r['params'] / 1e9:.3f} B parameters: "
+        eff = f"; scale efficiency {e:.3f} against {against}"
+    elif base is not None:
+        ratio = r["tok_s"] / base["tok_s"]
+        eff = f"; {ratio:.3f} times the tok/s of {against}"
+    return (f"{tag} {r['arch']} {r['dtype']} {_where(r)} zero1 "
+            f"{'on' if r['zero1'] else 'off'}, global ({r['global_rows']}, "
+            f"{r['seq']}), ({r['rows_a_card']}, {r['seq']}) a data rank, "
+            f"{r['params'] / 1e9:.3f} B parameters: "
             f"warm {r['warm_ms']:.1f} ms; steps "
             + ", ".join(f"{t:.1f}" for t in r["step_ms"])
             + f" ms = {r['tok_s']:.0f} tok/s{eff}; peak "
@@ -413,14 +531,14 @@ def report_timed(r: dict, base: dict = None) -> str:
             + ", ".join(f"{x:.4f}" for x in r["grad_norm"]))
 
 
-def report_f32(r: dict) -> str:
+def report_f32(r: dict, tag: str) -> str:
     lim = f"{F32_LIMIT:.0e}"
     controls = "; ".join(
         f"{k}: metric {c['worst_metric_rel']:.2e}, moments "
         f"{c['worst_moment_rel_l2']:.2e}, parameters' error over tolerance "
         f"{c['param_err_over_tol']:.2e}, {'passed' if c['ok'] else 'failed'}"
         for k, c in r["controls"].items())
-    return (f"[dist] {r['arch']} f32 world {r['world']}, global batch "
+    return (f"{tag} {r['arch']} f32 {_where(r)}, global batch "
             f"{tuple(r['global_batch'])}, one step against one card: loss "
             f"{r['loss'][0]:.7f} / {r['loss'][1]:.7f}, grad_norm "
             f"{r['grad_norm'][0]:.7f} / {r['grad_norm'][1]:.7f} (worst "
@@ -450,17 +568,34 @@ def qwen_reckoning() -> dict:
                 card_gb=card_bytes / 1e9)
 
 
+def state_gb(params: int, data: int, model: int) -> float:
+    """GB a card of a bf16 model's state on the mesh (data, model), by
+    bytes: its pieces of the parameters and gradients (bf16, split over
+    "model") and of the two f32 moments (split over both by ZeRO-1);
+    the whole leaves (norms) left out."""
+    return params * ((2 + 2) / model + 8 / (model * data)) / 1e9
+
+
+def _mesh_arg(text: str):
+    data, model = (int(x) for x in text.lower().split("x"))
+    return data, model
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--worlds", type=int, nargs="*", default=None,
                     help="world sizes (default 1, 2, 4 up to the cards)")
+    ap.add_argument("--meshes", type=_mesh_arg, nargs="*", default=None,
+                    help="meshes DxM (data D, model M) in place of "
+                    "--worlds, e.g. 4x1 2x2 1x4")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--qwen", action="store_true",
-                    help="qwen3-8b at full size over the largest world")
+                    help="qwen3-8b at full size over the largest world "
+                    "(with --meshes: on every mesh)")
     ap.add_argument("--out", default=os.path.join(
         ROOT, "build", "dist_train_scaling.json"))
     ap.add_argument("--f32-only", action="store_true",
-                    help="only the f32 check (at worlds >= 2)")
+                    help="only the f32 checks")
     ap.add_argument("--smoke", action="store_true",
                     help="smoke configs (a check of the script itself)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -469,12 +604,27 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("FAILED: no CUDA device")
+    tp = args.meshes is not None
+    tag = "[tp]" if tp else "[dist]"
+    if tp:
+        # one spawn a world, its meshes in order
+        plan = {}
+        for d, m in args.meshes:
+            plan.setdefault(d * m, []).extend(
+                mesh_jobs((d, m), args.steps, args.f32_only, args.qwen))
+    else:
+        plan = None
+    asked = (list(plan) if tp else args.worlds) or [1]
     n_cards = (torch.cuda.device_count() if args.device == "cuda"
-               else max(args.worlds or [1]))
-    worlds = args.worlds or [w for w in (1, 2, 4, 8) if w <= n_cards]
-    if max(worlds) > n_cards:
-        raise SystemExit(f"FAILED: {max(worlds)} ranks, {n_cards} cards")
-    say(f"[dist] {card()} x {n_cards}; torch {torch.__version__}, CUDA "
+               else max(asked))
+    if not tp:
+        worlds = args.worlds or [w for w in (1, 2, 4, 8) if w <= n_cards]
+        plan = {w: world_jobs(w, args.steps, args.f32_only,
+                              args.qwen and w == max(worlds))
+                for w in worlds}
+    if max(plan) > n_cards:
+        raise SystemExit(f"FAILED: {max(plan)} ranks, {n_cards} cards")
+    say(f"{tag} {card()} x {n_cards}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     tmp = os.path.dirname(os.path.abspath(args.out))
     os.makedirs(tmp, exist_ok=True)
@@ -483,39 +633,45 @@ def main(argv=None) -> int:
     base = {}
     ok = True
     t_all = time.perf_counter()
-    for world in worlds:
+    for world, jobs in plan.items():
         t0 = time.perf_counter()
-        jobs = [("f32", "gemma3-1b")] if world >= 2 else []
-        if not args.f32_only:
-            jobs += gemma_jobs(args.steps)
-        if args.qwen and world == max(worlds):
-            jobs.append(("timed", "qwen3-8b", QWEN_SHAPE, args.steps, True))
         results = run_world(world, jobs, tmp, args.device, args.smoke)
         for r in results:
             if "tok_s" in r:
-                if r["world"] == 1:
-                    base[r["arch"], r["zero1"]] = r
-                say(report_timed(r, base.get((r["arch"], r["zero1"]))
-                                 if r["world"] > 1 else None))
+                # against world 1 (--worlds), or against the mesh of
+                # every card on "data" at the same global batch
+                # (--meshes), where the call ran it first
+                key = ((r["arch"], r["zero1"], r["global_rows"]) if tp
+                       else (r["arch"], r["zero1"]))
+                one = r["mesh"][1] == 1 if tp else r["world"] == 1
+                if one:
+                    base[key] = r
+                ref = None if one else base.get(key)
+                say(report_timed(r, tag, ref, "the mesh (data "
+                                 f"{r['world']}, model 1)" if tp
+                                 else "world 1"))
                 ok &= r["finite"]
                 out["timed"].append(r)
             else:
-                say(report_f32(r))
+                say(report_f32(r, tag))
                 ok &= r["ok"]
                 out["f32"].append(r)
-        say(f"[dist] world {world} took {time.perf_counter() - t0:.1f}s")
+        say(f"{tag} world {world} took {time.perf_counter() - t0:.1f}s")
     if args.qwen:
         rk = qwen_reckoning()
         out["qwen"] = rk
-        say(f"[dist] qwen3-8b: {rk['params'] / 1e9:.3f} B parameters; "
+        say(f"{tag} qwen3-8b: {rk['params'] / 1e9:.3f} B parameters; "
             f"state on one card {rk['one_card_gb']:.1f} GB (bf16 "
             f"parameters and gradients, f32 m and v: 12 B a parameter) "
             f"against {rk['card_gb']:.1f} GB a card: does not fit; with "
             f"ZeRO-1 over 4 cards {rk['zero1_4_gb']:.1f} GB a card before "
-            "activations")
+            "activations"
+            + ("; " + ", ".join(
+                f"({d}, {m}) {state_gb(rk['params'], d, m):.1f} GB a card"
+                for d, m in args.meshes) if tp else ""))
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
-    say(f"[dist] done in {time.perf_counter() - t_all:.1f}s; results in "
+    say(f"{tag} done in {time.perf_counter() - t_all:.1f}s; results in "
         f"{args.out}")
     if not ok:
         say("FAILED: a check did not hold")
