@@ -160,6 +160,22 @@ last line):
                must catch (the shared KV head's "model" sum left out,
                the gated norm over the rank's width); no kernel launched
                (the counts zeroed before the phase, and the tool's own);
+  8f. ep     — the experts over "model": in this process, granite-moe's
+               smoke config (f32, V2, 48 padded experts) on a mesh of
+               (1, 1), two steps against `make_train_step` bit for bit
+               (at "model" 1 every expert is local and the experts'
+               copy_in / reduce_out are the identity: no expert-parallel
+               code runs); with two or more cards,
+               tools/dist_train_scaling.py --moe --moe-timed v2 (its own
+               process) at (1, n) and, from 4 cards, (n / 2, 2): the f32
+               step against one card for granite-moe's unpadded smoke
+               (V1, V2, V3) and deepseek-v2's smoke (MLA, a shared
+               expert), each with the two faults it must catch (the
+               experts' input and the combine weights without their
+               backward "model" sum), and granite-moe (V2) bf16 at full
+               width and depth, a global (4, 2048), 2 timed steps (tok/s,
+               peak MB and state a card); routes equal over "model" in
+               every job; no kernel launched;
   9. launches — how many CUDA launches one call of each multi-launch
                kernel makes, and the device time of each (torch.profiler,
                after every timed phase): the fused spans at the paper's
@@ -199,7 +215,7 @@ from repro_torch.core import (BatchedExecutor, CONSTS_CACHE_STATS,  # noqa: E402
                               set_consts_cache_dir, stage_fns, tiny_config)
 from repro_torch.bench.resources import (NvmlEnergyMeter,  # noqa: E402
                                         nvml_indices_for_local_gpus)
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.core import demod, lowering  # noqa: E402
 from repro_torch.core.config import Variant  # noqa: E402
 from repro_torch.core.aot import warm_pool  # noqa: E402
@@ -2312,13 +2328,21 @@ def tp_model1() -> None:
     (1, 1) takes the one-device path (the mesh binding, `state_blocks`,
     the state built and gathered by its blocks, the step's order), not
     the Megatron pair, which needs two cards."""
-    import torch.distributed as dist
     cfg, name = lm_config(TP_ARCH)
+    mesh_1x1("[tp]", cfg, name, SCORE_SHAPE, TP_STEPS)
+
+
+def mesh_1x1(tag, cfg, name, shape, steps) -> None:
+    """In this process, over one NCCL rank: ``steps`` steps of ``cfg``
+    on the mesh (1, 1) against `make_train_step` without a mesh (remat
+    as configured, TokenDataset at ``shape``, deterministic mode):
+    parameters, moments and metrics bit for bit."""
+    import torch.distributed as dist
     model = get_model(cfg)
     tcfg = TrainConfig()
-    data = TokenDataset(cfg, *SCORE_SHAPE, seed=0)
+    data = TokenDataset(cfg, *shape, seed=0)
     batches = [_on_card(data.batch_for_step(i), torch.device("cuda"))
-               for i in range(1, TP_STEPS + 1)]
+               for i in range(1, steps + 1)]
     runs = []
     dist.init_process_group("cpu:gloo,cuda:nccl",
                             init_method=f"tcp://localhost:{_free_port()}",
@@ -2328,7 +2352,7 @@ def tp_model1() -> None:
             blocks = state_blocks(cfg, tcfg, mesh)
             pieces = [s.piece for s in tree_lib.leaves(blocks["params"])
                       if s is not None and s.piece is not None]
-            check(not pieces, f"[tp] pieces at model 1: {pieces[:2]}")
+            check(not pieces, f"{tag} pieces at model 1: {pieces[:2]}")
             with deterministic_algorithms():
                 state = init_train_state(model, 0, blocks)
                 step = make_train_step(model, tcfg, mesh)
@@ -2344,13 +2368,14 @@ def tp_model1() -> None:
         dist.destroy_process_group()
     (plain, m_plain), (tp, m_tp) = runs
     differ = [k for k in plain if not torch.equal(plain[k], tp[k])]
-    say(f"[tp] mesh (1, 1) in this process, {name} {cfg.param_dtype}, "
-        f"{SCORE_SHAPE}, {TP_STEPS} steps: against make_train_step "
+    say(f"{tag} mesh (1, 1) in this process, {name} {cfg.param_dtype}, "
+        f"{shape}, {steps} steps: against make_train_step "
         f"{len(plain)} arrays of parameters and moments, {len(differ)} "
         f"differ; metrics {'equal' if m_plain == m_tp else 'differ'} "
         "(loss " + ", ".join(f"{m['loss']:.6f}" for m in m_tp) + ")")
-    check(not differ, f"[tp] mesh (1, 1) differs: {differ[:4]}")
-    check(m_plain == m_tp, f"[tp] mesh (1, 1) metrics {m_tp} != {m_plain}")
+    check(not differ, f"{tag} mesh (1, 1) differs: {differ[:4]}")
+    check(m_plain == m_tp,
+          f"{tag} mesh (1, 1) metrics {m_tp} != {m_plain}")
 
 
 def phase_tp() -> None:
@@ -2397,6 +2422,66 @@ def phase_tp() -> None:
     check(not launched, f"[tp] launched {launched}")
 
 
+EP_ARCH = "granite-moe-3b-a800m"
+EP_SHAPE = (4, 256)        # the one-card check, on the smoke config
+
+
+def phase_ep() -> None:
+    """8f [ep]: the experts over "model". The launch counts are zeroed
+    first and must read 0 after: no kernel lies on the training path.
+    In this process `mesh_1x1` on EP_ARCH's smoke config (f32, V2, its
+    48 padded experts) at EP_SHAPE: at a "model" extent of 1
+    `models.moe.local_experts` gives every expert and
+    `collectives.copy_in` / `reduce_out` are the identity, so this runs
+    no expert-parallel code; it confirms the mesh's path keeps the
+    one-device step. With two or more cards, tools/dist_train_scaling.py
+    --moe --moe-timed v2 in a process of its own at (1, n) and, from 4
+    cards, (n / 2, 2): the f32 step against one card for granite-moe's
+    unpadded smoke (V1, V2, V3) and deepseek-v2's smoke, each with the
+    two faults of the experts' collectives, which it must catch, and
+    granite-moe (V2) bf16 at full width and depth, 2 timed steps; every
+    job's routes equal over "model", and its launches 0."""
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    mesh_1x1("[ep]", get_smoke(EP_ARCH), f"{EP_ARCH} (smoke)", EP_SHAPE,
+             TP_STEPS)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        meshes = [f"1x{n}"] + ([f"{n // 2}x2"] if n >= 4 and n % 2 == 0
+                               else [])
+        root = os.path.dirname(os.path.abspath(__file__))
+        out = os.path.join(root, "build", f"ep_{os.getpid()}.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "tools",
+                                          "dist_train_scaling.py"),
+             "--moe", "--moe-timed", "v2", "--meshes", *meshes, "--steps",
+             str(TP_STEPS), "--out", out],
+            capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            if line.startswith(("[ep]", "FAILED")):
+                say(line)
+        check(proc.returncode == 0, f"[ep] over {n} cards: exit "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(out) as f:
+            results = json.load(f)
+        os.remove(out)
+        jobs = results["timed"] + results["f32"]
+        tool_launched = {k: v for r in jobs
+                         for k, v in r["launches"].items() if v}
+        check(not tool_launched, f"[ep] the tool launched {tool_launched}")
+        check(all(r["controls_caught"] for r in results["f32"]),
+              "[ep] a fault passed the f32 check")
+        check(all(r["routes_agree"] for r in jobs),
+              "[ep] routes differ over \"model\"")
+    else:
+        say("[ep] the experts over \"model\" across cards need two or "
+            "more cards; one here")
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    say(f"[ep] kernels launched: {launched or 'none'}; took "
+        f"{time.perf_counter() - t0:.1f}s")
+    check(not launched, f"[ep] launched {launched}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # constants are built afresh: the disk tier is on only in its own
@@ -2429,6 +2514,7 @@ def main() -> None:
     phase_train()
     phase_dist()
     phase_tp()
+    phase_ep()
     phase_launches()
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": [

@@ -11,13 +11,14 @@ Production: single pod (data=16, model=16), 256 ranks; multi-pod
 
 The port runs a 2-D mesh (data = d, model = m), d x m = world:
 "data" splits the batch, "model" the heads, the MLP's width, the SSM's
-heads and the vocabulary (Megatron tensor parallelism, `models.common`,
-`runtime.param_sharding.tp_pieces`). `make_mesh` raises
+heads, the vocabulary (Megatron tensor parallelism, `models.common`,
+`runtime.param_sharding.tp_pieces`) and the experts (the "expert" rule,
+`models.moe`). `make_mesh` raises
 `NotImplementedError` for a "pod" extent above 1, for
 ``ParallelConfig.fsdp`` and for a pipeline "pod" axis (ROADMAP A.4.2,
 A.4.5), so nothing is replicated where the reference would split it;
 `train.steps.make_train_step` refuses the configs that "model" cannot
-split yet (experts, A.4.3; heads it does not divide, A.4.6).
+split yet (heads or widths it does not divide, A.4.6).
 """
 
 from __future__ import annotations

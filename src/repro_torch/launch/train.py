@@ -14,6 +14,9 @@ in all, one card a rank, ``--model M`` of them splitting the model;
       --arch gemma3-1b --steps 20 --batch 16 --seq 2048 --data 4
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch qwen3-8b --steps 20 --batch 4 --seq 2048 --data 4 --model 4
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch granite-moe-3b-a800m --steps 20 --batch 4 --seq 2048 \
+      --data 4 --model 4           # 12 of its 48 experts a card
 """
 
 from __future__ import annotations
@@ -165,8 +168,8 @@ def main() -> None:
                     "--batch is the global batch)")
     ap.add_argument("--model", type=int, default=1,
                     help="of the --data ranks, how many split the model "
-                    "(tensor parallelism): a mesh of (data / model, "
-                    "model)")
+                    "(its heads, widths, vocabulary and experts): a mesh "
+                    "of (data / model, model)")
     args = ap.parse_args()
 
     cfg = (get_smoke(args.arch) if args.smoke else get_config(args.arch))

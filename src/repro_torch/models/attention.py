@@ -24,7 +24,12 @@ taken from the pieces of wq and wk (`runtime.param_sharding.tp_pieces`):
 the input enters through `collectives.copy_in`, wo is row-parallel and
 its product leaves through `collectives.reduce_out`. q_norm and k_norm
 are whole (one scale a head dim). Cross attention takes K and V that
-its caller computed the same way (`encdec.cross_kv`).
+its caller computed the same way (`encdec.cross_kv`). `mla_attention`
+runs on the rank's heads too, their count taken from the piece of
+wk_b: wq_a, wkv_a and both norms run whole on every rank, and the
+normed query, c_kv and the one rope key that every head shares enter
+the rank's head columns of wq_b, wk_b and wv_b through `copy_in`; wo is
+row-parallel. `mla_decode` runs on one device only.
 
 Storage-dtype operands with f32 accumulation, as the reference's
 ``preferred_element_type=f32``: every attention product goes through
@@ -368,14 +373,18 @@ def gqa_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _mla_qkv_expand(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor):
+                    positions: torch.Tensor, axis=None):
     """(q_nope (B,S,H,dn), q_rope (B,S,H,dr), c_kv (B,S,rank), k_rope
-    (B,S,1,dr)): the rope key is one head shared by all."""
+    (B,S,1,dr)): the rope key is one head shared by all. H: the heads
+    of wq_b's piece, whose input enters through `copy_in` over
+    ``axis``."""
     b, s, _ = x.shape
-    h, dn, dr = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    h = params["wq_b"].shape[-1] // (dn + dr)
     rank = cfg.kv_lora_rank
     ql = common.rmsnorm(params["q_norm"], x @ params["wq_a"])
-    q = (ql @ params["wq_b"]).reshape(b, s, h, dn + dr)
+    q = (collectives.copy_in(ql, axis) @ params["wq_b"]).reshape(
+        b, s, h, dn + dr)
     q_nope = q[..., :dn]
     q_rope = common.apply_rope(q[..., dn:], positions, cfg.rope_theta)
     kv = x @ params["wkv_a"]                           # (B, S, rank + dr)
@@ -389,18 +398,25 @@ def mla_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, return_kv: bool = False):
     """Train/prefill MLA with expanded keys and values: rope and nope
     parts packed into one head dim (dn + dr) for `chunked_attention`, v
-    zero-padded to it and the output sliced back to dv."""
+    zero-padded to it and the output sliced back to dv. Under a "model"
+    axis on the rank's heads (module doc); the cache it returns is
+    whole."""
     b, s, _ = x.shape
-    h = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv_expand(params, cfg, x, positions)
-    k_nope = (c_kv @ params["wk_b"]).reshape(b, s, h, dn)
-    v = (c_kv @ params["wv_b"]).reshape(b, s, h, dv)
+    h = params["wk_b"].shape[-1] // dn
+    axis = shlib.model_axis()
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_expand(params, cfg, x, positions,
+                                                   axis)
+    c_in = collectives.copy_in(c_kv, axis)
+    k_nope = (c_in @ params["wk_b"]).reshape(b, s, h, dn)
+    v = (c_in @ params["wv_b"]).reshape(b, s, h, dv)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    k = torch.cat([k_nope, collectives.copy_in(k_rope, axis).expand(
+        b, s, h, dr)], dim=-1)
     v_pad = torch.nn.functional.pad(v, (0, dn + dr - dv))
     out = chunked_attention(q, k, v_pad, causal=True, chunk=cfg.attn_chunk)
-    y = out[..., :dv].reshape(b, s, -1) @ params["wo"]
+    y = collectives.reduce_out(out[..., :dv].reshape(b, s, -1)
+                               @ params["wo"], axis)
     if return_kv:
         return y, (c_kv, k_rope)
     return y

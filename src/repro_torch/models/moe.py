@@ -32,7 +32,25 @@ partitioned program computes them: the load-balance fractions and the
 z-loss over all tokens (each rank returns its share of the losses; the
 shares add up to the global values), V1/V3's capacity and ranking over
 all b*s tokens (the lower ranks' tokens first), and V2's group size from
-the global token count. No collective is differentiated.
+the global token count. No collective over "data" is differentiated.
+
+Under a "model" axis (`runtime.sharding.model_axis`, m ranks) the
+experts are split as `runtime.param_sharding.tp_pieces` gives them:
+each rank holds E_eff / m of them (`local_experts`) where m divides the
+padded count, else every expert on 1 / m of its width (the reference's
+"TP over the ffn dim"). Tokens are replicated over "model", so no
+all-to-all runs: every rank routes every token of its rows (routing,
+capacity, ranks and the aux losses whole, on every rank alike), runs
+only its own experts' slots (an assignment to another rank's expert
+goes to the dump row, or under V2 has no column), and the partial
+combines are summed by `collectives.reduce_out`. The experts' input and
+the combine weights enter through `collectives.copy_in`
+(`expert_inputs`), so each replicated tensor ends with its whole
+gradient on every rank and nothing is counted m times: routing reads
+``x`` as it is, and the router's gradient (from the combine weights,
+summed over "model", and from the aux losses, whole on every rank)
+needs no sum of its own. The shared experts run column / row parallel
+(`common.mlp_apply`).
 """
 
 from __future__ import annotations
@@ -176,8 +194,26 @@ def capacity_and_rank(cfg: ModelConfig, idx: torch.Tensor, n_tokens: int,
 
 
 # ---------------------------------------------------------------------------
-# Expert FFN (shared)
+# Expert FFN (shared) and this rank's experts
 # ---------------------------------------------------------------------------
+
+
+def local_experts(cfg: ModelConfig, params: Dict) -> Tuple[int, int]:
+    """(first, count) of the experts whose weights this rank holds: all
+    of them on one device and under the f-split, else its E_eff / m
+    contiguous ones (module doc)."""
+    n = params["wi_gate"].shape[0]
+    axis = shlib.model_axis()
+    if axis is None or n == cfg.n_experts_eff:
+        return 0, n
+    return axis.index * n, n
+
+
+def expert_inputs(x_flat: torch.Tensor, w: torch.Tensor, axis):
+    """The tokens and the combine weights (T, k) as they enter this
+    rank's experts: each through `collectives.copy_in`, whose backward
+    sums their partial gradients over "model" (module doc)."""
+    return collectives.copy_in(x_flat, axis), collectives.copy_in(w, axis)
 
 
 def _expert_ffn(params: Dict, xe: torch.Tensor) -> torch.Tensor:
@@ -192,12 +228,18 @@ def _expert_ffn(params: Dict, xe: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _slots(cfg, x_flat, idx, cap, rank, keep):
-    """(dest (T*k,), the (E_eff*cap, d) slotted tokens): each kept
-    assignment at idx * cap + rank; dropped ones at the dump row
-    E_eff*cap, which is cut off (several may write it)."""
-    e, k = cfg.n_experts_eff, cfg.n_experts_per_tok
-    dump = e * cap
+def _slots(cfg, x_flat, idx, cap, rank, keep, first=0, n=None):
+    """(dest (T*k,), the (n*cap, d) slotted tokens of the experts
+    [first, first + n) (default: all E_eff)): each kept assignment to
+    one of them at (idx - first) * cap + rank; dropped ones and those of
+    other ranks' experts at the dump row n*cap, which is cut off
+    (several may write it)."""
+    k = cfg.n_experts_per_tok
+    n = cfg.n_experts_eff if n is None else n
+    dump = n * cap
+    if n != cfg.n_experts_eff:
+        idx = idx - first
+        keep = keep & (idx >= 0) & (idx < n)
     dest = torch.where(keep, idx * cap + rank, dump).reshape(-1)
     buf = x_flat.new_zeros((dump + 1, x_flat.shape[1]))
     buf.index_copy_(0, dest, x_flat.repeat_interleave(k, dim=0))
@@ -214,10 +256,10 @@ def _combine(ye, dest, w, t):
 
 def _dispatch_dynamic(cfg, params, x_flat, w, idx, cap, rank, keep):
     t, d = x_flat.shape
-    e = cfg.n_experts_eff
-    dest, slotted = _slots(cfg, x_flat, idx, cap, rank, keep)
-    ye = _expert_ffn(params, slotted.reshape(e, cap, d))
-    return _combine(ye.reshape(e * cap, d), dest, w, t)
+    first, n = local_experts(cfg, params)
+    dest, slotted = _slots(cfg, x_flat, idx, cap, rank, keep, first, n)
+    ye = _expert_ffn(params, slotted.reshape(n, cap, d))
+    return _combine(ye.reshape(n * cap, d), dest, w, t)
 
 
 def _dispatch_blocked(cfg, params, x_flat, w, idx, cap, rank, keep):
@@ -253,13 +295,20 @@ def _dispatch_onehot(cfg, params, x_flat, w, idx):
             f"holding {t} tokens each (ROADMAP A.4)")
     g = t // tg
     # capacity per group and per real expert (dead padding gets empty
-    # slots); ranks recomputed within each group
+    # slots); ranks recomputed within each group, over every expert
     cap_g = _capacity(tg, k, cfg.capacity_factor, cfg.n_experts)
     idx_g = idx.reshape(g, tg, k)
     rank_g, keep_g = _rank(idx_g, e, cap_g)              # (G, Tg, k)
 
     act = x_flat.dtype
-    oh_e = F.one_hot(idx_g, e).to(act)                   # (G, Tg, k, E)
+    # this rank's experts' columns only (module doc)
+    first, n = local_experts(cfg, params)
+    if n == e:
+        oh_e = F.one_hot(idx_g, e).to(act)               # (G, Tg, k, E)
+    else:
+        local = idx_g - first
+        oh_e = (F.one_hot(local.clamp(0, n - 1), n).to(act)
+                * ((local >= 0) & (local < n))[..., None].to(act))
     # a dropped rank is >= cap_g: its row is zeroed by keep
     oh_c = (F.one_hot(rank_g.clamp(max=cap_g - 1), cap_g).to(act)
             * keep_g[..., None].to(act))                 # (G, Tg, k, C)
@@ -269,8 +318,8 @@ def _dispatch_onehot(cfg, params, x_flat, w, idx):
 
     xe = torch.einsum("gtec,gtd->gecd", disp, x_flat.reshape(g, tg, d))
     # every group's slots of one expert in one bmm: (E, G*C, d)
-    ye = _expert_ffn(params, xe.transpose(0, 1).reshape(e, g * cap_g, d))
-    ye = ye.reshape(e, g, cap_g, d).transpose(0, 1)      # (G, E, C, d)
+    ye = _expert_ffn(params, xe.transpose(0, 1).reshape(n, g * cap_g, d))
+    ye = ye.reshape(n, g, cap_g, d).transpose(0, 1)      # (G, E, C, d)
     return torch.einsum("gtec,gecd->gtd", comb, ye).reshape(t, d)
 
 
@@ -289,14 +338,17 @@ def moe_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     b, s, d = x.shape
     x_flat = x.reshape(b * s, d)
     w, idx, aux = route(cfg, params["router"], x_flat)
+    axis = shlib.model_axis()
+    x_in, w = expert_inputs(x_flat, w, axis)
 
     if variant == Variant.CNN:
-        y = _dispatch_onehot(cfg, params, x_flat, w, idx)
+        y = _dispatch_onehot(cfg, params, x_in, w, idx)
     else:
         cap, rank, keep = capacity_and_rank(cfg, idx, b * s)
         dispatch = (_dispatch_dynamic if variant == Variant.DYNAMIC
                     else _dispatch_blocked)
-        y = dispatch(cfg, params, x_flat, w, idx, cap, rank, keep)
+        y = dispatch(cfg, params, x_in, w, idx, cap, rank, keep)
+    y = collectives.reduce_out(y, axis)
 
     if cfg.n_shared_experts:
         y = y + common.mlp_apply(params["shared"], x_flat)

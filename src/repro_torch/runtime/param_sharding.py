@@ -19,17 +19,23 @@ block): `tp_pieces` gives the `Piece` of each leaf that a rank holds over
 (of the piece), and `Shard` the two together, the layout of a train
 state's leaf (`train.steps.state_blocks`, `checkpoint`). A piece keeps
 the reference's spec where that cuts at head or segment boundaries
-(wq, wo, wi_*, out_proj, and embedding / lm_head where "model" divides
-the vocabulary), and takes a head-aligned layout of its own where a
-contiguous split would cut through a head or a segment: wk / wv with
-fewer KV heads than ranks (gemma3-1b's one KV head of 256 columns), the
-SSM's in_proj [z | x | B | C | dt] and conv [x | B | C] (z, x, dt by
-head, B and C whole), its gated norm, a_log, dt_bias and d_skip by head.
+(wq, wo, wi_*, out_proj, MLA's wq_b / wk_b / wv_b, embedding / lm_head
+where "model" divides the vocabulary, and the experts: along the expert
+dim where "model" divides the padded count, else along their width,
+`_MOE_RULES`), and takes a layout of its own where a contiguous split
+would cut through a head or a segment: wk / wv with fewer KV heads than
+ranks (gemma3-1b's one KV head of 256 columns), the SSM's in_proj [z |
+x | B | C | dt] and conv [x | B | C] (z, x, dt by head, B and C whole),
+its gated norm, a_log, dt_bias and d_skip by head; and where the rule
+would name the wrong dim: the shared experts' SwiGLU, whose (L, d, f)
+leaves the 3-D expert rule would split along the layers, takes the
+dense MLP's column / row split.
 The parts that several ranks hold (a shared KV head, B and C, the
 per-head q_norm / k_norm scales) each use in part: their gradients are
 partial and are summed over "model" (`Piece.shared`). Leaves whole on
-every rank (the norms on the replicated residual stream, a vocabulary
-"model" does not divide) get the whole gradient on every rank.
+every rank (the norms on the replicated residual stream, MLA's q_norm
+and kv_norm before its split, the router, a vocabulary "model" does not
+divide) get the whole gradient on every rank.
 """
 
 from __future__ import annotations
@@ -275,20 +281,28 @@ class Shard:
 
 def tp_refusal(cfg, extent: int) -> Optional[str]:
     """Why "model" of ``extent`` cannot split ``cfg`` in this port (None
-    where it can): experts (ROADMAP A.4.3), and heads or widths that
-    ``extent`` does not divide, or KV heads that neither divide nor are
-    divided by it (the reference's ``attn_batch`` fallback, A.4.6)."""
+    where it can): heads or widths that ``extent`` does not divide, or
+    KV heads that neither divide nor are divided by it (the reference's
+    ``attn_batch`` fallback, ROADMAP A.4.6). With experts: the query
+    heads, GQA's KV heads, the shared experts' width, and the experts'
+    width where ``extent`` does not divide the (padded) expert count
+    (their f-split, the reference's "TP over the ffn dim")."""
     if extent <= 1:
         return None
-    if cfg.n_experts:
-        return (f"{cfg.name}: experts over \"model\" ({extent}) "
-                "(ROADMAP A.4.3)")
     counts = []
     if cfg.family != "ssm":
         hkv = cfg.n_kv_heads
-        counts += [("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff)]
-        if hkv % extent and extent % hkv:
+        counts.append(("n_heads", cfg.n_heads))
+        if not cfg.use_mla and hkv % extent and extent % hkv:
             counts.append(("n_kv_heads", hkv))
+    if cfg.n_experts:
+        if cfg.n_shared_experts:
+            counts.append(("the shared experts' width",
+                           cfg.moe_d_ff * cfg.n_shared_experts))
+        if cfg.n_experts_eff % extent:
+            counts.append(("moe_d_ff", cfg.moe_d_ff))
+    elif cfg.family != "ssm":
+        counts.append(("d_ff", cfg.d_ff))
     if cfg.family in ("ssm", "hybrid"):
         counts.append(("SSM heads",
                        cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim))
@@ -330,9 +344,15 @@ def _tp_segments(names: Sequence[str], shape, cfg, m: int, spec):
         # heads read (m / n_kv_heads ranks share it)
         n = cfg.n_kv_heads
         return last, (Segment(0, n * cfg.head_dim, n),)
-    if parent in ("q_norm", "k_norm"):
-        # one scale a head dim, applied to every rank's heads
+    if parent in ("q_norm", "k_norm") and not cfg.use_mla:
+        # one scale a head dim, applied to every rank's heads (MLA's
+        # q_norm is over q_lora_rank, before the split: whole)
         return last, (Segment(0, shape[last], 1),)
+    if "shared" in names and leaf in _MOE_RULES:
+        # the shared experts' SwiGLU: the dense MLP's column / row split
+        # (the reference's expert rule would name their layer dim)
+        dim = last - 1 if leaf == "wo" else last
+        return dim, (Segment(0, shape[dim], m),)
     dims = [i for i, e in enumerate(spec)
             if e == "model" or (isinstance(e, tuple) and "model" in e)]
     if not dims:

@@ -15,9 +15,9 @@ The port runs its collectives explicitly (`torch.distributed`), so a
 binding also carries the mesh (`launch.mesh.make_mesh`): `batch_axis`
 gives the process group, extent and index of the ranks that split the
 batch ("data"), and `model_axis` those of the ranks that split the heads,
-the MLP's width and the vocabulary ("model"). `shard` and `shard_pin`
-are the identity: each rank already holds its own block of every
-tensor.
+the MLP's width, the vocabulary and the experts ("model"). `shard` and
+`shard_pin` are the identity: each rank already holds its own block of
+every tensor.
 
 The active binding is the process's, not the thread's (the reference
 keeps it per thread): the mesh is one per process, and on the card

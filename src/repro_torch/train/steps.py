@@ -16,7 +16,8 @@ parameters (`runtime.param_sharding.tp_pieces`), and runs the loss under
 the mesh's binding, where every statistic over the batch is the global
 batch's, the loss is the rank's share of the global loss
 (`models.common.softmax_xent`, `models.moe`), and the layers run on
-local heads (`models.common`). Then, in order: the loss and metrics
+local heads (`models.common`) and local experts (`models.moe`). Then,
+in order: the loss and metrics
 summed over "data"; the gradients of the parts that several "model"
 ranks use in part summed over "model" (`sum_shared_grads`); the
 gradients summed over "data" in f32 buckets
@@ -164,8 +165,8 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
     computes, bit for bit.
     Raises `NotImplementedError`, before any collective runs, for a
     config that the mesh's "model" axis cannot split
-    (`runtime.param_sharding.tp_refusal`: experts, ROADMAP A.4.3; heads
-    or widths it does not divide, A.4.6).
+    (`runtime.param_sharding.tp_refusal`: heads or widths it does not
+    divide, ROADMAP A.4.6).
 
     The new state reuses the old state's storage: parameters and moments
     are updated in place (`optim.adamw.adamw_update`), so the state

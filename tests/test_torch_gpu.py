@@ -1344,6 +1344,36 @@ def test_dp_step_across_cards_matches_one_card(cuda, tmp_path, arch,
     assert result["ok"], result
 
 
+@pytest.mark.parametrize("arch,overrides", [
+    ("granite-moe-3b-a800m", {"n_experts_padded": 0,
+                              "moe_variant": "dynamic"}),
+    ("granite-moe-3b-a800m", {"n_experts_padded": 0}),
+    ("deepseek-v2-236b", {})])
+def test_ep_step_across_cards_matches_one_card(cuda, tmp_path, arch,
+                                               overrides):
+    """A MoE smoke config in f32 with remat on the mesh (data 1, model 2)
+    over two cards, each card holding half of the experts (granite-moe
+    without its dead experts, V1 and V2; deepseek-v2 with MLA on local
+    heads and its shared expert split column / row): one step against
+    the one-card step on the global batch, by
+    tools/dist_train_scaling.py's `f32_check`, with the two faults it
+    must catch (the experts' input and the combine weights without their
+    backward "model" sum), the routes equal on both cards, and no kernel
+    launched."""
+    import os
+    import sys
+    _cards(2)
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    import dist_train_scaling as dts
+    (result,) = dts.run_world(2, [("f32", (1, 2), arch, overrides)],
+                              str(tmp_path), "cuda", smoke=True)
+    assert result["ok"] and result["routes_agree"], result
+    assert set(result["controls"]) == {"experts_input_uncopied",
+                                       "combine_weights_uncopied"}
+    assert not any(result["launches"].values()), result["launches"]
+
+
 @pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-130m"])
 def test_tp_step_across_cards_matches_one_card(cuda, tmp_path, arch):
     """A smoke config in f32 with remat on the mesh (data 1, model 2)

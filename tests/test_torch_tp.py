@@ -49,10 +49,11 @@ parameters (``PRNGKey(0)``), each rank's pieces taken by
   the runs resumed from it at (2, 1) and at one process agree with the
   uncut run (1e-5 metrics, 1e-4 state); the reference's
   ``checkpoint.restore`` reads that save.
-- Refusals, without ranks: experts over "model" (granite-moe,
-  deepseek-v2: ROADMAP A.4.3), heads or widths "model" does not divide
-  (A.4.6); the pieces' layout (head-aligned, tiling every leaf); and
-  the CLI's ``--model``.
+- Without ranks: the MoE configs accepted over "model" with their
+  expert and MLA pieces (their steps across ranks are
+  tests/test_torch_ep.py's); refusals of heads or widths "model" does
+  not divide (A.4.6), experts' widths included; the pieces' layout
+  (head-aligned, tiling every leaf); and the CLI's ``--model``.
 
 The cases of each world size run in one spawn of gloo ranks
 (tests/torch_dist_ranks.py), world 4 over both of its meshes; the
@@ -432,10 +433,35 @@ class _FakeMesh:
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
                                   "deepseek-v2-236b"])
 def test_experts_over_model_refused(arch):
+    """Once refused (ROADMAP A.4.3), the experts now split over "model":
+    `make_train_step` takes the MoE smoke configs at "model" 2 and 4, and
+    each rank's pieces are E_eff / m experts (deepseek-v2: also its
+    shared expert column / row, its MLA heads, the norms before the
+    split whole); only heads "model" does not divide are still refused
+    (A.4.6)."""
     from repro_torch.models import get_model
-    model = get_model(get_smoke(arch), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.4\.3"):
-        make_train_step(model, TrainConfig(), _FakeMesh((1, 2)))
+    cfg = get_smoke(arch)
+    model = get_model(cfg, device="cpu")
+    for m in (2, 4):
+        make_train_step(model, TrainConfig(), _FakeMesh((1, m)))
+        spec, pieces = _pieces(cfg, m, m - 1)
+        got = {path: (None if p is None else p.shape(leaf.shape))
+               for (path, leaf), p in zip(tree.items(spec),
+                                          tree.leaves(pieces))}
+        e = cfg.n_experts_eff
+        assert got["layers/moe/wi_gate"] == (2, e // m, 64, 64)
+        assert got["layers/moe/wo"] == (2, e // m, 64, 64)
+        assert got["layers/moe/router"] is None
+        if cfg.use_mla:
+            assert got["layers/moe/shared/wi_gate"] == (2, 64, 64 // m)
+            assert got["layers/moe/shared/wo"] == (2, 64 // m, 64)
+            assert got["layers/attn/wq_b"] == (2, 32, 4 // m * 24)
+            assert got["layers/attn/wk_b"] == (2, 16, 4 // m * 16)
+            assert got["layers/attn/wo"] == (2, 4 // m * 16, 64)
+            assert got["layers/attn/q_norm/scale"] is None
+            assert got["layers/attn/kv_norm/scale"] is None
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.4\.6"):
+        make_train_step(model, TrainConfig(), _FakeMesh((1, 8)))
 
 
 @pytest.mark.parametrize("arch,overrides,m", [
@@ -443,6 +469,12 @@ def test_experts_over_model_refused(arch):
     ("qwen3-8b", dict(n_heads=6, n_kv_heads=2, d_head=16, d_ff=129), 3),
     ("mamba2-130m", {}, 16),                              # 8 SSM heads
     ("gemma3-1b", dict(d_ff=130), 4),                     # the MLP
+    # granite-moe's 24 heads at full width
+    ("granite-moe-3b-a800m", dict(n_heads=24, n_kv_heads=8), 16),
+    # 6 experts, which 4 does not divide, on a width it does not either
+    ("granite-moe-3b-a800m", dict(n_experts=6, n_experts_padded=0,
+                                  moe_d_ff=66), 4),
+    ("deepseek-v2-236b", dict(moe_d_ff=66), 4),           # shared width
 ])
 def test_heads_model_does_not_divide_refused(arch, overrides, m):
     from repro_torch.models import get_model
@@ -474,6 +506,21 @@ def _pieces(cfg, m, index):
     ("qwen3-8b", "layers/mlp/wo", (36, 3072, 4096)),
     # 256,206 does not split 4 ways: whole
     ("seamless-m4t-large-v2", "embed/embedding", (256206, 1024)),
+    # 48 experts (8 of them dead) over 4 ranks
+    ("granite-moe-3b-a800m", "layers/moe/wi_gate", (32, 12, 1536, 512)),
+    ("granite-moe-3b-a800m", "layers/moe/wo", (32, 12, 512, 1536)),
+    ("granite-moe-3b-a800m", "layers/moe/router", (32, 1536, 40)),
+    ("deepseek-v2-236b", "layers/moe/wi_up", (60, 40, 5120, 1536)),
+    ("deepseek-v2-236b", "layers/moe/wo", (60, 40, 1536, 5120)),
+    # its two shared experts' SwiGLU (width 3072), column / row
+    ("deepseek-v2-236b", "layers/moe/shared/wi_gate", (60, 5120, 768)),
+    ("deepseek-v2-236b", "layers/moe/shared/wo", (60, 768, 5120)),
+    # MLA: 32 of 128 heads, (128 + 64) query columns each
+    ("deepseek-v2-236b", "layers/attn/wq_b", (60, 1536, 6144)),
+    ("deepseek-v2-236b", "layers/attn/wv_b", (60, 512, 4096)),
+    ("deepseek-v2-236b", "layers/attn/wo", (60, 4096, 5120)),
+    ("deepseek-v2-236b", "layers/attn/wq_a", (60, 5120, 1536)),
+    ("deepseek-v2-236b", "layers/attn/q_norm/scale", (60, 1536)),
 ])
 def test_piece_shapes_at_full_width(arch, leaf, want):
     spec, pieces = _pieces(get_config(arch), 4, 1)
@@ -485,7 +532,9 @@ def test_piece_shapes_at_full_width(arch, leaf, want):
 
 @pytest.mark.parametrize("arch,m", [("mamba2-130m", 4), ("zamba2-1.2b", 2),
                                     ("llama3-405b", 4), ("gemma3-1b", 4),
-                                    ("seamless-m4t-large-v2", 2)])
+                                    ("seamless-m4t-large-v2", 2),
+                                    ("granite-moe-3b-a800m", 4),
+                                    ("deepseek-v2-236b", 4)])
 def test_pieces_tile_every_leaf(arch, m):
     """Every rank's piece laid back in its place rebuilds the whole leaf;
     a part that several ranks hold is the same entries on each of them,

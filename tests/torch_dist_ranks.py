@@ -228,15 +228,17 @@ def dp_rank(mesh, rank, cases, refusals=False):
 LOOP_ARCH, LOOP_SHAPE = "gemma3-1b", (4, 16)
 
 
-def loop_run(mesh, root, name, steps, fail_at_step=None):
-    """``train_loop`` of LOOP_ARCH at LOOP_SHAPE to ``steps`` under
-    `run_resilient` (a failure at ``fail_at_step`` on the first attempt),
-    checkpoints every 2 steps in ``root/name``: its metrics a step."""
+def loop_run(mesh, root, name, steps, fail_at_step=None, arch=LOOP_ARCH,
+             overrides=None):
+    """``train_loop`` of ``arch`` (``overrides`` on its smoke config) at
+    LOOP_SHAPE to ``steps`` under `run_resilient` (a failure at
+    ``fail_at_step`` on the first attempt), checkpoints every 2 steps in
+    ``root/name``: its metrics a step."""
     from repro_torch.configs import TrainConfig
     from repro_torch.launch.train import train_loop
     from repro_torch.runtime.fault_tolerance import run_resilient
 
-    cfg = _smoke(LOOP_ARCH, {})
+    cfg = _smoke(arch, overrides or {})
     tcfg = TrainConfig(checkpoint_every=2, seed=3, **TRAIN)
     metrics, attempts = [], []
 
@@ -253,7 +255,7 @@ def loop_run(mesh, root, name, steps, fail_at_step=None):
     return {"metrics": metrics, "restarts": restarts}
 
 
-def restored_state(mesh, root, name, step):
+def restored_state(mesh, root, name, step, arch=LOOP_ARCH, overrides=None):
     """The state `train_loop` would resume from ``root/name``'s step,
     split for this mesh and gathered whole again (numpy, rank 0)."""
     from repro_torch import checkpoint, tree
@@ -262,7 +264,7 @@ def restored_state(mesh, root, name, step):
     from repro_torch.optim import adamw_init
     from repro_torch.train.steps import state_blocks
 
-    cfg = _smoke(LOOP_ARCH, {})
+    cfg = _smoke(arch, overrides or {})
     spec = family_module(cfg).init_params(cfg, None, torch.device("meta"))
     blocks = state_blocks(cfg, TrainConfig(), mesh)
     state = checkpoint.restore(
@@ -400,17 +402,24 @@ def tp_forward(mesh, seed=0):
     return {k: v.detach().numpy() for k, v in out.items()}
 
 
-def tp_fault(mesh, fault, arch, init, shape):
-    """`dp_run` of one step with ``fault`` (tools/dist_train_scaling.py's
-    `fault_in`): "kv_unsummed" (the "model" sum of the attention's
-    shared wk / wv gradients left out) or "local_norm" (the SSM's gated
-    norm over the rank's width only)."""
+def _tool():
+    """tools/dist_train_scaling.py as a module."""
     import sys
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "..", "tools"))
-    from dist_train_scaling import fault_in
-    with fault_in(fault):
-        return dp_run(mesh, arch, {}, init, shape, 1)
+    import dist_train_scaling
+    return dist_train_scaling
+
+
+def tp_fault(mesh, fault, arch, init, shape, overrides=None):
+    """`dp_run` of one step with ``fault`` (tools/dist_train_scaling.py's
+    `fault_in`): "kv_unsummed" (the "model" sum of the attention's
+    shared wk / wv gradients left out), "local_norm" (the SSM's gated
+    norm over the rank's width only), "experts_input_uncopied" or
+    "combine_weights_uncopied" (the experts' input or the combine
+    weights without their backward "model" sum)."""
+    with _tool().fault_in(fault):
+        return dp_run(mesh, arch, overrides or {}, init, shape, 1)
 
 
 def tp_rank(mesh, rank, shapes, cases, extras=()):
@@ -464,4 +473,68 @@ def tp_loop_rank(mesh, rank, root):
     dist.barrier()
     resumed = loop_run(dp, root, name, 4)
     return (dict(uncut=uncut, cut=cut, restored=restored, resumed=resumed)
+            if rank == 0 else None)
+
+
+# ---------------------------------------------------------------------------
+# The experts over "model" (tests/test_torch_ep.py)
+# ---------------------------------------------------------------------------
+
+
+EP_FAULTS = ("experts_input_uncopied", "combine_weights_uncopied")
+
+
+def ep_rank(mesh, rank, shapes, cases, faults=None):
+    """For each mesh shape of ``shapes`` (over this group): `dp_run` of
+    every case of ``cases`` ({name: {"arch", "overrides", "init",
+    "shape", "steps", "meshes"}}) whose "meshes" name it, with whether
+    every rank of "model" routed each token alike (the tool's
+    `routes_agree`); with ``faults`` (mesh shape, case name), at that
+    mesh one step of that case under each of EP_FAULTS. Rank 0: {shape:
+    {name: (runs, routes agree), fault: runs}}."""
+    tool = _tool()
+    out = {}
+    for shape in shapes:
+        m = _mesh_of(mesh, shape)
+        got = {}
+        for name, c in cases.items():
+            if tuple(shape) not in c["meshes"]:
+                continue
+            with tool.routes_recorded() as seen:
+                runs = dp_run(m, c["arch"], c["overrides"], c["init"],
+                              c["shape"], c["steps"])
+            got[name] = (runs, tool.routes_agree(seen, m))
+        if faults is not None and faults[0] == tuple(shape):
+            c = cases[faults[1]]
+            for fault in EP_FAULTS:
+                got[fault] = tp_fault(m, fault, c["arch"], c["init"],
+                                      c["shape"], c["overrides"])
+        out[tuple(shape)] = got
+    return out if rank == 0 else None
+
+
+EP_LOOP = "ep_uncut"
+
+
+def ep_loop_rank(mesh, rank, root, arch, overrides):
+    """World 4: an uncut 4-step `train_loop` of ``arch`` at (1, 4); then
+    at (2, 2) its step-2 checkpoint restored (split and gathered again)
+    and resumed in a copy to step 4."""
+    import shutil
+
+    import torch.distributed as dist
+    ep = _mesh_of(mesh, (1, 4))
+    uncut = loop_run(ep, root, EP_LOOP, 4, arch=arch, overrides=overrides)
+    dp = _mesh_of(mesh, (2, 2))
+    restored = restored_state(dp, root, EP_LOOP, 2, arch, overrides)
+    name = "ep_resumed22"
+    if rank == 0:
+        os.makedirs(os.path.join(str(root), name))
+        shutil.copy(os.path.join(str(root), EP_LOOP, "step_00000002.npz"),
+                    os.path.join(str(root), name))
+        with open(os.path.join(str(root), name, "MANIFEST.json"), "w") as f:
+            f.write('{"latest_step": 2}')
+    dist.barrier()
+    resumed = loop_run(dp, root, name, 4, arch=arch, overrides=overrides)
+    return (dict(uncut=uncut, restored=restored, resumed=resumed)
             if rank == 0 else None)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Training over the cards of one host: data-parallel scaling, ZeRO-1's
-memory, tensor parallelism on 2-D meshes, f32 checks against one card,
-and qwen3-8b at full size.
+memory, tensor parallelism on 2-D meshes, the experts over "model", f32
+checks against one card, and qwen3-8b at full size.
 
 Run from the repository root on a machine with CUDA cards:
 
@@ -10,6 +10,7 @@ Run from the repository root on a machine with CUDA cards:
     python3 tools/dist_train_scaling.py --worlds 2 4 --f32-only
     python3 tools/dist_train_scaling.py --meshes 4x1 2x2 1x4 --qwen
     python3 tools/dist_train_scaling.py --meshes 1x4 2x2 --steps 2
+    python3 tools/dist_train_scaling.py --moe --meshes 4x1 2x2 1x4
 
 Each world size runs in its own spawn of one process a card (NCCL for
 CUDA tensors, gloo for CPU ones, over tcp://localhost on a free port),
@@ -44,7 +45,22 @@ spawn).
     and grad norm of each step. ``--worlds``: (1, 2048) a card at the
     largest world; ``--meshes``: a global (4, 2048) on every mesh. And
     its state on one card reckoned by bytes (parameters and gradients
-    in bf16, two f32 moments: 12 B a parameter).
+    in bf16, two f32 moments: 12 B a parameter);
+  - with ``--moe`` (with ``--meshes``, in place of the jobs above): the
+    f32 checks on granite-moe-3b-a800m's smoke config without its dead
+    experts (V1, V2, V3: 8 experts, so every rank of "model" holds some
+    live ones) and on deepseek-v2-236b's smoke (MLA, a shared expert),
+    at a "model" extent >= 2, each with the two faults of the experts'
+    collectives (`controls`), which must read at least 10 times over
+    MOMENT_LIMIT; granite-moe-3b-a800m bf16 at full width and depth
+    (V2) at a global MOE_SHAPE on every mesh, V1 and V3 too where
+    "data" is 1; deepseek-v2-236b bf16 at full width, DEEPSEEK_LAYERS
+    of its 60 layers, at a global DEEPSEEK_SHAPE where "data" is 1 and
+    "model" at least 4. Every job records the
+    experts each MoE layer routed each token to and asserts them equal
+    over "model" (`routes_agree`). Each timed line gives the state a
+    card by bytes (its pieces of the parameters and gradients, its
+    blocks of the moments).
 
 Prints the card's name and power limit (``nvidia-smi``) and each result
 line; writes the results as JSON to ``--out`` (default
@@ -73,7 +89,19 @@ BF16_SHAPE = (4, 2048)          # a card ("data" rank) of --worlds
 QWEN_SHAPE = (1, 2048)          # a card of --worlds
 TP_GEMMA = (16, 2048)           # global, --meshes
 TP_QWEN = (4, 2048)             # global, --meshes
+MOE_SHAPE = (4, 2048)           # global, --moe
+DEEPSEEK_SHAPE = (1, 2048)      # global, --moe
+DEEPSEEK_LAYERS = 4             # of 60: the depth it is served at
 F32_SEQ = 256
+# --moe's f32 checks: smoke configs (name, arch, overrides); granite-moe
+# without the dead experts (with them, its 8 live experts lie on rank 0
+# at "model" 2 and 4)
+MOE_F32 = (("granite-moe-3b-a800m", {"n_experts_padded": 0,
+                                     "moe_variant": "dynamic"}),
+           ("granite-moe-3b-a800m", {"n_experts_padded": 0}),
+           ("granite-moe-3b-a800m", {"n_experts_padded": 0,
+                                     "moe_variant": "sparse"}),
+           ("deepseek-v2-236b", {}))
 
 
 def say(msg: str) -> None:
@@ -136,6 +164,54 @@ def _config(arch: str, dtype: str, smoke: bool, **overrides):
         arch, param_dtype=dtype, compute_dtype=dtype, **overrides)
 
 
+@contextlib.contextmanager
+def routes_recorded(on: bool = True):
+    """The experts that each call of `models.moe.route` in the block
+    picked for each token (its idx), in call order, into the list
+    yielded; ``on`` False: nothing recorded."""
+    from repro_torch.models import moe
+    kept, seen = moe.route, []
+
+    def recording(cfg, router_w, x_flat):
+        out = kept(cfg, router_w, x_flat)
+        seen.append(out[1].detach().clone())
+        return out
+    if on:
+        moe.route = recording
+    try:
+        yield seen
+    finally:
+        moe.route = kept
+
+
+def routes_agree(seen: list, mesh) -> bool:
+    """Whether every rank of the mesh's "model" axis routed each token
+    of ``seen`` (`routes_recorded`) alike: one all-gather of them all."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import binding_for
+    from repro_torch.runtime import collectives
+    axis = binding_for(mesh).axis_group(("model",))
+    if axis.extent == 1 or not seen:      # one rank, or no MoE layer
+        return True
+    mine = torch.cat([i.reshape(-1) for i in seen]).to(_dev())
+    every = collectives.gathered(mine, axis)
+    agree = torch.tensor([float(bool((every == every[0]).all()))],
+                         device=_dev())
+    dist.all_reduce(agree, op=dist.ReduceOp.MIN)
+    return bool(agree.item())
+
+
+def state_bytes(state: dict) -> float:
+    """Bytes of this rank's train state as held (its pieces of the
+    parameters and, as many, of their gradients; its blocks of the
+    moments)."""
+    from repro_torch import tree
+    size = lambda ts: sum(t.numel() * t.element_size()   # noqa: E731
+                          for t in tree.leaves(ts))
+    return (2 * size(state["params"]) + size(state["opt"]["m"])
+            + size(state["opt"]["v"]))
+
+
 class _Timer:
     """CUDA events on the card, the host clock on the CPU (a debug run)."""
 
@@ -163,10 +239,13 @@ class _Timer:
 
 
 def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
-              dtype: str = "bfloat16", smoke: bool = False) -> dict:
-    """Warm step + ``steps`` timed steps of ``arch`` on the mesh at the
-    global batch ``shape``, each rank on the rows of its "data"
-    coordinate; rank 0's CUDA-event times, every rank's peak memory."""
+              overrides: dict = None, dtype: str = "bfloat16",
+              smoke: bool = False) -> dict:
+    """Warm step + ``steps`` timed steps of ``arch`` (``overrides`` on
+    its config) on the mesh at the global batch ``shape``, each rank on
+    the rows of its "data" coordinate; rank 0's CUDA-event times, every
+    rank's peak memory and state bytes (the largest), and whether the
+    warm step routed alike over "model" (`routes_agree`)."""
     import torch.distributed as dist
     from repro_torch import tree
     from repro_torch.configs import TrainConfig
@@ -178,7 +257,7 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
                                          init_train_state, make_train_step,
                                          state_blocks)
 
-    cfg = _config(arch, dtype, smoke)
+    cfg = _config(arch, dtype, smoke, **(overrides or {}))
     world = mesh.size()
     axis = binding_for(mesh).axis_group(("data",))
     dev = _dev()
@@ -198,13 +277,20 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
                      data.rows_for_step(i + 1, axis.index,
                                         axis.extent).items()}
             dist.barrier()
-            timer.start()
-            state, metrics = step_fn(state, batch)
-            ms.append(timer.stop())
+            # the warm step's routes, held equal over "model" below
+            with routes_recorded(i == 0 and bool(cfg.n_experts)) as seen:
+                timer.start()
+                state, metrics = step_fn(state, batch)
+                ms.append(timer.stop())
+            if i == 0:
+                routes = seen
             losses.append(float(metrics["loss"]))
             norms.append(float(metrics["grad_norm"]))
+    agree = routes_agree(routes, mesh)
+    del routes
     peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e6
-                         if timer.cuda else float("nan")], device=dev)
+                         if timer.cuda else float("nan"),
+                         state_bytes(state) / 1e9], device=dev)
     dist.all_reduce(peak, op=dist.ReduceOp.MAX)
     n_params = sum(p.numel() for p in tree.leaves(
         family_module(cfg).init_params(cfg, None, torch.device("meta"))))
@@ -215,12 +301,15 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
     toks = shape[0] * shape[1]
     return dict(arch=arch, dtype=dtype, world=world,
                 mesh=list(_extents(mesh)), zero1=zero1,
+                variant=cfg.moe_variant if cfg.n_experts else None,
+                layers=cfg.n_layers,
                 rows_a_card=shape[0] // axis.extent, global_rows=shape[0],
                 seq=shape[1], params=n_params,
                 warm_ms=ms[0], step_ms=timed,
                 tok_s=toks / np.mean(timed) * 1e3,
-                peak_mb_a_card=float(peak.item()), loss=losses,
-                grad_norm=norms,
+                peak_mb_a_card=float(peak[0].item()),
+                state_gb=float(peak[1].item()), loss=losses,
+                grad_norm=norms, routes_agree=agree,
                 finite=bool(np.all(np.isfinite(losses + norms))))
 
 
@@ -231,9 +320,14 @@ F32_LIMIT = 1e-5                # rtol of the metrics and the parameters
 MOMENT_LIMIT = 5e-5
 # faults the f32 check must catch (`controls`): the gradients left
 # unsummed over "data", the parameters' ZeRO-1 blocks left ungathered,
-# the "model" sum of a shared KV head's gradient left out, and the SSM's
-# gated norm over the rank's width only
-FAULTS = ("unsummed", "ungathered", "kv_unsummed", "local_norm")
+# the "model" sum of a shared KV head's gradient left out, the SSM's
+# gated norm over the rank's width only, the experts' input without its
+# backward "model" sum, and the combine weights without theirs (the
+# router's gradient left partial)
+FAULTS = ("unsummed", "ungathered", "kv_unsummed", "local_norm",
+          "experts_input_uncopied", "combine_weights_uncopied")
+# the experts' faults must read at least this many times MOMENT_LIMIT
+MOE_FAULT_FACTOR = 10
 
 
 def controls(cfg, mesh) -> tuple:
@@ -241,10 +335,13 @@ def controls(cfg, mesh) -> tuple:
     (a fault the mesh does not reach would pass the check)."""
     data, model = _extents(mesh)
     out = ("unsummed", "ungathered") if data > 1 else ()
-    if model > 1 and cfg.family != "ssm" and cfg.n_kv_heads % model:
+    if (model > 1 and cfg.family != "ssm" and not cfg.use_mla
+            and cfg.n_kv_heads % model):
         out += ("kv_unsummed",)
     if model > 1 and cfg.family in ("ssm", "hybrid"):
         out += ("local_norm",)
+    if model > 1 and cfg.n_experts:
+        out += ("experts_input_uncopied", "combine_weights_uncopied")
     return out
 
 
@@ -252,11 +349,11 @@ def controls(cfg, mesh) -> tuple:
 def fault_in(fault):
     """The step broken by ``fault`` (one of FAULTS, or None) inside the
     block."""
-    from repro_torch.models import common
+    from repro_torch.models import common, moe
     from repro_torch.runtime import collectives
     from repro_torch.train import steps
     kept = (collectives.sum_in_f32_buckets, collectives.gather_block,
-            steps.sum_shared_grads, common.rmsnorm)
+            steps.sum_shared_grads, common.rmsnorm, moe.expert_inputs)
 
     def skip_kv(grads, pieces, axis):
         from repro_torch import tree
@@ -269,6 +366,12 @@ def fault_in(fault):
     def local_norm(params, x, eps=1e-6, axis=None):
         return kept[3](params, x, eps)
 
+    def uncopied(which):
+        def inputs(x_flat, w, axis):
+            x_in, w_in = kept[4](x_flat, w, axis)
+            return (x_flat, w_in) if which == "x" else (x_in, w)
+        return inputs
+
     try:
         if fault == "unsummed":
             collectives.sum_in_f32_buckets = lambda *a, **k: None
@@ -278,19 +381,24 @@ def fault_in(fault):
             steps.sum_shared_grads = skip_kv
         elif fault == "local_norm":
             common.rmsnorm = local_norm
+        elif fault == "experts_input_uncopied":
+            moe.expert_inputs = uncopied("x")
+        elif fault == "combine_weights_uncopied":
+            moe.expert_inputs = uncopied("w")
         elif fault is not None:
             raise ValueError(fault)
         yield
     finally:
         (collectives.sum_in_f32_buckets, collectives.gather_block,
-         steps.sum_shared_grads, common.rmsnorm) = kept
+         steps.sum_shared_grads, common.rmsnorm, moe.expert_inputs) = kept
 
 
 def _dp_step(mesh, model, tcfg, data, fault=None):
     """One step on the mesh from ``model.init_params(0)`` (this rank's
     pieces of it) on the rows of this rank's "data" coordinate of the
     global batch; ``fault`` (one of FAULTS) breaks it. The whole state
-    on rank 0's host, and the metrics."""
+    on rank 0's host, the metrics, and whether the step routed alike
+    over "model" (`routes_agree`)."""
     from repro_torch import checkpoint
     from repro_torch.launch.mesh import binding_for
     from repro_torch.train.steps import (deterministic_algorithms,
@@ -301,12 +409,14 @@ def _dp_step(mesh, model, tcfg, data, fault=None):
     blocks = state_blocks(model.cfg, tcfg, mesh)
     state = init_train_state(model, 0, blocks)
     rows = data.rows_for_step(1, axis.index, axis.extent)
-    with fault_in(fault), deterministic_algorithms():
+    with fault_in(fault), deterministic_algorithms(), \
+            routes_recorded(bool(model.cfg.n_experts)) as seen:
         state, metrics = make_train_step(model, tcfg, mesh)(
             state, {k: torch.from_numpy(v).to(dev)
                     for k, v in rows.items()})
     return (checkpoint.host_tree(state, blocks),
-            {k: float(v) for k, v in metrics.items()})
+            {k: float(v) for k, v in metrics.items()},
+            routes_agree(seen, mesh))
 
 
 def _held(dp, dp_metrics, one, one_metrics, init, tcfg, lr) -> dict:
@@ -369,7 +479,10 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
     about lr * g / (|g| + eps), so a gradient at rounding level, common
     at full width, moves it by up to lr either way. The step is then run
     with each fault of `controls`, and each must fail the criterion
-    (``controls_caught``)."""
+    (``controls_caught``; the experts' faults by at least
+    MOE_FAULT_FACTOR times MOMENT_LIMIT in the moments). With experts,
+    the unbroken step must route alike over "model"
+    (``routes_agree``)."""
     import torch.distributed as dist
     from repro_torch import tree
     from repro_torch.configs import TrainConfig
@@ -401,14 +514,16 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
     lr = float(cosine_schedule(tcfg)(1))
     out = None
     for fault in (None,) + controls(cfg, mesh):
-        dp, dp_metrics = _dp_step(mesh, model, tcfg, data, fault)
+        dp, dp_metrics, agree = _dp_step(mesh, model, tcfg, data, fault)
         if lead:
             held = _held(dp, dp_metrics, one, one_metrics, init, tcfg, lr)
             if fault is None:
                 out = dict(arch=cfg.name, world=world,
+                           variant=cfg.moe_variant if cfg.n_experts
+                           else None, overrides=overrides or {},
                            mesh=list(_extents(mesh)),
                            global_batch=[2 * world, F32_SEQ], **held,
-                           controls={})
+                           routes_agree=agree, controls={})
             else:
                 out["controls"][fault] = {
                     k: held[k] for k in ("worst_metric_rel",
@@ -417,9 +532,13 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
         del dp
         dist.barrier()
     if lead:
-        out["controls_caught"] = not any(c["ok"] for c in
-                                         out["controls"].values())
-        out["ok"] = out["ok"] and out["controls_caught"]
+        out["controls_caught"] = not any(
+            c["ok"] or (k.startswith(("experts_", "combine_")) and
+                        c["worst_moment_rel_l2"]
+                        < MOE_FAULT_FACTOR * MOMENT_LIMIT)
+            for k, c in out["controls"].items())
+        out["ok"] = (out["ok"] and out["controls_caught"]
+                     and out["routes_agree"])
     del one, init
     return out
 
@@ -427,8 +546,10 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
 def rank_main(rank: int, world: int, port: int, jobs: list,
               out_path: str, device: str, smoke: bool) -> None:
     """``jobs`` on this rank, each ``(kind, mesh shape, *args)`` with
-    kind "timed" (`timed_run`) or "f32" (`f32_check`); each result with
-    the job's kernel launch counts."""
+    kind "timed" (`timed_run`: arch, shape, steps, zero1[, overrides])
+    or "f32" (`f32_check`: arch[, overrides[, smoke]], a smoke config
+    where ``smoke`` or the job says so); each result with the job's
+    kernel launch counts."""
     import torch.distributed as dist
     from repro_torch import kernels
     _start(rank, world, port, device)
@@ -440,7 +561,8 @@ def rank_main(rank: int, world: int, port: int, jobs: list,
             if kind == "timed":
                 r = timed_run(mesh, *args, smoke=smoke)
             else:
-                r = f32_check(mesh, smoke, *args)
+                arch, overrides, job_smoke = (list(args) + [None, False])[:3]
+                r = f32_check(mesh, smoke or job_smoke, arch, overrides)
             # no kernel lies on the training path: each kernel's launches
             # in this job, summed over the ranks
             counts = kernels.launch_counts()
@@ -505,6 +627,29 @@ def mesh_jobs(mesh, steps: int, f32_only: bool, qwen: bool) -> list:
     return jobs
 
 
+def moe_jobs(mesh, steps: int, f32_only: bool, timed: str = "all"
+             ) -> list:
+    """``--moe``: the f32 checks of MOE_F32 at a "model" extent >= 2;
+    granite-moe (V2) bf16 at MOE_SHAPE on every mesh; with ``timed``
+    "all", V1 and V3 too where "data" is 1, and deepseek-v2 at
+    DEEPSEEK_LAYERS layers and DEEPSEEK_SHAPE where "data" is 1 and
+    "model" at least 4 (its state fits no fewer cards)."""
+    data, model = mesh
+    jobs = ([("f32", mesh, arch, over, True) for arch, over in MOE_F32]
+            if model > 1 else [])
+    if f32_only:
+        return jobs
+    granite = ("granite-moe-3b-a800m", MOE_SHAPE, steps, True)
+    jobs.append(("timed", mesh) + granite)
+    if data == 1 and timed == "all":
+        jobs += [("timed", mesh) + granite + ({"moe_variant": v},)
+                 for v in ("dynamic", "sparse")]
+        if model >= 4:
+            jobs.append(("timed", mesh, "deepseek-v2-236b", DEEPSEEK_SHAPE,
+                         steps, True, {"n_layers": DEEPSEEK_LAYERS}))
+    return jobs
+
+
 def _where(r: dict) -> str:
     d, m = r["mesh"]
     return f"world {r['world']}" if m == 1 else f"mesh (data {d}, model {m})"
@@ -519,14 +664,18 @@ def report_timed(r: dict, tag: str, base: dict = None,
     elif base is not None:
         ratio = r["tok_s"] / base["tok_s"]
         eff = f"; {ratio:.3f} times the tok/s of {against}"
-    return (f"{tag} {r['arch']} {r['dtype']} {_where(r)} zero1 "
+    moe = (f" ({r['variant']}, {r['layers']} layers; routes "
+           f"{'agree' if r['routes_agree'] else 'DIFFER'} over \"model\")"
+           if r.get("variant") else "")
+    return (f"{tag} {r['arch']}{moe} {r['dtype']} {_where(r)} zero1 "
             f"{'on' if r['zero1'] else 'off'}, global ({r['global_rows']}, "
             f"{r['seq']}), ({r['rows_a_card']}, {r['seq']}) a data rank, "
             f"{r['params'] / 1e9:.3f} B parameters: "
             f"warm {r['warm_ms']:.1f} ms; steps "
             + ", ".join(f"{t:.1f}" for t in r["step_ms"])
             + f" ms = {r['tok_s']:.0f} tok/s{eff}; peak "
-            f"{r['peak_mb_a_card']:.1f} MB a card; loss "
+            f"{r['peak_mb_a_card']:.1f} MB a card; state "
+            f"{r['state_gb']:.2f} GB a card by bytes; loss "
             + ", ".join(f"{x:.4f}" for x in r["loss"]) + "; grad_norm "
             + ", ".join(f"{x:.4f}" for x in r["grad_norm"]))
 
@@ -538,7 +687,10 @@ def report_f32(r: dict, tag: str) -> str:
         f"{c['worst_moment_rel_l2']:.2e}, parameters' error over tolerance "
         f"{c['param_err_over_tol']:.2e}, {'passed' if c['ok'] else 'failed'}"
         for k, c in r["controls"].items())
-    return (f"{tag} {r['arch']} f32 {_where(r)}, global batch "
+    moe = (f" ({r['variant']}, {r['overrides']}; routes "
+           f"{'agree' if r['routes_agree'] else 'DIFFER'} over \"model\")"
+           if r.get("variant") else "")
+    return (f"{tag} {r['arch']}{moe} f32 {_where(r)}, global batch "
             f"{tuple(r['global_batch'])}, one step against one card: loss "
             f"{r['loss'][0]:.7f} / {r['loss'][1]:.7f}, grad_norm "
             f"{r['grad_norm'][0]:.7f} / {r['grad_norm'][1]:.7f} (worst "
@@ -594,6 +746,12 @@ def main(argv=None) -> int:
                     "(with --meshes: on every mesh)")
     ap.add_argument("--out", default=os.path.join(
         ROOT, "build", "dist_train_scaling.json"))
+    ap.add_argument("--moe", action="store_true",
+                    help="with --meshes: the experts over \"model\" "
+                    "(granite-moe, deepseek-v2) in place of the dense jobs")
+    ap.add_argument("--moe-timed", default="all", choices=["all", "v2"],
+                    help="--moe's timed runs: all of them, or granite-moe "
+                    "V2 alone")
     ap.add_argument("--f32-only", action="store_true",
                     help="only the f32 checks")
     ap.add_argument("--smoke", action="store_true",
@@ -605,12 +763,16 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("FAILED: no CUDA device")
     tp = args.meshes is not None
-    tag = "[tp]" if tp else "[dist]"
+    if args.moe and not tp:
+        raise SystemExit("FAILED: --moe runs on --meshes")
+    tag = "[ep]" if args.moe else "[tp]" if tp else "[dist]"
     if tp:
         # one spawn a world, its meshes in order
         plan = {}
         for d, m in args.meshes:
             plan.setdefault(d * m, []).extend(
+                moe_jobs((d, m), args.steps, args.f32_only,
+                         args.moe_timed) if args.moe else
                 mesh_jobs((d, m), args.steps, args.f32_only, args.qwen))
     else:
         plan = None
@@ -641,7 +803,8 @@ def main(argv=None) -> int:
                 # against world 1 (--worlds), or against the mesh of
                 # every card on "data" at the same global batch
                 # (--meshes), where the call ran it first
-                key = ((r["arch"], r["zero1"], r["global_rows"]) if tp
+                key = ((r["arch"], r["zero1"], r["global_rows"],
+                        r.get("variant")) if tp
                        else (r["arch"], r["zero1"]))
                 one = r["mesh"][1] == 1 if tp else r["world"] == 1
                 if one:
@@ -650,7 +813,7 @@ def main(argv=None) -> int:
                 say(report_timed(r, tag, ref, "the mesh (data "
                                  f"{r['world']}, model 1)" if tp
                                  else "world 1"))
-                ok &= r["finite"]
+                ok &= r["finite"] and r["routes_agree"]
                 out["timed"].append(r)
             else:
                 say(report_f32(r, tag))
