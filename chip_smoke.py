@@ -176,6 +176,18 @@ last line):
                width and depth, a global (4, 2048), 2 timed steps (tok/s,
                peak MB and state a card); routes equal over "model" in
                every job; no kernel launched;
+  8g. fsdp   — the parameters split over "data" (ParallelConfig.fsdp):
+               in this process gemma3-1b's smoke config (f32, remat) on
+               a mesh of (1, 1) under fsdp, two steps against
+               `make_train_step` bit for bit (at "data" 1 no parameter
+               splits and nothing is gathered); with two or more cards,
+               tools/dist_train_scaling.py --fsdp --f32-only (its own
+               process) at (n, 1) and, from 4 cards, (n / 2, 2): two
+               FSDP steps of four smoke configs (gemma3-1b, mamba2-130m,
+               granite-moe unpadded V2, deepseek-v2) against two on one
+               card, each with the two faults it must catch (the
+               gathered weights' gradients unsummed over "data", the
+               gathered layers cached across steps); no kernel launched;
   9. launches — how many CUDA launches one call of each multi-launch
                kernel makes, and the device time of each (torch.profiler,
                after every timed phase): the fused spans at the paper's
@@ -246,7 +258,7 @@ from repro_torch.launch.serve import (SyntheticAcquisitionSource,  # noqa: E402
                                       serve_ultrasound_sharded,
                                       serve_ultrasound_stream)
 from repro_torch.checkpoint import latest_step  # noqa: E402
-from repro_torch.configs import TrainConfig  # noqa: E402
+from repro_torch.configs import ParallelConfig, TrainConfig  # noqa: E402
 from repro_torch.data.tokens import TokenDataset  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import attention, get_model  # noqa: E402
@@ -2332,11 +2344,11 @@ def tp_model1() -> None:
     mesh_1x1("[tp]", cfg, name, SCORE_SHAPE, TP_STEPS)
 
 
-def mesh_1x1(tag, cfg, name, shape, steps) -> None:
+def mesh_1x1(tag, cfg, name, shape, steps, parallel=None) -> None:
     """In this process, over one NCCL rank: ``steps`` steps of ``cfg``
-    on the mesh (1, 1) against `make_train_step` without a mesh (remat
-    as configured, TokenDataset at ``shape``, deterministic mode):
-    parameters, moments and metrics bit for bit."""
+    on the mesh (1, 1) under ``parallel`` against `make_train_step`
+    without a mesh (remat as configured, TokenDataset at ``shape``,
+    deterministic mode): parameters, moments and metrics bit for bit."""
     import torch.distributed as dist
     model = get_model(cfg)
     tcfg = TrainConfig()
@@ -2348,14 +2360,16 @@ def mesh_1x1(tag, cfg, name, shape, steps) -> None:
                             init_method=f"tcp://localhost:{_free_port()}",
                             rank=0, world_size=1)
     try:
-        for mesh in (None, make_mesh((1, 1), ("data", "model"))):
-            blocks = state_blocks(cfg, tcfg, mesh)
-            pieces = [s.piece for s in tree_lib.leaves(blocks["params"])
-                      if s is not None and s.piece is not None]
-            check(not pieces, f"{tag} pieces at model 1: {pieces[:2]}")
+        for mesh in (None, make_mesh((1, 1), ("data", "model"),
+                                     parallel=parallel)):
+            blocks = state_blocks(cfg, tcfg, mesh, parallel)
+            split = [s for s in tree_lib.leaves(blocks["params"])
+                     if s is not None]
+            check(not split, f"{tag} parameters split at (1, 1): "
+                  f"{split[:2]}")
             with deterministic_algorithms():
                 state = init_train_state(model, 0, blocks)
-                step = make_train_step(model, tcfg, mesh)
+                step = make_train_step(model, tcfg, mesh, parallel)
                 got = []
                 for batch in batches:
                     state, metrics = step(state, batch)
@@ -2482,6 +2496,63 @@ def phase_ep() -> None:
     check(not launched, f"[ep] launched {launched}")
 
 
+FSDP_ARCH = "gemma3-1b"   # the one-card check, on the smoke config
+
+
+def phase_fsdp() -> None:
+    """8g [fsdp]: the parameters split over "data" and gathered a layer
+    at a time (``ParallelConfig.fsdp``). The launch counts are zeroed
+    first and must read 0 after: no kernel lies on the training path. In
+    this process `mesh_1x1` under ``ParallelConfig(fsdp=True)`` on
+    FSDP_ARCH's smoke config (f32, remat) at EP_SHAPE: at a "data"
+    extent of 1 no parameter splits (no FSDP block, no gather), so the
+    step is the one without a mesh, bit for bit. With two or more
+    cards, tools/dist_train_scaling.py --fsdp --f32-only in a process of
+    its own at (n, 1) and, from 4 cards, (n / 2, 2): two FSDP steps of
+    gemma3-1b's, mamba2-130m's, granite-moe's (unpadded, V2) and
+    deepseek-v2's smoke configs against two on one card, each with the
+    two faults it must catch (the gathered weights' gradients left
+    unsummed over "data", the gathered layers cached across steps);
+    their launches 0."""
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    mesh_1x1("[fsdp]", get_smoke(FSDP_ARCH, remat=True),
+             f"{FSDP_ARCH} (smoke)", EP_SHAPE, TP_STEPS,
+             ParallelConfig(fsdp=True))
+    n = torch.cuda.device_count()
+    if n >= 2:
+        meshes = [f"{n}x1"] + ([f"{n // 2}x2"] if n >= 4 and n % 2 == 0
+                               else [])
+        root = os.path.dirname(os.path.abspath(__file__))
+        out = os.path.join(root, "build", f"fsdp_{os.getpid()}.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "tools",
+                                          "dist_train_scaling.py"),
+             "--fsdp", "--f32-only", "--meshes", *meshes, "--out", out],
+            capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            if line.startswith(("[fsdp]", "FAILED")):
+                say(line)
+        check(proc.returncode == 0, f"[fsdp] over {n} cards: exit "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(out) as f:
+            results = json.load(f)
+        os.remove(out)
+        tool_launched = {k: v for r in results["f32"]
+                         for k, v in r["launches"].items() if v}
+        check(not tool_launched,
+              f"[fsdp] the tool launched {tool_launched}")
+        check(bool(results["f32"]) and all(
+            r["controls_caught"] and r["fsdp"] for r in results["f32"]),
+              "[fsdp] a fault passed the f32 check")
+    else:
+        say("[fsdp] FSDP across cards needs two or more cards; one here")
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    say(f"[fsdp] kernels launched: {launched or 'none'}; took "
+        f"{time.perf_counter() - t0:.1f}s")
+    check(not launched, f"[fsdp] launched {launched}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # constants are built afresh: the disk tier is on only in its own
@@ -2515,6 +2586,7 @@ def main() -> None:
     phase_dist()
     phase_tp()
     phase_ep()
+    phase_fsdp()
     phase_launches()
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": [

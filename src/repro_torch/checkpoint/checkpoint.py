@@ -18,10 +18,12 @@ other.
     loop does not wait for the disk.
   * elastic: with ``shardings`` (a tree of `runtime.param_sharding.Shard`
     or None, `train.steps.state_blocks`), the split leaves (ZeRO-1
-    blocks of the moments over "data", pieces of the parameters and
-    moments over "model") are gathered first, every rank taking part,
-    and rank 0 alone writes the whole state in the same layout; `restore`
-    with ``shardings`` splits a whole state again, for any mesh.
+    blocks of the moments over "data", FSDP blocks of the parameters
+    and their moments over "data", pieces of the parameters and moments
+    over "model") are gathered first, every rank taking part, and rank 0
+    alone writes the whole state in the same layout; `restore` with
+    ``shardings`` splits a whole state again, for any mesh, with FSDP on
+    or off.
   * host memory: a save holds the whole state on the writer's host in
     its own dtypes, and one leaf at a time as the f32 array written; a
     restore holds one whole leaf at a time.
@@ -52,8 +54,8 @@ def _host(leaf: torch.Tensor) -> np.ndarray:
 
 def _whole(leaf: torch.Tensor, shard) -> torch.Tensor:
     """The whole leaf of which ``leaf`` is this rank's `Shard` ``shard``
-    (every rank calls this together): its ZeRO-1 block gathered over
-    "data", then its piece over "model"."""
+    (every rank calls this together): its block (ZeRO-1 or FSDP)
+    gathered over "data", then its piece over "model"."""
     if shard is None:
         return leaf
     if shard.block is not None:

@@ -10,7 +10,8 @@ data-parallel step (`train.steps.make_train_step` with a mesh);
 ``grad_compression`` is read by nothing, as by the reference's train step
 (`optim.compress` is there for a caller that wants it).
 ``ParallelConfig`` is the reference's; `launch.mesh.make_mesh` refuses
-what this port does not run yet (``fsdp``, a pipeline "pod" axis).
+what this port does not run yet (a pipeline "pod" axis); ``fsdp`` splits
+the parameters over "data" (`train.steps`).
 """
 
 from __future__ import annotations

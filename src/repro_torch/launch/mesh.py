@@ -13,12 +13,14 @@ The port runs a 2-D mesh (data = d, model = m), d x m = world:
 "data" splits the batch, "model" the heads, the MLP's width, the SSM's
 heads, the vocabulary (Megatron tensor parallelism, `models.common`,
 `runtime.param_sharding.tp_pieces`) and the experts (the "expert" rule,
-`models.moe`). `make_mesh` raises
-`NotImplementedError` for a "pod" extent above 1, for
-``ParallelConfig.fsdp`` and for a pipeline "pod" axis (ROADMAP A.4.2,
-A.4.5), so nothing is replicated where the reference would split it;
-`train.steps.make_train_step` refuses the configs that "model" cannot
-split yet (heads or widths it does not divide, A.4.6).
+`models.moe`); under ``ParallelConfig.fsdp`` "data" also splits the
+parameters whose rule marks "fsdp" (`runtime.param_sharding.
+fsdp_blocks`, gathered a layer at a time: `train.steps`). `make_mesh`
+raises `NotImplementedError` for a "pod" extent above 1 and for a
+pipeline "pod" axis (ROADMAP A.4.5), so nothing is replicated where the
+reference would split it; `train.steps.make_train_step` refuses the
+configs that "model" cannot split yet (heads or widths it does not
+divide, A.4.6).
 """
 
 from __future__ import annotations
@@ -54,8 +56,6 @@ def make_mesh(shape: Sequence[int] = None,
     for a, n in zip(axes, shape):
         if a not in ("data", "model") and n > 1:
             raise NotImplementedError(_TODO.format(f'a "{a}" axis of {n}'))
-    if parallel.fsdp:
-        raise NotImplementedError(_TODO.format("ParallelConfig.fsdp"))
     if parallel.pod_axis_role == "pipeline":
         raise NotImplementedError(_TODO.format('a pipeline "pod" axis'))
     n = 1

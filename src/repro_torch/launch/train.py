@@ -6,7 +6,8 @@ handling -> restart from the latest checkpoint. Runs on the card unless
 asked for the CPU (``--device cpu``), on one device, or over the ranks of
 a ``torchrun`` on a mesh of (data = N / M, model = M) (``--data N`` ranks
 in all, one card a rank, ``--model M`` of them splitting the model;
-``--batch`` is the global batch):
+``--batch`` is the global batch; ``--fsdp`` splits the parameters over
+"data" too, ``ParallelConfig.fsdp``):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
       --smoke --device cpu --steps 50 --batch 8 --seq 128 --ckpt-dir CKPT
@@ -17,6 +18,8 @@ in all, one card a rank, ``--model M`` of them splitting the model;
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch granite-moe-3b-a800m --steps 20 --batch 4 --seq 2048 \
       --data 4 --model 4           # 12 of its 48 experts a card
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen3-8b --steps 20 --batch 4 --seq 2048 --data 4 --fsdp
 """
 
 from __future__ import annotations
@@ -170,6 +173,9 @@ def main() -> None:
                     help="of the --data ranks, how many split the model "
                     "(its heads, widths, vocabulary and experts): a mesh "
                     "of (data / model, model)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="split the parameters over the data axis too, "
+                    "each layer gathered as it runs (ParallelConfig.fsdp)")
     args = ap.parse_args()
 
     cfg = (get_smoke(args.arch) if args.smoke else get_config(args.arch))
@@ -179,30 +185,35 @@ def main() -> None:
                        checkpoint_every=args.ckpt_every)
 
     mesh, device = None, args.device
+    parallel = ParallelConfig(fsdp=args.fsdp)
     if args.data > 1:
-        mesh, device = start_ranks(args.data, args.device, args.model)
+        mesh, device = start_ranks(args.data, args.device, args.model,
+                                   parallel)
     elif args.model > 1:
         raise ValueError(f"--model {args.model} needs --data of at least "
                          "as many ranks")
+    elif args.fsdp:
+        raise ValueError("--fsdp needs --data of two or more ranks")
     watchdog = HangWatchdog(args.hang_timeout).start()
     try:
         with PreemptionHandler() as pre:
             train_loop(cfg, tcfg, batch=args.batch, seq=args.seq,
                        steps=args.steps, ckpt_dir=args.ckpt_dir,
                        preemption=pre, watchdog=watchdog, device=device,
-                       mesh=mesh)
+                       mesh=mesh, parallel=parallel)
     finally:
         watchdog.stop()
         if mesh is not None:
             dist.destroy_process_group()
 
 
-def start_ranks(n: int, device: str, model: int = 1):
+def start_ranks(n: int, device: str, model: int = 1,
+                parallel: Optional[ParallelConfig] = None):
     """The process group of a ``torchrun`` of ``n`` ranks (its
     environment: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT) and its
-    mesh of (n / model, model) on ("data", "model"); NCCL with one card
-    a rank (set before the group starts), gloo on the CPU. -> (mesh,
-    this rank's device)."""
+    mesh of (n / model, model) on ("data", "model") under ``parallel``;
+    NCCL with one card a rank (set before the group starts), gloo on the
+    CPU. -> (mesh, this rank's device)."""
     if model < 1 or n % model:
         raise ValueError(f"--model {model} does not divide --data {n}")
     world = int(os.environ.get("WORLD_SIZE", "1"))
@@ -218,7 +229,8 @@ def start_ranks(n: int, device: str, model: int = 1):
     else:
         dist.init_process_group("gloo")
         dev = "cpu"
-    return make_mesh((n // model, model), ("data", "model")), dev
+    return make_mesh((n // model, model), ("data", "model"),
+                     parallel=parallel), dev
 
 
 if __name__ == "__main__":

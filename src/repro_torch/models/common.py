@@ -22,6 +22,12 @@ divides the vocabulary, `embed_tokens`, `logits_from_hidden` and
 `softmax_xent` run vocab-parallel; elsewhere the vocabulary is whole on
 every rank, as the reference's divisibility-safe ``resolve`` leaves it.
 Without a wide "model" axis every function here runs as on one device.
+
+FSDP (``ParallelConfig.fsdp``): each rank holds its block over "data" of
+the parameters whose rule marks "fsdp" (`runtime.param_sharding.
+fsdp_blocks`); each layer body gathers its layer's blocks first
+(`fsdp_gather`), inside the body that `remat` wraps, so no whole layer
+outlives its forward and the recompute gathers again.
 """
 
 from __future__ import annotations
@@ -81,6 +87,32 @@ def unstacked(layers: Dict, n: int) -> List[Dict]:
     per_leaf = {k: (unstacked(v, n) if isinstance(v, dict)
                     else torch.unbind(v)) for k, v in layers.items()}
     return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
+def fsdp_gather(params: Dict, prefix: str) -> Dict:
+    """``params`` (the leaves of the parameter tree under ``prefix``,
+    e.g. "layers" for one layer of the stacked layers, or
+    "shared_attn") with each leaf that this rank holds as its FSDP block
+    gathered whole over "data" (`collectives.gather_in`: its gradient
+    comes back reduce-scattered); the others as they are. The identity
+    without FSDP (`runtime.sharding.fsdp_layout` empty): no binding,
+    fsdp off, a "data" extent of 1."""
+    layout = shlib.fsdp_layout()
+    if not layout:
+        return params
+
+    def walk(node: Dict, path: str) -> Dict:
+        out = {}
+        for k, v in node.items():
+            p = f"{path}/{k}"
+            if isinstance(v, dict):
+                out[k] = walk(v, p)
+            elif p in layout:
+                out[k] = collectives.gather_in(v, *layout[p])
+            else:
+                out[k] = v
+        return out
+    return walk(params, prefix)
 
 
 def remat(cfg: ModelConfig, body: Callable) -> Callable:

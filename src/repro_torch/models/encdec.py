@@ -12,7 +12,10 @@ heads and columns (`models.attention`, `common.mlp_apply`), and the
 vocabulary is split where "model" divides it (256,206 at 2 ranks, not
 at 4). Per-layer parameters are stacked on leading layer axes
 (``enc_layers``, ``dec_layers``) and run as Python loops, each layer's
-body under `common.remat` where the reference checkpoints it.
+body under `common.remat` where the reference checkpoints it (under
+FSDP gathering its layer's blocks first: `common.fsdp_gather`; the
+decoder's body gathers its cross-attention wk / wv too, whose product
+the reference computes and drops, beside `cross_kv`'s own gather).
 
 Serving: `prefill` encodes, computes the cross K/V once and consumes a
 BOS token through `decode_step`, so the cache it returns is ready to
@@ -81,6 +84,7 @@ def encode(params: Dict, cfg: ModelConfig, enc_embeds: torch.Tensor
     positions = common.positions_of(h)
 
     def body(hcur, lp):
+        lp = common.fsdp_gather(lp, "enc_layers")
         hcur = hcur + attention.gqa_attention(
             lp["attn"], cfg, common.rmsnorm(lp["ln1"], hcur), positions,
             causal=False)
@@ -98,16 +102,18 @@ def cross_kv(params: Dict, cfg: ModelConfig, enc_out: torch.Tensor
     """Each decoder layer's cross K/V of the encoder states, computed
     once: two (L, B, S_enc, hkv, dh); under a "model" axis, of the
     rank's KV heads (the encoder states enter through
-    `collectives.copy_in`)."""
+    `collectives.copy_in`); under FSDP each layer's wk and wv gathered
+    first (`common.fsdp_gather`)."""
     b, s, _ = enc_out.shape
     xattn = params["dec_layers"]["cross_attn"]
     dh = cfg.head_dim
     hkv = xattn["wk"].shape[-1] // dh
     enc_out = collectives.copy_in(enc_out, shlib.model_axis())
-    ks = [common.matmul(enc_out, w).reshape(b, s, hkv, dh)
-          for w in torch.unbind(xattn["wk"])]
-    vs = [common.matmul(enc_out, w).reshape(b, s, hkv, dh)
-          for w in torch.unbind(xattn["wv"])]
+    ks, vs = [], []
+    for wk, wv in zip(torch.unbind(xattn["wk"]), torch.unbind(xattn["wv"])):
+        w = common.fsdp_gather({"wk": wk, "wv": wv}, "dec_layers/cross_attn")
+        ks.append(common.matmul(enc_out, w["wk"]).reshape(b, s, hkv, dh))
+        vs.append(common.matmul(enc_out, w["wv"]).reshape(b, s, hkv, dh))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -122,6 +128,7 @@ def _decoder(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions = common.positions_of(tokens)
 
     def body(hcur, lp, xk_l, xv_l):
+        lp = common.fsdp_gather(lp, "dec_layers")
         hcur = hcur + attention.gqa_attention(
             lp["self_attn"], cfg, common.rmsnorm(lp["ln1"], hcur), positions)
         hcur = hcur + attention.gqa_attention(

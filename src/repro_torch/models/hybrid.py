@@ -60,6 +60,7 @@ def _mamba_layer(cfg: ModelConfig, collect_state: bool = False):
     reference checkpoints each scanned layer); with ``collect_state`` it
     also returns the layer's streaming state."""
     def body(hcur, lp):
+        lp = common.fsdp_gather(lp, "layers")
         res = ssm.ssm_apply(lp["ssm"], cfg, common.rmsnorm(lp["ln"], hcur),
                             return_state=collect_state)
         if collect_state:
@@ -71,6 +72,10 @@ def _mamba_layer(cfg: ModelConfig, collect_state: bool = False):
 
 def _shared_attn_block(cfg: ModelConfig, shared: Dict, h, positions,
                        return_kv: bool = False):
+    """The shared block at one of its uses; under FSDP its blocks are
+    gathered at each use, and autograd adds the uses' reduce-scattered
+    gradients."""
+    shared = common.fsdp_gather(shared, "shared_attn")
     a_in = common.rmsnorm(shared["ln1"], h)
     res = attention.gqa_attention(shared["attn"], cfg, a_in, positions,
                                   return_kv=return_kv)

@@ -4,7 +4,8 @@ The port of the reference's ``repro.models.mamba_lm``, on the port's
 Mamba2 block (`models.ssm`). Per-layer parameters are stacked on a
 leading layer axis, as in the reference; the trunk runs as a Python loop
 over the layers, each layer's body under `common.remat` where the
-reference checkpoints it. `forward` and `loss_fn` take the CUDA ``ssd_scan``
+reference checkpoints it (under FSDP gathering its layer's blocks first:
+`common.fsdp_gather`). `forward` and `loss_fn` take the CUDA ``ssd_scan``
 kernel where the config sets ``use_ssd_kernel``; `prefill` never does,
 because it asks every layer for its final state, which the kernel does
 not return (as the reference, ROADMAP C).
@@ -42,6 +43,7 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict
     h = common.embed_tokens(params["embed"], batch["tokens"], cfg)
 
     def body(hcur, lp):
+        lp = common.fsdp_gather(lp, "layers")
         return hcur + ssm.ssm_apply(lp["ssm"], cfg,
                                     common.rmsnorm(lp["ln"], hcur))
 

@@ -6,7 +6,9 @@ granite-moe-3b-a800m and deepseek-v2-236b (MLA + 160-expert MoE): the
 port of the reference's ``repro.models.transformer``. Per-layer
 parameters are stacked on a leading layer axis, as in the reference;
 the trunk runs as a Python loop over the layers, each layer's body under
-`common.remat` where the reference checkpoints it. The layer's kind
+`common.remat` where the reference checkpoints it; under FSDP the body
+first gathers its layer's blocks (`common.fsdp_gather`), the MoE's
+experts and MLA's projections with the rest. The layer's kind
 (gemma3's local or global) is a 0-d tensor on the device, and so are
 its window (``torch.where(is_local, sliding_window, 0)``, the
 reference's traced ``jnp.where``) and its rope base: nothing about a
@@ -142,7 +144,8 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict
     z = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def body(hcur, lp, loc, win):
-        hcur, _, aux = _block(lp, cfg, hcur, positions, loc, win)
+        hcur, _, aux = _block(common.fsdp_gather(lp, "layers"), cfg, hcur,
+                              positions, loc, win)
         return hcur, aux
 
     body = common.remat(cfg, body)
@@ -177,8 +180,8 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict):
     is_local, window = _kinds(cfg, h.device)
 
     def body(hcur, lp, loc, win):
-        hcur, kv, _ = _block(lp, cfg, hcur, positions, loc, win,
-                             return_kv=True)
+        hcur, kv, _ = _block(common.fsdp_gather(lp, "layers"), cfg, hcur,
+                             positions, loc, win, return_kv=True)
         return hcur, kv
 
     body = common.remat(cfg, body)

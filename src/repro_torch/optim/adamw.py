@@ -16,7 +16,9 @@ the same products as `global_norm_clip`'s), so no f32 copy of the whole
 gradient tree is made. ZeRO-1 (``blocks``): a rank holds only its block
 of each moment (`runtime.param_sharding.zero1_blocks`) and updates only
 that block of the parameter, with the decay mask of the whole leaf; the
-train step then gathers the parameters' blocks. Under tensor
+train step then gathers the parameters' blocks. Under FSDP a rank holds
+the parameter itself as its block, so the update runs on the blocks it
+is given (``blocks`` None there) and nothing is gathered. Under tensor
 parallelism the parameters, gradients and moments given are the rank's
 pieces (`runtime.param_sharding.tp_pieces`), and ``blocks`` are blocks
 of those pieces.
@@ -52,7 +54,8 @@ def _f32_copy(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32, copy=True)
 
 
-def global_norm(grads: Dict, pieces: Optional[Dict] = None, axis=None
+def global_norm(grads: Dict, pieces: Optional[Dict] = None, axis=None,
+                blocks: Optional[Dict] = None, data_axis=None
                 ) -> torch.Tensor:
     """The f32 global norm of a gradient tree, one f32 temporary a leaf
     at a time (the squares run in place on a copy).
@@ -62,19 +65,41 @@ def global_norm(grads: Dict, pieces: Optional[Dict] = None, axis=None
     ranks) the norm of the whole leaves: the squares of the parts each
     rank counts (`Piece.counted`: its own, and a shared part once) are
     summed over ``axis``, and a leaf whole on every rank is counted once,
-    on every rank alike."""
+    on every rank alike. Under FSDP (``blocks``, a tree of the
+    parameters' `Block` over "data" or None, and ``data_axis``, the
+    "data" ranks) the squares of a gradient held as its block are summed
+    over ``data_axis`` too, before those over ``axis``."""
     from repro_torch.runtime import collectives
     leaves = tree.leaves(grads)
     split = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     whole = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for g, piece in zip(leaves, itertools.repeat(None) if pieces is None
-                        else tree.leaves(pieces)):
+    # the blocks' squares over "data": of pieces (then over "model"), of
+    # leaves whole over "model"
+    both = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    data = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    none = itertools.repeat(None)
+    split_over_data = False
+    for g, piece, blk in zip(
+            leaves, none if pieces is None else tree.leaves(pieces),
+            none if blocks is None else tree.leaves(blocks)):
+        split_over_data |= blk is not None
         if piece is None:
-            whole = whole + torch.sum(_f32_copy(g).square_())
+            sq = torch.sum(_f32_copy(g).square_())
+            if blk is None:
+                whole = whole + sq
+            else:
+                data = data + sq
             continue
         for off, n in piece.counted():
-            split = split + torch.sum(_f32_copy(
-                g.narrow(piece.dim, off, n)).square_())
+            sq = torch.sum(_f32_copy(g.narrow(piece.dim, off, n)).square_())
+            if blk is None:
+                split = split + sq
+            else:
+                both = both + sq
+    if split_over_data:
+        summed = collectives.sum_over(torch.stack([both, data]), data_axis)
+        split = split + summed[0]
+        whole = whole + summed[1]
     return torch.sqrt(collectives.sum_over(split, axis) + whole)
 
 

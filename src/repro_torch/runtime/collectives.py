@@ -14,6 +14,13 @@ a row-parallel product's partial sums leave through `reduce_out`
 bodies that `models.common.remat` recomputes, so a recompute on
 autograd's device thread issues them again, on every rank in the same
 order (the binding is the process's: `runtime.sharding`).
+
+Over "data" under FSDP one more operator is differentiated (`gather_in`):
+a parameter held as its block enters a layer body gathered whole (an
+all-gather), and its gradient leaves reduce-scattered: summed over the
+ranks in f32 (`sum_scatter`), each rank keeping its block, written back
+in the parameter's dtype. It too runs inside the remat bodies, so the
+recompute gathers again.
 """
 
 from __future__ import annotations
@@ -34,6 +41,18 @@ def all_gather_into(out: torch.Tensor, t: torch.Tensor, group) -> None:
     has it (the card's torch 2.11 has only the latter)."""
     fn = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
+    fn(out, t, group=group)
+
+
+def reduce_scatter_into(out: torch.Tensor, t: torch.Tensor, group
+                        ) -> None:
+    """``out`` <- the sum over the ranks of ``t`` (extent *
+    out.shape[0], ...), this rank's rows of it along dim 0 (gloo wants
+    both flat):
+    ``reduce_scatter_single`` where torch has it (from 2.13), else
+    ``reduce_scatter_tensor`` (as `all_gather_into`)."""
+    fn = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
     fn(out, t, group=group)
 
 
@@ -89,6 +108,41 @@ def reduce_out(x: torch.Tensor, axis) -> torch.Tensor:
     all-reduce), whose backward hands each rank the gradient of the sum
     as it is. ``axis`` None: ``x`` itself."""
     return x if axis is None else _ReduceOut.apply(x, axis.group)
+
+
+def sum_scatter(g: torch.Tensor, dim: int, axis) -> torch.Tensor:
+    """The block along ``dim`` that this rank of ``axis`` holds of ``g``
+    summed over the ranks (``g`` whole on each): one reduce-scatter in
+    f32, the sum returned in ``g``'s dtype."""
+    dim %= g.ndim
+    k = g.shape[dim] // axis.extent
+    parts = g.float().unflatten(dim, (axis.extent, k)).movedim(dim, 0)
+    parts = parts.contiguous()
+    out = parts.new_empty(parts.shape[1:])
+    reduce_scatter_into(out.view(-1), parts.view(-1), axis.group)
+    return out.to(g.dtype)
+
+
+class _GatherIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        dim %= block.ndim
+        parts = gathered(block.contiguous(), axis)     # (n, *block)
+        return parts.movedim(0, dim).flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_scatter(g, ctx.dim, ctx.axis), None, None
+
+
+def gather_in(block: torch.Tensor, dim: int, axis) -> torch.Tensor:
+    """The whole tensor of which each rank of ``axis`` holds its block
+    along ``dim`` (``block`` here, the rank's of ``axis.extent`` equal
+    contiguous parts, in rank order): an all-gather, whose backward
+    sums the whole gradient over ``axis`` and hands each rank its block
+    (`sum_scatter`)."""
+    return _GatherIn.apply(block, dim, axis)
 
 
 def max_over(t: torch.Tensor, axis) -> torch.Tensor:

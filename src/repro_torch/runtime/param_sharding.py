@@ -15,9 +15,11 @@ applies the same to the Adam moments only.
 
 The rest is the port's (the reference lets the partitioner place each
 block): `tp_pieces` gives the `Piece` of each leaf that a rank holds over
-"model", `zero1_blocks` the ZeRO-1 `Block` of each moment over "data"
-(of the piece), and `Shard` the two together, the layout of a train
-state's leaf (`train.steps.state_blocks`, `checkpoint`). A piece keeps
+"model", `fsdp_blocks` the FSDP `Block` of each parameter over "data"
+(of the piece; ``ParallelConfig.fsdp``), `zero1_blocks` the ZeRO-1
+`Block` of each moment over "data" (of the piece), and `Shard` the two
+together, the layout of a train state's leaf (`train.steps.state_blocks`,
+`checkpoint`). A piece keeps
 the reference's spec where that cuts at head or segment boundaries
 (wq, wo, wi_*, out_proj, MLA's wq_b / wk_b / wv_b, embedding / lm_head
 where "model" divides the vocabulary, and the experts: along the expert
@@ -269,8 +271,9 @@ class Piece:
 @dataclasses.dataclass(frozen=True)
 class Shard:
     """What this rank holds of a whole leaf: its `Piece` over "model"
-    (None: the whole leaf) and, of that piece, its ZeRO-1 `Block` over
-    "data" (None: the whole piece)."""
+    (None: the whole leaf) and, of that piece, its `Block` over "data"
+    (a moment's ZeRO-1 block, or an FSDP block; None: the whole
+    piece)."""
     piece: Optional[Piece] = None
     block: Optional[Block] = None
 
@@ -381,26 +384,12 @@ def tp_pieces(params_shape: Dict, cfg) -> Dict:
     return tree_lib.unflatten(params_shape, out)
 
 
-def zero1_blocks(params_shape: Dict, zero1: bool = True,
-                 pieces: Optional[Dict] = None) -> Dict:
-    """Tree (of the parameters' structure) of the `Block` over "data" of
-    each Adam moment that this rank holds under the active binding, of
-    its piece over "model" where ``pieces`` (`tp_pieces`) gives one;
-    None where it holds the whole moment (of its piece). With ``zero1``
-    the block lies along the dim where the reference's
-    ``specs_from_logical(zero1_moment_axes(...), keep_fsdp=True)`` names
-    "data", where the piece's extent there divides; without, every
-    moment is whole, as the parameters are over "data"
-    (`launch.mesh.make_mesh` refuses fsdp)."""
-    binding = shlib.current_binding()
-    if binding is None or not zero1:
-        return tree_lib.map_(lambda _: None, params_shape)
-    if pieces is None:
-        pieces = tree_lib.map_(lambda _: None, params_shape)
-    specs = specs_from_logical(
-        zero1_moment_axes(logical_param_axes(params_shape), params_shape),
-        params_shape, keep_fsdp=True)
-
+def _blocks_over_data(specs: Dict, params_shape: Dict, pieces: Dict,
+                      binding) -> Dict:
+    """Tree of the `Block` over "data" that ``specs`` give each leaf, of
+    its piece over "model" where ``pieces`` gives one: along the dim
+    whose entry names "data", where the piece's extent there divides;
+    None where no entry names it or it does not divide."""
     def block(spec, leaf, piece):
         split = []
         for i, e in enumerate(spec):
@@ -412,8 +401,8 @@ def zero1_blocks(params_shape: Dict, zero1: bool = True,
             return None
         if len(split) > 1:
             raise NotImplementedError(
-                f"a moment split along dims {[i for i, _ in split]} "
-                "(ROADMAP A.4)")
+                f"a leaf split along dims {[i for i, _ in split]} over "
+                "\"data\" (ROADMAP A.4)")
         dim, phys = split[0]
         local = (piece.size() if piece is not None and piece.dim == dim
                  else leaf.shape[dim])
@@ -421,4 +410,57 @@ def zero1_blocks(params_shape: Dict, zero1: bool = True,
             return None
         return Block(dim, binding.axis_group(phys))
 
+    if pieces is None:
+        pieces = tree_lib.map_(lambda _: None, params_shape)
     return tree_lib.map_(block, specs, params_shape, pieces)
+
+
+def fsdp_blocks(params_shape: Dict, pieces: Optional[Dict] = None
+                ) -> Dict:
+    """Tree (of the parameters' structure) of the FSDP `Block` over
+    "data" of each parameter that this rank holds under the active
+    binding, of its piece over "model" where ``pieces`` (`tp_pieces`)
+    gives one; None where it holds the whole parameter (of its piece).
+    Under a binding with ``fsdp_params`` the block lies along the dim
+    where the reference's `param_pspecs` names "data": the dim the
+    leaf's rule marks "fsdp" (wq / wk / wv / wi_* / in_proj on their
+    input dim, wo / out_proj on their output dim, MLA's projections, the
+    experts' d), where the whole leaf's and the piece's extents there
+    divide, as `runtime.sharding.resolve` leaves them. The embeddings,
+    the norms, the router and the SSM's conv and per-head leaves have no
+    "fsdp": whole over "data". Without a binding, with fsdp off, or at a
+    "data" extent of 1: every parameter whole. A piece never lies on
+    the "fsdp" dim (it lies on the dim its rule names "model" or
+    "expert", or the one `_tp_segments` picks: the SSM's and a shared KV
+    head's last dim, the shared experts' width), so the block keeps the
+    piece's layout along the piece's dim, where
+    `train.steps.sum_shared_grads` and `optim.adamw.global_norm` read
+    it."""
+    binding = shlib.current_binding()
+    if binding is None or not binding.fsdp_params:
+        return tree_lib.map_(lambda _: None, params_shape)
+    return _blocks_over_data(param_pspecs(params_shape), params_shape,
+                             pieces, binding)
+
+
+def zero1_blocks(params_shape: Dict, zero1: bool = True,
+                 pieces: Optional[Dict] = None) -> Dict:
+    """Tree (of the parameters' structure) of the `Block` over "data" of
+    each Adam moment that this rank holds under the active binding, of
+    its piece over "model" where ``pieces`` (`tp_pieces`) gives one;
+    None where it holds the whole moment (of its piece). With ``zero1``
+    the block lies along the dim where the reference's
+    ``specs_from_logical(zero1_moment_axes(...), keep_fsdp=True)`` names
+    "data", where the piece's extent there divides: a leaf whose rule
+    marks "fsdp" keeps that dim, so its moment's block is its FSDP
+    block (`fsdp_blocks`); the others take a free dim. Without, every
+    moment is whole, as its parameter is over "data" (with FSDP,
+    `train.steps.state_blocks` gives the moments of the FSDP leaves
+    their parameters' blocks)."""
+    binding = shlib.current_binding()
+    if binding is None or not zero1:
+        return tree_lib.map_(lambda _: None, params_shape)
+    specs = specs_from_logical(
+        zero1_moment_axes(logical_param_axes(params_shape), params_shape),
+        params_shape, keep_fsdp=True)
+    return _blocks_over_data(specs, params_shape, pieces, binding)

@@ -17,14 +17,16 @@ gives the process group, extent and index of the ranks that split the
 batch ("data"), and `model_axis` those of the ranks that split the heads,
 the MLP's width, the vocabulary and the experts ("model"). `shard` and
 `shard_pin` are the identity: each rank already holds its own block of
-every tensor.
+every tensor. Under FSDP (``ParallelConfig.fsdp``) a binding also
+carries the parameters' FSDP layout (`fsdp_layout`), read by the layer
+bodies that gather their weights.
 
 The active binding is the process's, not the thread's (the reference
 keeps it per thread): the mesh is one per process, and on the card
 autograd runs the backward on a thread of its own, where a layer body
 under `models.common.remat` is recomputed and must see the binding its
 forward saw (MoE's capacity, ranks and group size, the loss's token
-count).
+count, the FSDP layout its gathers read).
 """
 
 from __future__ import annotations
@@ -87,6 +89,10 @@ class Binding:
         # (ZeRO-1 moments still use them — see param_sharding.py).
         self.fsdp_params = fsdp
         self.mesh = mesh
+        # the port's: {leaf path: (dim counted from the end, AxisGroup)}
+        # of each parameter this rank holds as its FSDP block, set by the
+        # train step (`fsdp_layout`)
+        self.fsdp_layout: Dict[str, Tuple[int, "AxisGroup"]] = {}
 
     def extent(self, phys: Tuple[str, ...]) -> int:
         n = 1
@@ -151,6 +157,18 @@ def model_axis() -> Optional[AxisGroup]:
         return None
     axis = binding.axis_group(binding.rules.get("model", ()))
     return axis if axis.extent > 1 else None
+
+
+def fsdp_layout() -> Dict[str, Tuple[int, AxisGroup]]:
+    """{leaf path: (dim counted from the end, the "data" ranks)} of the
+    parameters this rank holds as FSDP blocks under the active binding
+    (`runtime.param_sharding.fsdp_blocks`, set by
+    `train.steps.make_train_step`); empty without a binding, with fsdp
+    off or at a "data" extent of 1. Counted from the end, a dim names
+    the same axis in a stacked leaf and in one layer of it
+    (`models.common.fsdp_gather`)."""
+    binding = current_binding()
+    return binding.fsdp_layout if binding is not None else {}
 
 
 def _phys_for(binding: Binding, ax: Logical) -> Tuple[str, ...]:

@@ -30,6 +30,20 @@ metrics and new state are those of the single-device step on the global
 batch, up to the order of the sums. With ``microbatches`` k, each rank
 splits its own rows into k: microbatch i of the step is then rows i of
 every rank's split.
+
+FSDP (``ParallelConfig.fsdp``, the reference's ZeRO-3): each rank holds,
+of every parameter whose rule marks "fsdp", its block over "data" of its
+piece (`runtime.param_sharding.fsdp_blocks`), and so do its moments. The
+binding carries that layout (`runtime.sharding.fsdp_layout`); each layer
+body gathers its layer's blocks inside `models.common.remat`
+(`models.common.fsdp_gather`), and their gradients come back
+reduce-scattered over "data" in f32 (`runtime.collectives.gather_in`),
+once a microbatch. So those leaves skip the "data" sum and the
+parameters' gather after AdamW, AdamW runs on the blocks, and the
+global norm adds the blocks' squares over "data"; the leaves whole over
+"data" (embeddings, norms, the router, the SSM's conv and per-head
+leaves) take the path above. With ``microbatches`` k an FSDP leaf's f32
+accumulator is its block.
 """
 
 from __future__ import annotations
@@ -48,18 +62,21 @@ from repro_torch.optim.adamw import (adamw_init, adamw_update, clip_scale,
                                      global_norm)
 from repro_torch.runtime import collectives
 from repro_torch.runtime import sharding as shlib
-from repro_torch.runtime.param_sharding import (Shard, tp_pieces,
-                                                tp_refusal, zero1_blocks)
+from repro_torch.runtime.param_sharding import (Shard, fsdp_blocks,
+                                                tp_pieces, tp_refusal,
+                                                zero1_blocks)
 
 
 def state_blocks(cfg, tcfg: TrainConfig, mesh=None,
                  parallel: Optional[ParallelConfig] = None) -> Dict:
     """The `Shard` of each leaf of a train state of ``cfg`` that this
     rank holds (None: the whole leaf): the parameters' pieces over
-    "model" (`runtime.param_sharding.tp_pieces`), and the moments'
-    pieces split further over "data" by ZeRO-1 where ``tcfg.zero1``;
-    all None without a mesh. `checkpoint` reads and writes states by
-    it. Raises `NotImplementedError` for a config "model" cannot split
+    "model" (`runtime.param_sharding.tp_pieces`), split further over
+    "data" under ``parallel.fsdp`` (`runtime.param_sharding.fsdp_blocks`),
+    and the moments' pieces split over "data" as their parameters are
+    under FSDP, else by ZeRO-1 where ``tcfg.zero1``; all None without a
+    mesh. `checkpoint` reads and writes states by it. Raises
+    `NotImplementedError` for a config "model" cannot split
     (`runtime.param_sharding.tp_refusal`)."""
     spec = family_module(cfg).init_params(cfg, None, torch.device("meta"))
     if mesh is None:
@@ -67,31 +84,37 @@ def state_blocks(cfg, tcfg: TrainConfig, mesh=None,
         return {"params": none, "opt": {"m": none, "v": none, "step": None}}
     with shlib.use_binding(binding_for(mesh, parallel)):
         pieces = tp_pieces(spec, cfg)
-        blocks = zero1_blocks(spec, tcfg.zero1, pieces)
+        fsdp = fsdp_blocks(spec, pieces)
+        blocks = tree.map_(lambda f, z: z if f is None else f, fsdp,
+                           zero1_blocks(spec, tcfg.zero1, pieces))
 
     def shard(piece, block):
         return None if piece is None and block is None else \
             Shard(piece, block)
-    params = tree.map_(lambda p: shard(p, None), pieces)
+    params = tree.map_(shard, pieces, fsdp)
     moments = tree.map_(shard, pieces, blocks)
     return {"params": params, "opt": {"m": moments, "v": moments,
                                       "step": None}}
 
 
 def moment_blocks(layout: Dict) -> Dict:
-    """The ZeRO-1 `Block` of each moment of a `state_blocks` layout (of
-    the rank's piece; None: the whole piece), as `optim.adamw` takes
-    them."""
-    return tree.map_(lambda s: None if s is None else s.block,
-                     layout["opt"]["m"])
+    """The `Block` of each moment of a `state_blocks` layout within the
+    parameter the rank holds, as `optim.adamw` takes them: the ZeRO-1
+    block of the rank's piece; None where the moment is the whole piece,
+    or where the parameter is held as the same block (FSDP)."""
+    return tree.map_(
+        lambda m, p: None if m is None or (
+            p is not None and p.block is not None) else m.block,
+        layout["opt"]["m"], layout["params"])
+
 
 
 def init_train_state(model: Model, seed: int = 0,
                      blocks: Optional[Dict] = None) -> Dict:
     """Parameters from ``seed`` (the whole leaves, the same on every
     rank, so one seed gives one model at any layout) and zero moments;
-    where ``blocks`` (`state_blocks`) gives them, the rank's pieces of
-    the parameters and the blocks of its moments."""
+    where ``blocks`` (`state_blocks`) gives them, the rank's pieces (and
+    FSDP blocks) of the parameters and the blocks of its moments."""
     params = model.init_params(seed)
     if blocks is None:
         return {"params": params, "opt": adamw_init(params)}
@@ -171,7 +194,7 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
     The new state reuses the old state's storage: parameters and moments
     are updated in place (`optim.adamw.adamw_update`), so the state
     passed in is the state returned."""
-    binding = blocks = pieces = None
+    binding = blocks = pieces = fsdp = None
     if mesh is not None:
         why = tp_refusal(model.cfg, dict(mesh_axes(mesh)).get("model", 1))
         if why:
@@ -183,6 +206,16 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
         blocks = moment_blocks(layout)
         pieces = tree.map_(lambda s: None if s is None else s.piece,
                            layout["params"])
+        fsdp = tree.map_(lambda s: None if s is None else s.block,
+                         layout["params"])
+        spec = family_module(model.cfg).init_params(
+            model.cfg, None, torch.device("meta"))
+        # what the layer bodies gather (`models.common.fsdp_gather`)
+        binding.fsdp_layout = {
+            path: (blk.dim - len(leaf.shape), blk.axis)
+            for (path, leaf), blk in zip(tree.items(spec),
+                                         tree.leaves(fsdp))
+            if blk is not None}
 
     def grads_of(params: Dict, batch: Dict):
         live = tree.map_(lambda p: p.detach().requires_grad_(), params)
@@ -238,9 +271,12 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
             grads = tree.map_(lambda g: g.contiguous(), grads)
             if model_axis is not None:
                 sum_shared_grads(grads, pieces, model_axis)
-            # the shares' gradients summed over "data"
-            collectives.sum_in_f32_buckets(tree.leaves(grads), axis)
-        gnorm = global_norm(grads, pieces, model_axis)
+            # the shares' gradients summed over "data" (an FSDP block's
+            # came back summed)
+            collectives.sum_in_f32_buckets(
+                [g for g, blk in zip(tree.leaves(grads), tree.leaves(fsdp))
+                 if blk is None], axis)
+        gnorm = global_norm(grads, pieces, model_axis, fsdp, axis)
         scale = clip_scale(gnorm, tcfg.grad_clip)
         new_params, new_opt, opt_metrics = adamw_update(
             tcfg, params, grads, state["opt"], scale=scale, blocks=blocks)

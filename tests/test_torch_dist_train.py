@@ -42,8 +42,9 @@ straddle two ranks: 512 tokens at world 2, (4, 128), and 1,024 at world
   is bit for bit the saved state; the runs resumed from it to step 4
   agree with the uncut run within rtol 1e-5 (metrics) and 1e-4 (state).
 - `make_mesh` refuses a "pod" extent above 1 (or any axis but "data"
-  and "model" wider than 1), fsdp and a pipeline "pod" axis, and builds
-  a "model" axis of 2 (tests/test_torch_tp.py runs it);
+  and "model" wider than 1) and a pipeline "pod" axis, and builds a
+  "model" axis of 2 (tests/test_torch_tp.py runs it) and a "data" axis
+  of 2 under fsdp (tests/test_torch_fsdp.py runs it);
   `make_production_mesh` wants 256 ranks.
 
 Each world size runs in one spawn of gloo ranks (tests/torch_dist_ranks.py).
@@ -369,13 +370,15 @@ def test_restore_at_world_1_and_continue(loops, tmp_path):
 
 
 def test_make_mesh_refuses_what_it_does_not_run(dist):
-    """An axis other than "data" and "model" wider than 1, fsdp, a "pod"
-    of 2 and a pipeline "pod" raise; a "model" axis of 2 is built."""
+    """An axis other than "data" and "model" wider than 1, a "pod" of 2
+    and a pipeline "pod" raise; a "model" axis of 2 is built, and so is
+    a "data" axis of 2 under fsdp (tests/test_torch_fsdp.py runs it)."""
     got = dist[2]["refusals"]
-    assert all(msg is not None for msg in got[:5]), got
-    assert all("ROADMAP A.4" in msg for msg in got[:4]), got
-    assert "256 ranks" in got[4]
-    assert got[5] == (("data", 1), ("model", 2))
+    assert all(msg is not None for msg in got[:4]), got
+    assert all("ROADMAP A.4" in msg for msg in got[:3]), got
+    assert "256 ranks" in got[3]
+    assert got[4] == (("data", 1), ("model", 2))
+    assert got[5] == (("data", 2), ("model", 1))
 
 
 def test_cli_data_parallel_needs_its_ranks(monkeypatch):

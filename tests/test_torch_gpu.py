@@ -1392,3 +1392,29 @@ def test_tp_step_across_cards_matches_one_card(cuda, tmp_path, arch):
                               "cuda", smoke=True)
     assert result["ok"] and result["controls"], result
     assert not any(result["launches"].values()), result["launches"]
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("gemma3-1b", None),
+    ("granite-moe-3b-a800m", {"n_experts_padded": 0})])
+def test_fsdp_step_across_cards_matches_one_card(cuda, tmp_path, arch,
+                                                 overrides):
+    """A smoke config in f32 with remat on the mesh (data 2, model 1)
+    under ``ParallelConfig(fsdp=True)`` over two cards, each card
+    holding its block over "data" of every parameter whose rule marks
+    "fsdp" (the experts' too): two steps against two one-card steps on
+    the global batch, by tools/dist_train_scaling.py's `f32_check`, with
+    the two faults it must catch (the gathered weights' gradients left
+    unsummed over "data", the gathered layers cached across steps), and
+    no kernel launched."""
+    import os
+    import sys
+    _cards(2)
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    import dist_train_scaling as dts
+    (result,) = dts.run_world(2, [("f32+fsdp", (2, 1), arch, overrides)],
+                              str(tmp_path), "cuda", smoke=True)
+    assert result["ok"] and result["fsdp"] and result["steps"] == 2, result
+    assert set(result["controls"]) == {"fsdp_unsummed", "fsdp_cached"}
+    assert not any(result["launches"].values()), result["launches"]

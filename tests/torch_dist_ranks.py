@@ -9,6 +9,7 @@ under pytest-xdist), builds the mesh of ``shape`` on ("data", "model")
 imports neither JAX nor the reference, so the ranks start quickly.
 """
 
+import functools
 import os
 import pickle
 import traceback
@@ -122,13 +123,14 @@ def _smoke(arch, overrides):
 
 
 def dp_run(mesh, arch, overrides, init, shape, steps, zero1=True,
-           microbatches=1):
+           microbatches=1, fsdp=False):
     """The data-parallel step for ``steps`` steps from the numpy
-    parameters ``init`` on TokenDataset batches of the global ``shape``:
+    parameters ``init`` on TokenDataset batches of the global ``shape``
+    (with ``fsdp``, under ``ParallelConfig(fsdp=True)``):
     [(metrics, whole state as numpy)] a step, on rank 0 (None
     elsewhere)."""
     from repro_torch import checkpoint, tree
-    from repro_torch.configs import TrainConfig
+    from repro_torch.configs import ParallelConfig, TrainConfig
     from repro_torch.data import TokenDataset
     from repro_torch.launch.mesh import binding_for
     from repro_torch.models import get_model, params_from_numpy
@@ -139,12 +141,13 @@ def dp_run(mesh, arch, overrides, init, shape, steps, zero1=True,
     cfg = _smoke(arch, overrides)
     model = get_model(cfg, device="cpu")
     tcfg = TrainConfig(zero1=zero1, microbatches=microbatches, **TRAIN)
-    blocks = state_blocks(cfg, tcfg, mesh)
+    parallel = ParallelConfig(fsdp=fsdp)
+    blocks = state_blocks(cfg, tcfg, mesh, parallel)
     params = params_from_numpy(cfg, tree.map_(lambda a: a.copy(), init),
                                device="cpu", shards=blocks["params"])
     state = {"params": params, "opt": adamw_init(params,
                                                  moment_blocks(blocks))}
-    step_fn = make_train_step(model, tcfg, mesh)
+    step_fn = make_train_step(model, tcfg, mesh, parallel)
     axis = binding_for(mesh).axis_group(("data",))
     data = TokenDataset(cfg, *shape, seed=0)
     out = []
@@ -229,11 +232,11 @@ LOOP_ARCH, LOOP_SHAPE = "gemma3-1b", (4, 16)
 
 
 def loop_run(mesh, root, name, steps, fail_at_step=None, arch=LOOP_ARCH,
-             overrides=None):
+             overrides=None, parallel=None):
     """``train_loop`` of ``arch`` (``overrides`` on its smoke config) at
     LOOP_SHAPE to ``steps`` under `run_resilient` (a failure at
-    ``fail_at_step`` on the first attempt), checkpoints every 2 steps in
-    ``root/name``: its metrics a step."""
+    ``fail_at_step`` on the first attempt) and ``parallel``, checkpoints
+    every 2 steps in ``root/name``: its metrics a step."""
     from repro_torch.configs import TrainConfig
     from repro_torch.launch.train import train_loop
     from repro_torch.runtime.fault_tolerance import run_resilient
@@ -248,6 +251,7 @@ def loop_run(mesh, root, name, steps, fail_at_step=None, arch=LOOP_ARCH,
                    steps=steps, log_every=100,
                    ckpt_dir=os.path.join(str(root), name),
                    metrics_out=metrics, device="cpu", mesh=mesh,
+                   parallel=parallel,
                    fail_at_step=fail_at_step if len(attempts) == 1
                    else None)
 
@@ -255,9 +259,11 @@ def loop_run(mesh, root, name, steps, fail_at_step=None, arch=LOOP_ARCH,
     return {"metrics": metrics, "restarts": restarts}
 
 
-def restored_state(mesh, root, name, step, arch=LOOP_ARCH, overrides=None):
+def restored_state(mesh, root, name, step, arch=LOOP_ARCH, overrides=None,
+                   parallel=None):
     """The state `train_loop` would resume from ``root/name``'s step,
-    split for this mesh and gathered whole again (numpy, rank 0)."""
+    split for this mesh (under ``parallel``) and gathered whole again
+    (numpy, rank 0), and the number of leaves split."""
     from repro_torch import checkpoint, tree
     from repro_torch.configs import TrainConfig
     from repro_torch.models.api import family_module
@@ -266,7 +272,7 @@ def restored_state(mesh, root, name, step, arch=LOOP_ARCH, overrides=None):
 
     cfg = _smoke(arch, overrides or {})
     spec = family_module(cfg).init_params(cfg, None, torch.device("meta"))
-    blocks = state_blocks(cfg, TrainConfig(), mesh)
+    blocks = state_blocks(cfg, TrainConfig(), mesh, parallel)
     state = checkpoint.restore(
         os.path.join(str(root), name), step,
         {"params": spec, "opt": adamw_init(spec)}, device="cpu",
@@ -307,13 +313,13 @@ def loop_rank_resume(mesh, rank, root):
 def refusals_rank(mesh, rank):
     """What `make_mesh` and `make_production_mesh` say to the layouts
     this port does not run (None where one did not raise), then the
-    axes of the (data 1, model 2) mesh that `make_mesh` now builds."""
+    axes of the (data 1, model 2) mesh and of the (data 2, model 1) mesh
+    under ``ParallelConfig(fsdp=True)`` that `make_mesh` now builds."""
     from repro_torch.configs import ParallelConfig
     from repro_torch.launch.mesh import (make_mesh, make_production_mesh,
                                          mesh_axes)
     out = []
     for kwargs in (dict(shape=(1, 2), axes=("data", "expert")),
-                   dict(shape=(2, 1), parallel=ParallelConfig(fsdp=True)),
                    dict(shape=(2, 1, 1), axes=("pod", "data", "model")),
                    dict(parallel=ParallelConfig(pod_axis_role="pipeline"))):
         try:
@@ -327,6 +333,8 @@ def refusals_rank(mesh, rank):
     except ValueError as exc:
         out.append(str(exc))
     out.append(mesh_axes(make_mesh((1, 2), ("data", "model"))))
+    out.append(mesh_axes(make_mesh((2, 1), ("data", "model"),
+                                   parallel=ParallelConfig(fsdp=True))))
     return out
 
 
@@ -538,3 +546,83 @@ def ep_loop_rank(mesh, rank, root, arch, overrides):
     resumed = loop_run(dp, root, name, 4, arch=arch, overrides=overrides)
     return (dict(uncut=uncut, restored=restored, resumed=resumed)
             if rank == 0 else None)
+
+
+# ---------------------------------------------------------------------------
+# FSDP (tests/test_torch_fsdp.py)
+# ---------------------------------------------------------------------------
+
+
+FSDP_FAULTS = ("fsdp_unsummed", "fsdp_cached")
+FSDP_LOOP = "fsdp_uncut"
+
+
+def fsdp_rank(mesh, rank, shapes, cases, extras=None):
+    """For each mesh shape of ``shapes`` (over this group): `dp_run`
+    with FSDP of every case of ``cases`` ({name: {"arch", "overrides",
+    "init", "shapes": {mesh shape: global batch}, "steps"}}) that names
+    the mesh. ``extras`` ({mesh shape: {kind: (case, arg)}}) adds at that
+    mesh, on that case: "mb" (2 microbatches, at the global batch
+    ``arg``), "faults" (one run a fault of FSDP_FAULTS, the tool's
+    `fault_in`, at ``arg``), "plain" (FSDP on and off at ``arg``, on a
+    mesh of "data" extent 1, where they agree bit for bit), "save" (a
+    4-step `train_loop` with FSDP saving at step 2 in the directory
+    ``arg``) and "resume" (that save restored with FSDP, split and
+    gathered again, and resumed to step 4). Rank 0: {shape: {name:
+    result}}."""
+    from repro_torch.configs import ParallelConfig
+    fsdp = ParallelConfig(fsdp=True)
+    out = {}
+    for shape in shapes:
+        m = _mesh_of(mesh, shape)
+        got = {}
+        for name, c in cases.items():
+            if tuple(shape) in c["shapes"]:
+                got[name] = dp_run(m, c["arch"], c["overrides"], c["init"],
+                                   c["shapes"][tuple(shape)], c["steps"],
+                                   fsdp=True)
+        for kind, (name, arg) in (extras or {}).get(tuple(shape),
+                                                    {}).items():
+            c = cases[name]
+            run = functools.partial(dp_run, m, c["arch"], c["overrides"],
+                                    c["init"], arg, c["steps"])
+            if kind == "mb":
+                got["mb"] = run(microbatches=2, fsdp=True)
+            elif kind == "plain":
+                got["fsdp_on"], got["fsdp_off"] = run(fsdp=True), run()
+            elif kind == "faults":
+                for fault in FSDP_FAULTS:
+                    with _tool().fault_in(fault):
+                        got[fault] = run(fsdp=True)
+            elif kind == "save":
+                got["uncut"] = loop_run(m, arg, FSDP_LOOP, 4, arch=c["arch"],
+                                        overrides=c["overrides"],
+                                        parallel=fsdp)
+            else:
+                got.update(_fsdp_resume(m, rank, arg, c))
+        out[tuple(shape)] = got
+    return out if rank == 0 else None
+
+
+def _fsdp_resume(mesh, rank, root, c):
+    """The FSDP loop's step-2 save restored on ``mesh`` with FSDP (split
+    and gathered again), then resumed in a copy to step 4."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import ParallelConfig
+    fsdp = ParallelConfig(fsdp=True)
+    restored = restored_state(mesh, root, FSDP_LOOP, 2, c["arch"],
+                              c["overrides"], fsdp)
+    name = "fsdp_resumed"
+    if rank == 0:
+        os.makedirs(os.path.join(str(root), name))
+        shutil.copy(os.path.join(str(root), FSDP_LOOP, "step_00000002.npz"),
+                    os.path.join(str(root), name))
+        with open(os.path.join(str(root), name, "MANIFEST.json"), "w") as f:
+            f.write('{"latest_step": 2}')
+    dist.barrier()
+    resumed = loop_run(mesh, root, name, 4, arch=c["arch"],
+                       overrides=c["overrides"], parallel=fsdp)
+    return {"restored": restored, "resumed": resumed}

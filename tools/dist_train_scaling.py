@@ -240,15 +240,17 @@ class _Timer:
 
 def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
               overrides: dict = None, dtype: str = "bfloat16",
-              smoke: bool = False) -> dict:
+              smoke: bool = False, fsdp: bool = False) -> dict:
     """Warm step + ``steps`` timed steps of ``arch`` (``overrides`` on
     its config) on the mesh at the global batch ``shape``, each rank on
-    the rows of its "data" coordinate; rank 0's CUDA-event times, every
-    rank's peak memory and state bytes (the largest), and whether the
-    warm step routed alike over "model" (`routes_agree`)."""
+    the rows of its "data" coordinate, with ``fsdp`` under
+    ``ParallelConfig(fsdp=True)``; rank 0's CUDA-event times, every
+    rank's peak memory (of the whole run, and of `init_train_state`
+    alone) and state bytes (the largest), and whether the warm step
+    routed alike over "model" (`routes_agree`)."""
     import torch.distributed as dist
     from repro_torch import tree
-    from repro_torch.configs import TrainConfig
+    from repro_torch.configs import ParallelConfig, TrainConfig
     from repro_torch.data import TokenDataset
     from repro_torch.launch.mesh import binding_for
     from repro_torch.models import get_model
@@ -267,8 +269,12 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
         torch.cuda.reset_peak_memory_stats()
     model = get_model(cfg, device=dev)
     tcfg = TrainConfig(zero1=zero1)
-    state = init_train_state(model, 0, state_blocks(cfg, tcfg, mesh))
-    step_fn = make_train_step(model, tcfg, mesh)
+    parallel = ParallelConfig(fsdp=fsdp)
+    state = init_train_state(model, 0, state_blocks(cfg, tcfg, mesh,
+                                                    parallel))
+    init_peak = (torch.cuda.max_memory_allocated() / 1e6 if timer.cuda
+                 else float("nan"))
+    step_fn = make_train_step(model, tcfg, mesh, parallel)
     data = TokenDataset(cfg, shape[0], shape[1], seed=0)
     ms, losses, norms = [], [], []
     with deterministic_algorithms():
@@ -290,7 +296,7 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
     del routes
     peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e6
                          if timer.cuda else float("nan"),
-                         state_bytes(state) / 1e9], device=dev)
+                         state_bytes(state) / 1e9, init_peak], device=dev)
     dist.all_reduce(peak, op=dist.ReduceOp.MAX)
     n_params = sum(p.numel() for p in tree.leaves(
         family_module(cfg).init_params(cfg, None, torch.device("meta"))))
@@ -300,7 +306,7 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
     timed = ms[1:]
     toks = shape[0] * shape[1]
     return dict(arch=arch, dtype=dtype, world=world,
-                mesh=list(_extents(mesh)), zero1=zero1,
+                mesh=list(_extents(mesh)), zero1=zero1, fsdp=fsdp,
                 variant=cfg.moe_variant if cfg.n_experts else None,
                 layers=cfg.n_layers,
                 rows_a_card=shape[0] // axis.extent, global_rows=shape[0],
@@ -308,7 +314,8 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
                 warm_ms=ms[0], step_ms=timed,
                 tok_s=toks / np.mean(timed) * 1e3,
                 peak_mb_a_card=float(peak[0].item()),
-                state_gb=float(peak[1].item()), loss=losses,
+                state_gb=float(peak[1].item()),
+                init_peak_mb=float(peak[2].item()), loss=losses,
                 grad_norm=norms, routes_agree=agree,
                 finite=bool(np.all(np.isfinite(losses + norms))))
 
@@ -323,18 +330,27 @@ MOMENT_LIMIT = 5e-5
 # the "model" sum of a shared KV head's gradient left out, the SSM's
 # gated norm over the rank's width only, the experts' input without its
 # backward "model" sum, and the combine weights without theirs (the
-# router's gradient left partial)
+# router's gradient left partial); under FSDP, the gathered weights'
+# gradients left unsummed over "data" (each rank keeps its block of its
+# own), and each gathered layer cached across steps (step 2 runs on
+# step 1's weights)
 FAULTS = ("unsummed", "ungathered", "kv_unsummed", "local_norm",
-          "experts_input_uncopied", "combine_weights_uncopied")
-# the experts' faults must read at least this many times MOMENT_LIMIT
+          "experts_input_uncopied", "combine_weights_uncopied",
+          "fsdp_unsummed", "fsdp_cached")
+# the experts' and FSDP's faults must read at least this many times
+# MOMENT_LIMIT
 MOE_FAULT_FACTOR = 10
+# FSDP's f32 check runs this many steps (the cached fault shows at 2)
+FSDP_STEPS = 2
 
 
-def controls(cfg, mesh) -> tuple:
+def controls(cfg, mesh, fsdp: bool = False) -> tuple:
     """The faults of FAULTS that break the step of ``cfg`` on ``mesh``
-    (a fault the mesh does not reach would pass the check)."""
+    (a fault the mesh does not reach would pass the check); with
+    ``fsdp`` FSDP's two in place of the data axis's."""
     data, model = _extents(mesh)
-    out = ("unsummed", "ungathered") if data > 1 else ()
+    out = (() if data == 1 else ("fsdp_unsummed", "fsdp_cached") if fsdp
+           else ("unsummed", "ungathered"))
     if (model > 1 and cfg.family != "ssm" and not cfg.use_mla
             and cfg.n_kv_heads % model):
         out += ("kv_unsummed",)
@@ -353,7 +369,8 @@ def fault_in(fault):
     from repro_torch.runtime import collectives
     from repro_torch.train import steps
     kept = (collectives.sum_in_f32_buckets, collectives.gather_block,
-            steps.sum_shared_grads, common.rmsnorm, moe.expert_inputs)
+            steps.sum_shared_grads, common.rmsnorm, moe.expert_inputs,
+            collectives.sum_scatter, collectives.gather_in)
 
     def skip_kv(grads, pieces, axis):
         from repro_torch import tree
@@ -372,6 +389,21 @@ def fault_in(fault):
             return (x_flat, w_in) if which == "x" else (x_in, w)
         return inputs
 
+    def own_block(g, dim, axis):
+        dim %= g.ndim
+        k = g.shape[dim] // axis.extent
+        return g.narrow(dim, axis.index * k, k).contiguous()
+
+    cache = {}
+
+    def cached(block, dim, axis):
+        # the values of the first gather of this block (its storage is
+        # updated in place each step), the gradient of this one
+        out = kept[6](block, dim, axis)
+        key = (block.data_ptr(), tuple(block.shape), dim)
+        stale = cache.setdefault(key, out.detach().clone())
+        return stale + (out - out.detach())
+
     try:
         if fault == "unsummed":
             collectives.sum_in_f32_buckets = lambda *a, **k: None
@@ -385,44 +417,63 @@ def fault_in(fault):
             moe.expert_inputs = uncopied("x")
         elif fault == "combine_weights_uncopied":
             moe.expert_inputs = uncopied("w")
+        elif fault == "fsdp_unsummed":
+            collectives.sum_scatter = own_block
+        elif fault == "fsdp_cached":
+            collectives.gather_in = cached
         elif fault is not None:
             raise ValueError(fault)
         yield
     finally:
         (collectives.sum_in_f32_buckets, collectives.gather_block,
-         steps.sum_shared_grads, common.rmsnorm, moe.expert_inputs) = kept
+         steps.sum_shared_grads, common.rmsnorm, moe.expert_inputs,
+         collectives.sum_scatter, collectives.gather_in) = kept
 
 
-def _dp_step(mesh, model, tcfg, data, fault=None):
-    """One step on the mesh from ``model.init_params(0)`` (this rank's
-    pieces of it) on the rows of this rank's "data" coordinate of the
-    global batch; ``fault`` (one of FAULTS) breaks it. The whole state
-    on rank 0's host, the metrics, and whether the step routed alike
-    over "model" (`routes_agree`)."""
+def _dp_step(mesh, model, tcfg, data, fault=None, fsdp: bool = False,
+             steps: int = 1):
+    """``steps`` steps on the mesh from ``model.init_params(0)`` (this
+    rank's pieces of it) on the rows of this rank's "data" coordinate
+    of the global batch, with ``fsdp`` under ``ParallelConfig(fsdp=
+    True)``; ``fault`` (one of FAULTS) breaks them. The whole state on
+    rank 0's host after each step (gathered inside the fault's block
+    where ``steps`` > 1, so that its state carries from step to step:
+    FSDP's faults leave the gathers of a save alone), each step's
+    metrics, and whether the steps routed alike over "model"
+    (`routes_agree`)."""
     from repro_torch import checkpoint
+    from repro_torch.configs import ParallelConfig
     from repro_torch.launch.mesh import binding_for
     from repro_torch.train.steps import (deterministic_algorithms,
                                          init_train_state, make_train_step,
                                          state_blocks)
     axis = binding_for(mesh).axis_group(("data",))
     dev = _dev()
-    blocks = state_blocks(model.cfg, tcfg, mesh)
+    parallel = ParallelConfig(fsdp=fsdp)
+    blocks = state_blocks(model.cfg, tcfg, mesh, parallel)
     state = init_train_state(model, 0, blocks)
-    rows = data.rows_for_step(1, axis.index, axis.extent)
+    step_fn = make_train_step(model, tcfg, mesh, parallel)
+    wholes, metrics = [], []
     with fault_in(fault), deterministic_algorithms(), \
             routes_recorded(bool(model.cfg.n_experts)) as seen:
-        state, metrics = make_train_step(model, tcfg, mesh)(
-            state, {k: torch.from_numpy(v).to(dev)
-                    for k, v in rows.items()})
-    return (checkpoint.host_tree(state, blocks),
-            {k: float(v) for k, v in metrics.items()},
-            routes_agree(seen, mesh))
+        for i in range(1, steps + 1):
+            rows = data.rows_for_step(i, axis.index, axis.extent)
+            state, m = step_fn(
+                state, {k: torch.from_numpy(v).to(dev)
+                        for k, v in rows.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i < steps:
+                wholes.append(checkpoint.host_tree(state, blocks))
+    wholes.append(checkpoint.host_tree(state, blocks))
+    return wholes, metrics, routes_agree(seen, mesh)
 
 
-def _held(dp, dp_metrics, one, one_metrics, init, tcfg, lr) -> dict:
-    """`f32_check`'s criterion: one data-parallel step ``dp`` against the
-    single card's ``one`` (whole states by path; ``init`` the parameters
-    they started from)."""
+def _held(dp, dp_metrics, one, one_metrics, init, tcfg, lr, step=1
+          ) -> dict:
+    """`f32_check`'s criterion: the data-parallel state ``dp`` after
+    step ``step`` against the single card's ``one`` (whole states by
+    path; ``init`` the parameters the data-parallel step started
+    from)."""
     dev = _dev()
     worst_metric = max(abs(dp_metrics[k] - one_metrics[k])
                        / max(abs(one_metrics[k]), 1e-30) for k in one_metrics)
@@ -436,9 +487,9 @@ def _held(dp, dp_metrics, one, one_metrics, init, tcfg, lr) -> dict:
             worst_moment = max(worst_moment, rel)
             if rel > MOMENT_LIMIT:
                 bad.append(f"opt/{name}/{leaf}")
-        m = dp[f"opt/m/{leaf}"].to(dev).double() / (1 - tcfg.b1)
-        v = dp[f"opt/v/{leaf}"].to(dev).double() / (1 - tcfg.b2)
-        p0 = p0.double()
+        m = dp[f"opt/m/{leaf}"].to(dev).double() / (1 - tcfg.b1 ** step)
+        v = dp[f"opt/v/{leaf}"].to(dev).double() / (1 - tcfg.b2 ** step)
+        p0 = p0.to(dev).double()
         delta = m / (v.sqrt() + tcfg.eps)
         if p0.ndim >= 2:
             delta = delta + tcfg.weight_decay * p0
@@ -463,23 +514,43 @@ def _held(dp, dp_metrics, one, one_metrics, init, tcfg, lr) -> dict:
                 leaves_off=bad, ok=worst_metric <= F32_LIMIT and not bad)
 
 
+def _worst(held: list) -> dict:
+    """`_held`'s readings of several steps as one: the worst of each, the
+    leaves off in any, every step's loss and grad norm pairs, ok where
+    every step is."""
+    out = dict(held[-1])
+    for k in ("worst_metric_rel", "worst_moment_rel_l2",
+              "param_err_over_tol", "params_apart"):
+        out[k] = max(h[k] for h in held)
+    out["leaves_off"] = sorted({x for h in held for x in h["leaves_off"]})
+    out["loss"] = [x for h in held for x in h["loss"]]
+    out["grad_norm"] = [x for h in held for x in h["grad_norm"]]
+    out["ok"] = all(h["ok"] for h in held)
+    return out
+
+
 def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
-              overrides: dict = None) -> dict:
+              overrides: dict = None, fsdp: bool = False) -> dict:
     """``arch`` in f32 with remat (``overrides`` on its config), global
     batch (2n, F32_SEQ), n the mesh's ranks: one step on the mesh against
-    the single-card step on the global batch (rank 0), by `_held`: the
-    metrics within
+    the single-card step on the global batch (rank 0), with ``fsdp``
+    FSDP_STEPS steps under ``ParallelConfig(fsdp=True)``, each against
+    the single card's step from the state the mesh's step started from
+    (step 1 from the initial one, step 2 from the mesh's own step-1
+    state: a router near tie at rounding level then moves neither), by
+    `_held`: the metrics within
     rtol F32_LIMIT; each leaf's moments m and v (the clipped gradient and
     its square) within MOMENT_LIMIT of the single card's in the relative
     L2 norm; and every parameter equal, within rtol F32_LIMIT and atol
     F32_LIMIT * max|p|, to its initial value moved by AdamW's step-1
     update computed in float64 from the data-parallel run's own moments
-    (which catches a block the ZeRO-1 gather left stale). Parameters are
+    (which catches a block the ZeRO-1 gather left stale; at step 2,
+    from its own parameters after step 1). Parameters are
     not held to the single card's entry by entry: step 1 moves each by
     about lr * g / (|g| + eps), so a gradient at rounding level, common
     at full width, moves it by up to lr either way. The step is then run
     with each fault of `controls`, and each must fail the criterion
-    (``controls_caught``; the experts' faults by at least
+    (``controls_caught``; the experts' and FSDP's faults by at least
     MOE_FAULT_FACTOR times MOMENT_LIMIT in the moments). With experts,
     the unbroken step must route alike over "model"
     (``routes_agree``)."""
@@ -488,6 +559,7 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
     from repro_torch.configs import TrainConfig
     from repro_torch.data import TokenDataset
     from repro_torch.models import get_model
+    from repro_torch.models.api import family_module
     from repro_torch.optim import adamw_init, cosine_schedule
     from repro_torch.train.steps import (deterministic_algorithms,
                                          make_train_step)
@@ -499,29 +571,53 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
     data = TokenDataset(cfg, 2 * world, F32_SEQ, seed=0)
     lead = dist.get_rank() == 0
-    one = one_metrics = init = None
-    if lead:
-        params = model.init_params(0)
+    steps = FSDP_STEPS if fsdp else 1
+    one_step = make_train_step(model, tcfg)
+    spec = family_module(cfg).init_params(cfg, None, torch.device("meta"))
+    like = {"params": spec, "opt": {"m": spec, "v": spec, "step": None}}
+
+    def on_one_card(flat: dict, i: int) -> tuple:
+        """The single card's step ``i`` on the global batch from the
+        whole state ``flat`` ({path: tensor}): its state and metrics."""
+        state = tree.unflatten(like, [flat[k].to(dev, copy=True)
+                                      for k, _ in tree.items(like)])
         with deterministic_algorithms():
-            one, metrics = make_train_step(model, tcfg)(
-                {"params": params, "opt": adamw_init(params)},
-                {k: torch.from_numpy(v).to(dev)
-                 for k, v in data.batch_for_step(1).items()})
-        one = dict(tree.items(one))
-        one_metrics = {k: float(v) for k, v in metrics.items()}
+            state, m = one_step(state, {
+                k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch_for_step(i).items()})
+        return (dict(tree.items(state)),
+                {k: float(v) for k, v in m.items()})
+
+    first = init = None
+    if lead:
         init = dict(tree.items(model.init_params(0)))
+        params = model.init_params(0)
+        first = on_one_card(dict(tree.items(
+            {"params": params, "opt": adamw_init(params)})), 1)
     dist.barrier()
-    lr = float(cosine_schedule(tcfg)(1))
     out = None
-    for fault in (None,) + controls(cfg, mesh):
-        dp, dp_metrics, agree = _dp_step(mesh, model, tcfg, data, fault)
+    for fault in (None,) + controls(cfg, mesh, fsdp):
+        dps, dp_metrics, agree = _dp_step(mesh, model, tcfg, data, fault,
+                                          fsdp, steps)
         if lead:
-            held = _held(dp, dp_metrics, one, one_metrics, init, tcfg, lr)
+            held = [_held(dps[0], dp_metrics[0], *first, init, tcfg,
+                          float(cosine_schedule(tcfg)(1)))]
+            for i in range(2, steps + 1):
+                # from the run's own state after step i - 1
+                before = dps[i - 2]
+                held.append(_held(
+                    dps[i - 1], dp_metrics[i - 1],
+                    *on_one_card(before, i),
+                    {k[len("params/"):]: v for k, v in before.items()
+                     if k.startswith("params/")},
+                    tcfg, float(cosine_schedule(tcfg)(i)), i))
+            held = _worst(held)
             if fault is None:
                 out = dict(arch=cfg.name, world=world,
                            variant=cfg.moe_variant if cfg.n_experts
                            else None, overrides=overrides or {},
-                           mesh=list(_extents(mesh)),
+                           mesh=list(_extents(mesh)), fsdp=fsdp,
+                           steps=steps,
                            global_batch=[2 * world, F32_SEQ], **held,
                            routes_agree=agree, controls={})
             else:
@@ -529,17 +625,17 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
                     k: held[k] for k in ("worst_metric_rel",
                                          "worst_moment_rel_l2",
                                          "param_err_over_tol", "ok")}
-        del dp
+        del dps
         dist.barrier()
     if lead:
         out["controls_caught"] = not any(
-            c["ok"] or (k.startswith(("experts_", "combine_")) and
+            c["ok"] or (k.startswith(("experts_", "combine_", "fsdp_")) and
                         c["worst_moment_rel_l2"]
                         < MOE_FAULT_FACTOR * MOMENT_LIMIT)
             for k, c in out["controls"].items())
         out["ok"] = (out["ok"] and out["controls_caught"]
                      and out["routes_agree"])
-    del one, init
+    del first, init
     return out
 
 
@@ -548,8 +644,9 @@ def rank_main(rank: int, world: int, port: int, jobs: list,
     """``jobs`` on this rank, each ``(kind, mesh shape, *args)`` with
     kind "timed" (`timed_run`: arch, shape, steps, zero1[, overrides])
     or "f32" (`f32_check`: arch[, overrides[, smoke]], a smoke config
-    where ``smoke`` or the job says so); each result with the job's
-    kernel launch counts."""
+    where ``smoke`` or the job says so), either with "+fsdp" (under
+    ``ParallelConfig(fsdp=True)``); each result with the job's kernel
+    launch counts."""
     import torch.distributed as dist
     from repro_torch import kernels
     _start(rank, world, port, device)
@@ -558,11 +655,13 @@ def rank_main(rank: int, world: int, port: int, jobs: list,
         for kind, shape, *args in jobs:
             mesh = _mesh(shape, device)
             kernels.reset_launch_counts()
+            kind, _, flag = kind.partition("+")
             if kind == "timed":
-                r = timed_run(mesh, *args, smoke=smoke)
+                r = timed_run(mesh, *args, smoke=smoke, fsdp=flag == "fsdp")
             else:
                 arch, overrides, job_smoke = (list(args) + [None, False])[:3]
-                r = f32_check(mesh, smoke or job_smoke, arch, overrides)
+                r = f32_check(mesh, smoke or job_smoke, arch, overrides,
+                              fsdp=flag == "fsdp")
             # no kernel lies on the training path: each kernel's launches
             # in this job, summed over the ranks
             counts = kernels.launch_counts()
@@ -650,6 +749,31 @@ def moe_jobs(mesh, steps: int, f32_only: bool, timed: str = "all"
     return jobs
 
 
+# FSDP's f32 checks: smoke configs (arch, overrides), one of each rule
+# ("fsdp" on the input or output dim of the dense and SSM matrices, on
+# the experts' d, on MLA's projections)
+FSDP_F32 = (("gemma3-1b", {}), ("mamba2-130m", {}),
+            ("granite-moe-3b-a800m", {"n_experts_padded": 0}),
+            ("deepseek-v2-236b", {}))
+
+
+def fsdp_jobs(mesh, steps: int, f32_only: bool) -> list:
+    """``--fsdp``: the f32 checks of FSDP_F32 under FSDP where "data" is
+    2 or more; qwen3-8b at TP_QWEN with FSDP on and off; granite-moe
+    (V2) at MOE_SHAPE with FSDP where "model" is 1."""
+    data, model = mesh
+    jobs = ([("f32+fsdp", mesh, arch, over, True) for arch, over in FSDP_F32]
+            if data > 1 else [])
+    if f32_only:
+        return jobs
+    jobs += [("timed+fsdp", mesh, "qwen3-8b", TP_QWEN, steps, True),
+             ("timed", mesh, "qwen3-8b", TP_QWEN, steps, True)]
+    if model == 1:
+        jobs.append(("timed+fsdp", mesh, "granite-moe-3b-a800m", MOE_SHAPE,
+                     steps, True))
+    return jobs
+
+
 def _where(r: dict) -> str:
     d, m = r["mesh"]
     return f"world {r['world']}" if m == 1 else f"mesh (data {d}, model {m})"
@@ -668,13 +792,15 @@ def report_timed(r: dict, tag: str, base: dict = None,
            f"{'agree' if r['routes_agree'] else 'DIFFER'} over \"model\")"
            if r.get("variant") else "")
     return (f"{tag} {r['arch']}{moe} {r['dtype']} {_where(r)} zero1 "
-            f"{'on' if r['zero1'] else 'off'}, global ({r['global_rows']}, "
+            f"{'on' if r['zero1'] else 'off'}, fsdp "
+            f"{'on' if r.get('fsdp') else 'off'}, global ({r['global_rows']}, "
             f"{r['seq']}), ({r['rows_a_card']}, {r['seq']}) a data rank, "
             f"{r['params'] / 1e9:.3f} B parameters: "
             f"warm {r['warm_ms']:.1f} ms; steps "
             + ", ".join(f"{t:.1f}" for t in r["step_ms"])
             + f" ms = {r['tok_s']:.0f} tok/s{eff}; peak "
-            f"{r['peak_mb_a_card']:.1f} MB a card; state "
+            f"{r['peak_mb_a_card']:.1f} MB a card (init "
+            f"{r['init_peak_mb']:.1f}); state "
             f"{r['state_gb']:.2f} GB a card by bytes; loss "
             + ", ".join(f"{x:.4f}" for x in r["loss"]) + "; grad_norm "
             + ", ".join(f"{x:.4f}" for x in r["grad_norm"]))
@@ -690,10 +816,14 @@ def report_f32(r: dict, tag: str) -> str:
     moe = (f" ({r['variant']}, {r['overrides']}; routes "
            f"{'agree' if r['routes_agree'] else 'DIFFER'} over \"model\")"
            if r.get("variant") else "")
+    steps = r.get("steps", 1)
+    what = (f"FSDP, {steps} steps, each against one card's from the same "
+            "state" if r.get("fsdp") else "one step against one card")
+    pairs = lambda xs: ", ".join(           # noqa: E731
+        f"{a:.7f} / {b:.7f}" for a, b in zip(xs[::2], xs[1::2]))
     return (f"{tag} {r['arch']}{moe} f32 {_where(r)}, global batch "
-            f"{tuple(r['global_batch'])}, one step against one card: loss "
-            f"{r['loss'][0]:.7f} / {r['loss'][1]:.7f}, grad_norm "
-            f"{r['grad_norm'][0]:.7f} / {r['grad_norm'][1]:.7f} (worst "
+            f"{tuple(r['global_batch'])}, {what}: loss "
+            f"{pairs(r['loss'])}, grad_norm {pairs(r['grad_norm'])} (worst "
             f"metric rel {r['worst_metric_rel']:.2e}, rtol {lim}); moments "
             f"m, v: worst relative L2 {r['worst_moment_rel_l2']:.2e} "
             f"({MOMENT_LIMIT:.0e})"
@@ -720,12 +850,60 @@ def qwen_reckoning() -> dict:
                 card_gb=card_bytes / 1e9)
 
 
-def state_gb(params: int, data: int, model: int) -> float:
-    """GB a card of a bf16 model's state on the mesh (data, model), by
-    bytes: its pieces of the parameters and gradients (bf16, split over
-    "model") and of the two f32 moments (split over both by ZeRO-1);
-    the whole leaves (norms) left out."""
-    return params * ((2 + 2) / model + 8 / (model * data)) / 1e9
+class _MeshShape:
+    """What `launch.mesh.binding_for` and `runtime.sharding.Binding.
+    axis_group` read of a mesh, for one rank of a mesh never built: a
+    layout reckoned on the meta device, with no process group."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, shape, index):
+        self.mesh = torch.zeros(shape)
+        self.index = dict(zip(self.mesh_dim_names, index))
+
+    def get_group(self, name):
+        return None
+
+    def get_local_rank(self, name):
+        return self.index[name]
+
+
+def reckoned_state_gb(arch: str, data: int, model: int, fsdp: bool,
+                      dtype: str = "bfloat16") -> float:
+    """GB of the train state of the largest rank on the mesh (data,
+    model), by bytes, from `train.steps.state_blocks` on the meta
+    device: its parameters and their gradients as it holds them (pieces,
+    FSDP blocks) in ``dtype``, and its two f32 moments (ZeRO-1 or FSDP
+    blocks)."""
+    from repro_torch.configs import ParallelConfig, TrainConfig
+    from repro_torch.models.api import family_module
+    from repro_torch.train.steps import state_blocks
+    from repro_torch.tree import leaves
+    cfg = _config(arch, dtype, False)
+    spec = family_module(cfg).init_params(cfg, None, torch.device("meta"))
+    size = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
+
+    def held(shard, shape):
+        if shard is None:
+            return int(np.prod(shape))
+        if shard.piece is not None:
+            shape = shard.piece.shape(shape)
+        if shard.block is not None:
+            shape = shard.block.shape(shape)
+        return int(np.prod(shape))
+
+    worst = 0
+    for d in range(data):
+        for m in range(model):
+            layout = state_blocks(cfg, TrainConfig(),
+                                  _MeshShape((data, model), (d, m)),
+                                  ParallelConfig(fsdp=fsdp))
+            n = 0
+            for leaf, p, mo in zip(leaves(spec), leaves(layout["params"]),
+                                   leaves(layout["opt"]["m"])):
+                n += 2 * size * held(p, leaf.shape) + 8 * held(
+                    mo, leaf.shape)
+            worst = max(worst, n)
+    return worst / 1e9
 
 
 def _mesh_arg(text: str):
@@ -749,6 +927,10 @@ def main(argv=None) -> int:
     ap.add_argument("--moe", action="store_true",
                     help="with --meshes: the experts over \"model\" "
                     "(granite-moe, deepseek-v2) in place of the dense jobs")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="with --meshes: FSDP (ParallelConfig.fsdp): its "
+                    "f32 checks, qwen3-8b with FSDP on and off, "
+                    "granite-moe with FSDP, in place of the dense jobs")
     ap.add_argument("--moe-timed", default="all", choices=["all", "v2"],
                     help="--moe's timed runs: all of them, or granite-moe "
                     "V2 alone")
@@ -763,16 +945,18 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("FAILED: no CUDA device")
     tp = args.meshes is not None
-    if args.moe and not tp:
-        raise SystemExit("FAILED: --moe runs on --meshes")
-    tag = "[ep]" if args.moe else "[tp]" if tp else "[dist]"
+    if (args.moe or args.fsdp) and not tp:
+        raise SystemExit("FAILED: --moe and --fsdp run on --meshes")
+    tag = ("[fsdp]" if args.fsdp else "[ep]" if args.moe
+           else "[tp]" if tp else "[dist]")
     if tp:
         # one spawn a world, its meshes in order
         plan = {}
         for d, m in args.meshes:
             plan.setdefault(d * m, []).extend(
-                moe_jobs((d, m), args.steps, args.f32_only,
-                         args.moe_timed) if args.moe else
+                fsdp_jobs((d, m), args.steps, args.f32_only) if args.fsdp
+                else moe_jobs((d, m), args.steps, args.f32_only,
+                              args.moe_timed) if args.moe else
                 mesh_jobs((d, m), args.steps, args.f32_only, args.qwen))
     else:
         plan = None
@@ -804,7 +988,7 @@ def main(argv=None) -> int:
                 # every card on "data" at the same global batch
                 # (--meshes), where the call ran it first
                 key = ((r["arch"], r["zero1"], r["global_rows"],
-                        r.get("variant")) if tp
+                        r.get("variant"), r["fsdp"]) if tp
                        else (r["arch"], r["zero1"]))
                 one = r["mesh"][1] == 1 if tp else r["world"] == 1
                 if one:
@@ -830,8 +1014,19 @@ def main(argv=None) -> int:
             f"ZeRO-1 over 4 cards {rk['zero1_4_gb']:.1f} GB a card before "
             "activations"
             + ("; " + ", ".join(
-                f"({d}, {m}) {state_gb(rk['params'], d, m):.1f} GB a card"
+                f"({d}, {m}) {reckoned_state_gb('qwen3-8b', d, m, False):.1f}"
+                " GB a card"
                 for d, m in args.meshes) if tp else ""))
+    if args.fsdp and not args.f32_only:
+        out["reckoned"] = {
+            f"{d}x{m}": {"fsdp": reckoned_state_gb("qwen3-8b", d, m, True),
+                         "plain": reckoned_state_gb("qwen3-8b", d, m, False)}
+            for d, m in args.meshes}
+        say(f"{tag} qwen3-8b state a card reckoned on the meta device "
+            "(bf16 parameters and gradients as held, f32 m and v), FSDP "
+            "on / off: " + ", ".join(
+                f"({k.replace('x', ', ')}) {v['fsdp']:.2f} / "
+                f"{v['plain']:.2f} GB" for k, v in out["reckoned"].items()))
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     say(f"{tag} done in {time.perf_counter() - t_all:.1f}s; results in "
