@@ -188,6 +188,23 @@ last line):
                card, each with the two faults it must catch (the
                gathered weights' gradients unsummed over "data", the
                gathered layers cached across steps); no kernel launched;
+  8h. cells  — the serving cells on a (data, model) mesh
+               (`launch.cells`): in this process, zamba2-1.2b bf16 at
+               full width and depth with its kernel flags on a mesh of
+               (1, 1), the prefill cell of a (4, 1024) prompt, the cache
+               grown and relayout into the decode cell's layout, and
+               four decode steps, against `make_prefill_step` /
+               `make_serve_step` without a mesh bit for bit (at "model"
+               1 nothing splits); the flash kernel's launches of the
+               prefill cell (6), none in decode, are added to the
+               kernels line; with two or more cards,
+               tools/dist_serve_cells.py (its own process) at (1, n)
+               and, from 4 cards, (n / 2, 2): the f32 checks of every
+               family's smoke config against one card with their three
+               faults, and the bf16 runs (qwen3-8b's decode over a
+               32,768-position cache, zamba2-1.2b's long_500k decode
+               against one card, zamba2-1.2b's prefill cell at 32,768
+               positions with the flash kernel);
   9. launches — how many CUDA launches one call of each multi-launch
                kernel makes, and the device time of each (torch.profiler,
                after every timed phase): the fused spans at the paper's
@@ -273,7 +290,8 @@ from repro_torch.checkpoint import host_tree  # noqa: E402
 from repro_torch.launch.mesh import binding_for, make_mesh  # noqa: E402
 from repro_torch.optim.compress import compressed_psum_mean  # noqa: E402
 from repro_torch.runtime.sharding import use_binding  # noqa: E402
-from repro_torch.train.steps import state_blocks  # noqa: E402
+from repro_torch.train.steps import (make_prefill_step,  # noqa: E402
+                                     make_serve_step, state_blocks)
 
 # NVIDIA H100 SXM data sheet: HBM rate, f32 rate outside the tensor cores,
 # dense TF32 rate of the tensor cores.
@@ -2553,6 +2571,137 @@ def phase_fsdp() -> None:
     check(not launched, f"[fsdp] launched {launched}")
 
 
+CELLS_PROMPT = (4, 1024)   # the one-card check: zamba2's prefill cell
+CELLS_STEPS = 4
+
+
+def phase_cells() -> dict:
+    """8h [cells]: the serving cells (`launch.cells.make_cell`). In this
+    process, over one NCCL rank: ARCH bf16 at full width and depth with
+    LM_FLAGS, the prefill cell of a CELLS_PROMPT prompt on the mesh
+    (1, 1), its cache grown by CELLS_STEPS positions and relayout into
+    the decode cell's layout, and CELLS_STEPS decode steps, against the
+    steps without a mesh from the same parameters, bit for bit (at
+    "model" 1 no piece, no collective: the one-device path). The launch
+    counts are zeroed just before the cells run and read after: the
+    prefill cell's flash launches, none in decode. With two or more
+    cards, tools/dist_serve_cells.py in a process of its own at (1, n)
+    and, from 4 cards, (n / 2, 2) (its module doc), whose faults must be
+    caught and whose decode runs launch no kernel. Returns the cells'
+    launches, each kernel's sum over this process and the tool's
+    ranks."""
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import cells
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.runtime import param_sharding as psh
+    t0 = time.perf_counter()
+    cfg, name = lm_config(ARCH, **LM_FLAGS)
+    dev = torch.device("cuda")
+    model = get_model(cfg)
+    params = model.init_params(0)
+    batch, plen = CELLS_PROMPT
+    prompt = synth_train_batch(cfg, batch, plen, seed=0, device=dev)
+    max_len = plen + CELLS_STEPS
+    lengths = torch.full((batch,), plen, dtype=torch.int32, device=dev)
+
+    def run(prefill, serve, relayout=None):
+        tok, cache = prefill(params, prompt)
+        after_prefill = kernels.launch_counts()
+        cache = _grow_cache(model, cache, max_len)
+        if relayout is not None:
+            cache = relayout(cache)
+        toks, t, ln = [tok[:, None]], tok[:, None], lengths
+        for _ in range(CELLS_STEPS):
+            t, cache, ln = serve(params, t, cache, ln)
+            toks.append(t)
+        return torch.cat(toks, dim=1), cache, after_prefill
+
+    plain_toks, plain_cache, _ = run(make_prefill_step(model),
+                                     make_serve_step(model))
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        pcell = cells.make_cell(cfg, ShapeConfig("prefill", "prefill", plen,
+                                                 batch), mesh)
+        dcell = cells.make_cell(cfg, ShapeConfig("decode", "decode",
+                                                 max_len, batch), mesh)
+        split = [s for s in tree_lib.leaves(pcell.in_layouts[0])
+                 if s is not None]
+        check(not split, f"[cells] parameters split at (1, 1): {split[:2]}")
+
+        def relayout(cache):
+            with use_binding(dcell.step.binding):
+                return psh.relayout(cache, pcell.out_layouts[1],
+                                    dcell.in_layouts[2])
+
+        kernels.reset_launch_counts()
+        mesh_toks, mesh_cache, prefill = run(pcell.step, dcell.step,
+                                             relayout)
+        launched = kernels.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    decode = {k: v - prefill[k] for k, v in launched.items() if v - prefill[k]}
+    differ = [k for (k, a), b in zip(tree_lib.items(plain_cache),
+                                     tree_lib.leaves(mesh_cache))
+              if not torch.equal(a, b)]
+    same = torch.equal(plain_toks, mesh_toks)
+    say(f"[cells] mesh (1, 1) in this process, {name} bf16, prompt "
+        f"{CELLS_PROMPT}, {CELLS_STEPS} decode steps: tokens "
+        f"{'equal' if same else 'differ'}, {len(differ)} cache leaves "
+        f"differ from the steps without a mesh; the prefill cell "
+        f"launched { {k: v for k, v in prefill.items() if v} or 'none'}, "
+        f"the decode cell {decode or 'none'}")
+    check(same and not differ, f"[cells] mesh (1, 1) differs: {differ}")
+    check(not decode, f"[cells] the decode cell launched {decode}")
+    want = n_attn_invocations(cfg)
+    check(launched.get("flash_attention", 0) == want,
+          f"[cells] prefill cell flash launches "
+          f"{launched.get('flash_attention')} != {want}")
+    del params, plain_cache, mesh_cache, model
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    if n >= 2:
+        meshes = [f"1x{n}"] + ([f"{n // 2}x2"] if n >= 4 and n % 2 == 0
+                               else [])
+        root = os.path.dirname(os.path.abspath(__file__))
+        out = os.path.join(root, "build", f"cells_{os.getpid()}.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "tools",
+                                          "dist_serve_cells.py"),
+             "--meshes", *meshes, "--out", out],
+            capture_output=True, text=True, timeout=900)
+        for line in proc.stdout.splitlines():
+            if line.startswith(("[cells]", "FAILED")):
+                say(line)
+        check(proc.returncode == 0, f"[cells] over {n} cards: exit "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(out) as f:
+            results = json.load(f)["results"]
+        os.remove(out)
+        check(any(r["kind"] == "f32" and r["fault"] for r in results) and
+              all(r["ok"] != bool(r["fault"]) for r in results
+                  if r["kind"] == "f32"),
+              "[cells] an f32 check failed or a fault passed")
+        for r in results:
+            if r["kind"] == "decode":
+                used = {k: v for k, v in r["decode_launches"].items() if v}
+                check(not used, f"[cells] decode launched {used}")
+                for k, v in r["prefill_launches"].items():
+                    launched[k] = launched.get(k, 0) + v
+            elif r["kind"] == "prefill":
+                for x in r["runs"]:
+                    for k, v in x["launches"].items():
+                        launched[k] = launched.get(k, 0) + v
+    else:
+        say("[cells] the cells across cards need two or more cards; one "
+            "here")
+    say(f"[cells] took {time.perf_counter() - t0:.1f}s")
+    return launched
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # constants are built afresh: the disk tier is on only in its own
@@ -2587,6 +2736,8 @@ def main() -> None:
     phase_tp()
     phase_ep()
     phase_fsdp()
+    for kernel, n in phase_cells().items():
+        launches[kernel] = launches.get(kernel, 0) + n
     phase_launches()
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": [

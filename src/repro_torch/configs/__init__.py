@@ -11,7 +11,7 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, ParallelConfig, TrainConfig)
+    ModelConfig, ParallelConfig, ShapeConfig, SHAPES, TrainConfig)
 
 ARCHS: List[str] = [
     "granite_moe_3b_a800m",

@@ -11,7 +11,10 @@ data-parallel step (`train.steps.make_train_step` with a mesh);
 (`optim.compress` is there for a caller that wants it).
 ``ParallelConfig`` is the reference's; `launch.mesh.make_mesh` refuses
 what this port does not run yet (a pipeline "pod" axis); ``fsdp`` splits
-the parameters over "data" (`train.steps`).
+the parameters over "data" (`train.steps`); ``seq_shard_decode`` splits
+the decode KV cache along its sequence over ``seq_axes``
+(`launch.cells`). ``ShapeConfig`` and ``SHAPES`` are the reference's four
+input-shape cells.
 """
 
 from __future__ import annotations
@@ -107,8 +110,33 @@ class ModelConfig:
         """Expert-dim size incl. dead padding (weights / dispatch slots)."""
         return max(self.n_experts_padded, self.n_experts)
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic (or bounded-KV) archs that run the long_500k cell."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.local_global_pattern > 0 and self.sliding_window > 0
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (arch x shape) cell."""
+
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                 # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,6 @@
-"""Synthetic LM batches (PyTorch port of ``repro.data.batches``).
+"""Synthetic LM batches (PyTorch port of ``repro.data.batches``), and
+their shapes as ``meta`` tensors (`train_batch_spec`,
+`decode_inputs_spec`: the reference's ShapeDtypeStruct specs).
 
 Schema (train/prefill): tokens (B, S) int32, labels (B, S) int32; the
 vlm family adds embeds (B, S, d_model) in the compute dtype, embed_mask
@@ -57,3 +59,29 @@ def _embeds(cfg: ModelConfig, rng, batch: int, seq: int, device
     return torch.from_numpy(0.02 * rng.standard_normal(
         (batch, seq, cfg.d_model))).to(dtype_of(cfg.compute_dtype)).to(
             device)
+
+
+def train_batch_spec(cfg: ModelConfig, batch: int, seq: int) -> Dict:
+    """The train / prefill batch's leaves as ``meta`` tensors (shapes and
+    dtypes, nothing allocated), the schema of `synth_train_batch`."""
+    def meta(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    act = dtype_of(cfg.compute_dtype)
+    spec = {"tokens": meta((batch, seq)), "labels": meta((batch, seq))}
+    if cfg.family == "vlm":
+        spec["embeds"] = meta((batch, seq, cfg.d_model), act)
+        spec["embed_mask"] = meta((batch, seq))
+        spec["positions"] = meta((batch, 3, seq))
+    if cfg.family == "audio":
+        spec["enc_embeds"] = meta((batch, seq, cfg.d_model), act)
+    return spec
+
+
+def decode_inputs_spec(cfg: ModelConfig, batch: int) -> Dict:
+    """A decode step's tokens (B, 1) and lengths (B,) as ``meta``
+    tensors."""
+    del cfg
+    return {"tokens": torch.empty((batch, 1), dtype=torch.int32,
+                                  device="meta"),
+            "lengths": torch.empty((batch,), dtype=torch.int32,
+                                   device="meta")}

@@ -29,7 +29,24 @@ runs on the rank's heads too, their count taken from the piece of
 wk_b: wq_a, wkv_a and both norms run whole on every rank, and the
 normed query, c_kv and the one rope key that every head shares enter
 the rank's head columns of wq_b, wk_b and wv_b through `copy_in`; wo is
-row-parallel. `mla_decode` runs on one device only.
+row-parallel. The decode paths run on the rank's heads too, wo through
+`reduce_out`. Where the cache holds KV heads other than the rank's
+(every head, in the decode cell's layout, `launch.cells`) they gather
+the new token's q, k and v over "model" (`_decode_qkv`: a few KB a
+step, one all-gather), attend with every query head and keep their
+own heads' rows.
+
+Flash-decode (`runtime.sharding.seq_axis`: the decode cache split along
+its sequence over the "seq" ranks): each rank attends over its block of
+positions at its global offset (the mask and gemma3's window read
+global columns) and keeps an unnormalised partial in f32, the max, the
+sum of exponentials and the numerator; `combine_partials` rescales them
+to the ranks' common max and sums them (one all-gather of the partials
+over the "seq" ranks, summed on each). A block whose columns are all
+masked adds nothing: its max is near ``NEG_INF`` (finite), so its
+weight exp(max - common max) is 0. The new token's K and V are written
+by the rank that holds position ``lengths[b]`` only (`seq_slot`), in
+both cache variants.
 
 Storage-dtype operands with f32 accumulation, as the reference's
 ``preferred_element_type=f32``: every attention product goes through
@@ -176,8 +193,23 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
+def seq_slot(lengths: torch.Tensor, s_loc: int, seq, clamp: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the row of each slot's position ``lengths[b]`` in this rank's
+    block of ``s_loc`` positions, clamped into it; whether this rank
+    holds that position), the cache split along its sequence over the
+    ranks ``seq``; with ``clamp`` the position is first clamped into the
+    whole cache, as dynamic_update_slice clamps it."""
+    pos = lengths.long()
+    if clamp:
+        pos = pos.clamp(0, s_loc * seq.extent - 1)
+    local = pos - seq.index * s_loc
+    return local.clamp(0, s_loc - 1), (local >= 0) & (local < s_loc)
+
+
 def cache_update(cache: torch.Tensor, new: torch.Tensor,
-                 lengths: torch.Tensor, variant: Variant) -> torch.Tensor:
+                 lengths: torch.Tensor, variant: Variant, seq=None
+                 ) -> torch.Tensor:
     """Write ``new`` (B, 1, H, dh) into ``cache`` (B, S, H, dh) at
     position ``lengths[b]`` of each slot.
 
@@ -187,21 +219,31 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor,
     into [0, S-1].
     V2 CNN: the one-hot blend ``cache*(1-m) + new*m``, a new tensor; a
     position outside the cache writes nothing.
+    ``seq`` (`runtime.sharding.seq_axis`): ``cache`` is this rank's block
+    of the sequence, written only where it holds the position.
     """
     b, s = cache.shape[0], cache.shape[1]
     if Variant(variant) == Variant.DYNAMIC:
         rows = torch.arange(b, device=cache.device)
-        cache[rows, lengths.long().clamp(0, s - 1)] = new[:, 0].to(
-            cache.dtype)
+        if seq is None:
+            cache[rows, lengths.long().clamp(0, s - 1)] = new[:, 0].to(
+                cache.dtype)
+        else:
+            pos, mine = seq_slot(lengths, s, seq, clamp=True)
+            cache[rows, pos] = torch.where(
+                mine[:, None, None], new[:, 0].to(cache.dtype),
+                cache[rows, pos])
         return cache
     iota = torch.arange(s, device=cache.device)[None, :]
+    if seq is not None:
+        iota = iota + seq.index * s
     m = (iota == lengths.long()[:, None]).to(cache.dtype)[..., None, None]
     return cache * (1.0 - m) + new.to(cache.dtype) * m
 
 
 def stacked_cache_update(cache: torch.Tensor, new: torch.Tensor,
                          lengths: torch.Tensor, layer_idx: int,
-                         variant: Variant) -> torch.Tensor:
+                         variant: Variant, seq=None) -> torch.Tensor:
     """Write ``new`` (B, 1, H, dh) into a layer-stacked cache (L, B, S, H,
     dh) at (layer_idx, b, lengths[b]).
 
@@ -210,13 +252,19 @@ def stacked_cache_update(cache: torch.Tensor, new: torch.Tensor,
     ``mode="drop"``): its row is clamped and written back unchanged.
     V2 CNN: the (L, S) one-hot blend over the whole buffer, a new tensor
     (the paper's portability-for-traffic trade at cache scale).
+    ``seq`` (`runtime.sharding.seq_axis`): ``cache`` holds this rank's
+    block of the sequence, written only where it holds the position.
     """
     _, b, s = cache.shape[:3]
     lens = lengths.long()
     if Variant(variant) == Variant.DYNAMIC:
         rows = torch.arange(b, device=cache.device)
-        pos = lens.clamp(max=s - 1)
-        keep = (lens < s)[:, None, None]
+        if seq is None:
+            pos = lens.clamp(max=s - 1)
+            keep = (lens < s)[:, None, None]
+        else:
+            pos, keep = seq_slot(lengths, s, seq, clamp=False)
+            keep = keep[:, None, None]
         layer = cache[layer_idx]
         layer[rows, pos] = torch.where(keep, new[:, 0].to(cache.dtype),
                                        layer[rows, pos])
@@ -224,6 +272,8 @@ def stacked_cache_update(cache: torch.Tensor, new: torch.Tensor,
     l = cache.shape[0]
     iota_l = torch.arange(l, device=cache.device)[:, None, None]
     iota_s = torch.arange(s, device=cache.device)[None, None, :]
+    if seq is not None:
+        iota_s = iota_s + seq.index * s
     m = ((iota_l == layer_idx) & (iota_s == lens[None, :, None])).to(
         cache.dtype)[..., None, None]
     return cache * (1.0 - m) + new[None].to(cache.dtype) * m
@@ -236,12 +286,16 @@ def stacked_cache_update(cache: torch.Tensor, new: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                     window=0, softcap: float = 0.0) -> torch.Tensor:
+                     window=0, softcap: float = 0.0, seq=None
+                     ) -> torch.Tensor:
     """q (B,1,H,dh); caches (B,S,Hkv,dh); lengths (B,) current position.
 
     Attends to cols <= lengths[b] (the new token was just written there).
     The caches are read in their storage dtype through strided views
-    (`common.grouped_product`): no copy of them is made.
+    (`common.grouped_product`): no copy of them is made. ``seq``
+    (`runtime.sharding.seq_axis`): the caches are this rank's block of
+    the sequence, and the partial softmaxes of the ranks' blocks are
+    combined (module doc).
     """
     b, _, h, dh = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
@@ -253,13 +307,38 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if softcap > 0.0:
         scores = torch.tanh(scores / softcap) * softcap
     cols = torch.arange(s, device=q.device)[None, :]
+    if seq is not None:
+        cols = cols + seq.index * s
     lens = lengths.long()[:, None]
     ok = (cols <= lens) & _window_mask(cols, lens, window)
     scores = scores + torch.where(ok, 0.0, NEG_INF)[:, None, None, :]
-    p = torch.softmax(scores, dim=-1)
-    out = common.grouped_product(p.to(v_cache.dtype),
-                                 v_cache.permute(0, 2, 1, 3))
+    if seq is None:
+        p = torch.softmax(scores, dim=-1)
+        out = common.grouped_product(p.to(v_cache.dtype),
+                                     v_cache.permute(0, 2, 1, 3))
+    else:
+        mx = scores.amax(dim=-1)
+        p = torch.exp(scores - mx[..., None])
+        part = common.grouped_product(p.to(v_cache.dtype),
+                                      v_cache.permute(0, 2, 1, 3))
+        out = combine_partials(mx, p.sum(dim=-1), part, seq)
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def combine_partials(mx: torch.Tensor, denom: torch.Tensor,
+                     numer: torch.Tensor, seq) -> torch.Tensor:
+    """The softmax-weighted sum over every rank's block of positions
+    from each rank's f32 partial: ``mx`` (...) its blocks' max score,
+    ``denom`` (...) the sum of exp(score - mx), ``numer`` (..., d) the
+    sum of exp(score - mx) times the values. Every rank's [numer | denom
+    | mx] is gathered over ``seq`` (one all-gather, a few KB at decode),
+    each rescaled by exp(mx - the ranks' max) and summed in rank order,
+    the same on every rank; their quotient."""
+    every = collectives.gathered(torch.cat(
+        [numer, denom[..., None], mx[..., None]], -1).contiguous(), seq)
+    w = torch.exp(every[..., -1] - every[..., -1].amax(dim=0))
+    den = (every[..., -2] * w).sum(dim=0)
+    return (every[..., :-2] * w[..., None]).sum(dim=0) / den[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +411,56 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     return y
 
 
+def heads_of_ranks(every: torch.Tensor, n: int, dim: int = 2
+                   ) -> torch.Tensor:
+    """The ``n`` KV heads (along ``dim`` of a rank's piece) from
+    ``every`` (extent, *piece), what each rank of an axis holds of them
+    (`runtime.param_sharding.tp_pieces`): n / m a rank, or one shared by
+    m / n ranks (rank r holds head r * n // m)."""
+    if every.shape[0] * every.shape[dim + 1] != n:
+        every = every[::every.shape[0] // n]
+    return torch.cat(list(every), dim=dim)
+
+
+def _decode_qkv(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                lengths: torch.Tensor, is_local, cache_heads: int,
+                positions=None, with_kv: bool = True):
+    """(q, k, v, keep) of the new token for a cache of ``cache_heads``
+    KV heads: the rank's heads (`gqa_project_qkv`) and keep None where
+    the cache holds the rank's KV heads of every position (the enc-dec
+    prefill's cross K/V); else (the decode cell's cache, every KV head
+    and the sequence split over "seq", or the enc-dec prefill's
+    self-attention cache of every head) q of every head and k and v of
+    every KV head, gathered over "model" in one all-gather (k and v
+    left as they are without ``with_kv`` or where the rank's are the
+    cache's), and ``keep`` the slice of the rank's own query heads."""
+    if positions is None:
+        positions = decode_positions(cfg, lengths)
+    q, k, v = gqa_project_qkv(params, cfg, x, positions, is_local)
+    axis, seq = shlib.model_axis(), shlib.seq_axis()
+    if axis is None or (k.shape[2] == cache_heads and (
+            seq is None or "model" not in seq.axes)):
+        return q, k, v, None
+    h, hk = q.shape[2], k.shape[2]
+    kv = with_kv and hk != cache_heads
+    every = collectives.gathered(
+        (torch.cat([q, k, v], 2) if kv else q).contiguous(), axis)
+    if kv:
+        k = heads_of_ranks(every[:, :, :, h:h + hk], cache_heads)
+        v = heads_of_ranks(every[:, :, :, h + hk:], cache_heads)
+    q = torch.cat(list(every[:, :, :, :h]), dim=2)
+    return q, k, v, slice(axis.index * h, (axis.index + 1) * h)
+
+
+def _decode_out(params: Dict, out: torch.Tensor, keep) -> torch.Tensor:
+    """The block's output of the attention ``out`` (B, 1, H, dh): the
+    rank's own heads (``keep``) through wo, row-parallel."""
+    if keep is not None:
+        out = out[:, :, keep]
+    y = out.reshape(out.shape[0], 1, -1) @ params["wo"]
+    return collectives.reduce_out(y, shlib.model_axis())
+
+
 def gqa_decode_stacked(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                        cache: Dict, lengths: torch.Tensor, layer_idx: int,
                        *, window=0, is_local=None
@@ -339,32 +468,48 @@ def gqa_decode_stacked(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     """One-token decode against a layer-stacked cache {"k", "v"} of
     (L, B, S, hkv, dh): writes the token at (layer_idx, :, lengths[b]),
     then attends against the layer's slice."""
-    b = x.shape[0]
-    positions = decode_positions(cfg, lengths)
-    q, k, v = gqa_project_qkv(params, cfg, x, positions, is_local)
+    seq = shlib.seq_axis()
+    q, k, v, keep = _decode_qkv(params, cfg, x, lengths, is_local,
+                                cache["k"].shape[-2])
     k_full = stacked_cache_update(cache["k"], k, lengths, layer_idx,
-                                  cfg.kv_variant)
+                                  cfg.kv_variant, seq)
     v_full = stacked_cache_update(cache["v"], v, lengths, layer_idx,
-                                  cfg.kv_variant)
+                                  cfg.kv_variant, seq)
     out = decode_attention(q, k_full[layer_idx], v_full[layer_idx], lengths,
-                           window=window, softcap=cfg.attn_logit_softcap)
-    y = out.reshape(b, 1, -1) @ params["wo"]
-    return y, {"k": k_full, "v": v_full}
+                           window=window, softcap=cfg.attn_logit_softcap,
+                           seq=seq)
+    return _decode_out(params, out, keep), {"k": k_full, "v": v_full}
 
 
 def gqa_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                cache: Dict, lengths: torch.Tensor, *, window=0,
                is_local=None) -> Tuple[torch.Tensor, Dict]:
     """One-token decode with cache update. x: (B, 1, D)."""
-    b = x.shape[0]
-    positions = decode_positions(cfg, lengths)
-    q, k, v = gqa_project_qkv(params, cfg, x, positions, is_local)
-    k_cache = cache_update(cache["k"], k, lengths, cfg.kv_variant)
-    v_cache = cache_update(cache["v"], v, lengths, cfg.kv_variant)
+    seq = shlib.seq_axis()
+    q, k, v, keep = _decode_qkv(params, cfg, x, lengths, is_local,
+                                cache["k"].shape[-2])
+    k_cache = cache_update(cache["k"], k, lengths, cfg.kv_variant, seq)
+    v_cache = cache_update(cache["v"], v, lengths, cfg.kv_variant, seq)
     out = decode_attention(q, k_cache, v_cache, lengths, window=window,
-                           softcap=cfg.attn_logit_softcap)
-    y = out.reshape(b, 1, -1) @ params["wo"]
-    return y, {"k": k_cache, "v": v_cache}
+                           softcap=cfg.attn_logit_softcap, seq=seq)
+    return _decode_out(params, out, keep), {"k": k_cache, "v": v_cache}
+
+
+def cross_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """One query a slot (at position ``lengths``) against a static K/V
+    (B, S, hkv, dh), every position valid: the enc-dec's cross
+    attention in decode, on the rank's heads as `gqa_decode` runs."""
+    seq = shlib.seq_axis()
+    s = k_cache.shape[1] * (seq.extent if seq is not None else 1)
+    q, _, _, keep = _decode_qkv(params, cfg, x, lengths, None,
+                                k_cache.shape[-2], lengths[:, None],
+                                with_kv=False)
+    every = torch.full((x.shape[0],), s - 1, dtype=torch.int32,
+                       device=x.device)
+    out = decode_attention(q, k_cache, v_cache, every, seq=seq)
+    return _decode_out(params, out, keep)
 
 
 # ---------------------------------------------------------------------------
@@ -436,26 +581,35 @@ def mla_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     Storage-dtype operands with f32 results, as the reference's
     (`common.f32_product`): neither the cache nor the absorbed weights
     are copied.
+
+    Under a "model" axis on the rank's heads (the piece of wk_b, as
+    `mla_attention`), wo row-parallel. The cache has no heads axis: the
+    decode cell splits it along its sequence (`runtime.sharding.
+    seq_axis`), and where the "seq" ranks include "model" the absorbed
+    queries of every head are gathered over "model", each rank's block
+    gives every head's partial, and the rank keeps its heads' combined
+    context (module doc).
     """
     b = x.shape[0]
-    h = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    h = params["wk_b"].shape[-1] // dn
     rank = cfg.kv_lora_rank
+    axis, seq = shlib.model_axis(), shlib.seq_axis()
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_expand(
-        params, cfg, x, lengths[:, None])
+        params, cfg, x, lengths[:, None], axis)
     if layer_idx is not None:
         ckv_full = stacked_cache_update(
             cache["c_kv"][..., None, :], c_kv[..., None, :], lengths,
-            layer_idx, cfg.kv_variant)[..., 0, :]
+            layer_idx, cfg.kv_variant, seq)[..., 0, :]
         rope_full = stacked_cache_update(cache["k_rope"], k_rope, lengths,
-                                         layer_idx, cfg.kv_variant)
+                                         layer_idx, cfg.kv_variant, seq)
         ckv_cache, rope_cache = ckv_full[layer_idx], rope_full[layer_idx]
     else:
         ckv_full = ckv_cache = cache_update(
             cache["c_kv"][..., None, :], c_kv[..., None, :], lengths,
-            cfg.kv_variant)[..., 0, :]
+            cfg.kv_variant, seq)[..., 0, :]
         rope_full = rope_cache = cache_update(
-            cache["k_rope"], k_rope, lengths, cfg.kv_variant)
+            cache["k_rope"], k_rope, lengths, cfg.kv_variant, seq)
     if Variant(cfg.kv_variant) == Variant.DYNAMIC:    # written in place
         ckv_full = cache["c_kv"]
 
@@ -465,19 +619,39 @@ def mla_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     wk_b = params["wk_b"].reshape(rank, h, dn)
     q_eff = common.f32_product(q_nope[:, 0].transpose(0, 1),
                                wk_b.permute(1, 2, 0))
+    q_rope = q_rope[:, 0]                                      # (B, H, dr)
+    keep = None
+    if axis is not None and seq is not None and "model" in seq.axes:
+        every = collectives.gathered(torch.cat(
+            [q_eff.transpose(0, 1), q_rope], -1).contiguous(), axis)
+        every = torch.cat(list(every), dim=1)          # (B, every H, .)
+        q_eff = every[..., :rank].transpose(0, 1)
+        q_rope = every[..., rank:].to(q_rope.dtype)
+        keep = slice(axis.index * h, (axis.index + 1) * h)
     s_nope = common.f32_product(q_eff.transpose(0, 1).to(ckv_cache.dtype),
                                 ckv_cache.transpose(1, 2))     # (B, H, S)
-    s_rope = common.f32_product(q_rope[:, 0],
+    s_rope = common.f32_product(q_rope,
                                 rope_cache[:, :, 0].transpose(1, 2))
     scores = (s_nope + s_rope) * (dn + dr) ** -0.5
     cols = torch.arange(ckv_cache.shape[1], device=x.device)[None, :]
+    if seq is not None:
+        cols = cols + seq.index * ckv_cache.shape[1]
     ok = cols <= lengths.long()[:, None]
-    p = torch.softmax(scores + torch.where(ok, 0.0, NEG_INF)[:, None, :],
-                      dim=-1)
-    ctx = common.f32_product(p.to(ckv_cache.dtype), ckv_cache)  # (B,H,r)
+    scores = scores + torch.where(ok, 0.0, NEG_INF)[:, None, :]
+    if seq is None:
+        p = torch.softmax(scores, dim=-1)
+        ctx = common.f32_product(p.to(ckv_cache.dtype), ckv_cache)
+    else:
+        mx = scores.amax(dim=-1)
+        p = torch.exp(scores - mx[..., None])
+        part = common.f32_product(p.to(ckv_cache.dtype), ckv_cache)
+        ctx = combine_partials(mx, p.sum(dim=-1), part, seq)   # (B,H,r)
+    if keep is not None:
+        ctx = ctx[:, keep]
     wv_b = params["wv_b"].reshape(rank, h, dv)
     out = common.f32_product(ctx.to(wv_b.dtype).transpose(0, 1),
                              wv_b.transpose(0, 1))             # (H, B, dv)
     out = out.transpose(0, 1)
     y = out.reshape(b, 1, h * dv).to(x.dtype) @ params["wo"]
-    return y, {"c_kv": ckv_full, "k_rope": rope_full}
+    return collectives.reduce_out(y, axis), {"c_kv": ckv_full,
+                                             "k_rope": rope_full}

@@ -340,6 +340,26 @@ def logits_from_hidden(params: Dict, cfg: ModelConfig,
     return h.float() @ w.float()
 
 
+def greedy_token(logits: torch.Tensor, params: Dict, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """The greedy next token of each row of ``logits`` (B, V), int32:
+    the argmax over the whole vocabulary, the lowest id among equal
+    maxima (as ``jnp.argmax``). Under `vocab_split` (``params`` the
+    embedding's) the logits are this rank's slice: each rank finds its
+    slice's (max, global id) and the ranks of "model" exchange them (one
+    all-gather), so every rank picks the same token."""
+    if not vocab_split(params, cfg):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    start, axis = _vocab_start(logits.shape[-1])
+    idx = torch.argmax(logits, dim=-1)
+    best = logits.gather(-1, idx[..., None])[..., 0]
+    mine = torch.stack([best.double(), (idx + start).double()], dim=-1)
+    every = collectives.gathered(mine, axis)             # (m, B, 2)
+    top = every[..., 0] == every[..., 0].amax(dim=0)
+    ids = torch.where(top, every[..., 1], float(cfg.vocab_size))
+    return ids.amin(dim=0).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------

@@ -207,14 +207,14 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Dict, lengths: torch.Tensor):
     """One token per slot: self-attention against the per-layer cache
     (`attention.gqa_decode`), then cross-attention of the one query
-    against the static encoder K/V (`attention.decode_attention`)."""
-    h = common.embed_tokens(params["embed"], tokens)
-    b = h.shape[0]
-    enc_len = cache["xk"].shape[2]
-    enc_lengths = torch.full((b,), enc_len - 1, dtype=torch.int32,
-                             device=h.device)
+    against the static encoder K/V (`attention.cross_decode`). Under a
+    mesh on the rank's heads and vocabulary slice, each layer's FSDP
+    blocks gathered first, both caches split along their sequence in
+    the decode cell's layout."""
+    h = common.embed_tokens(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):
-        lp = common.layer(params["dec_layers"], i)
+        lp = common.fsdp_gather(common.layer(params["dec_layers"], i),
+                                "dec_layers")
         k_i, v_i = cache["k"][i], cache["v"][i]
         a_out, kv = attention.gqa_decode(
             lp["self_attn"], cfg, common.rmsnorm(lp["ln1"], h),
@@ -223,12 +223,9 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             if src is not dst:                # the CNN variant's new tensor
                 dst.copy_(src)
         h = h + a_out
-        q, _, _ = attention.gqa_project_qkv(
+        h = h + attention.cross_decode(
             lp["cross_attn"], cfg, common.rmsnorm(lp["ln_x"], h),
-            lengths[:, None])
-        c = attention.decode_attention(q, cache["xk"][i], cache["xv"][i],
-                                       enc_lengths)
-        h = h + c.reshape(b, 1, -1) @ lp["cross_attn"]["wo"]
+            cache["xk"][i], cache["xv"][i], lengths)
         h = h + common.mlp_apply(lp["mlp"], common.rmsnorm(lp["ln2"], h))
     h = common.rmsnorm(params["final_norm"], h)
     return common.logits_from_hidden(params["embed"], cfg, h), cache

@@ -137,7 +137,7 @@ def cache_specs(cfg: ModelConfig, *, seq_sharded: bool = False) -> Dict:
 
 
 def prefill(params: Dict, cfg: ModelConfig, batch: Dict):
-    h = common.embed_tokens(params["embed"], batch["tokens"])
+    h = common.embed_tokens(params["embed"], batch["tokens"], cfg)
     positions = common.positions_of(batch["tokens"])
     segs = _segments(cfg)
     layers = common.unstacked(params["layers"], cfg.n_layers)
@@ -166,13 +166,16 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict):
 def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Dict, lengths: torch.Tensor):
     """One token per slot; writes the new states and KV rows into
-    ``cache`` in place and returns (logits (B, 1, V) f32, cache)."""
-    h = common.embed_tokens(params["embed"], tokens)
+    ``cache`` in place and returns (logits (B, 1, V) f32, cache). Under
+    a mesh on the rank's heads and parts of the cache, each layer's FSDP
+    blocks gathered first (the shared block's at each use)."""
+    h = common.embed_tokens(params["embed"], tokens, cfg)
     mamba = cache["mamba"]
     segs = _segments(cfg)
     for i, (st, en) in enumerate(segs):
         for li in range(st, en):
-            lp = common.layer(params["layers"], li)
+            lp = common.fsdp_gather(common.layer(params["layers"], li),
+                                    "layers")
             out, new = ssm.ssm_decode(
                 lp["ssm"], cfg, common.rmsnorm(lp["ln"], h),
                 {"conv": mamba["conv"][li], "ssm": mamba["ssm"][li]})
@@ -180,7 +183,8 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             mamba["conv"][li] = new["conv"]
             mamba["ssm"][li] = new["ssm"]
         if i < len(segs) - 1:
-            shared = params["shared_attn"]
+            shared = common.fsdp_gather(params["shared_attn"],
+                                        "shared_attn")
             a_in = common.rmsnorm(shared["ln1"], h)
             k_i, v_i = cache["attn_k"][i], cache["attn_v"][i]
             a_out, kv = attention.gqa_decode(

@@ -80,9 +80,10 @@ def cache_specs(cfg: ModelConfig, *, seq_sharded: bool = False) -> Dict:
 
 def prefill(params: Dict, cfg: ModelConfig, batch: Dict):
     """-> (last-position logits (B, 1, V) f32, streaming cache)."""
-    h = common.embed_tokens(params["embed"], batch["tokens"])
+    h = common.embed_tokens(params["embed"], batch["tokens"], cfg)
 
     def body(hcur, lp):
+        lp = common.fsdp_gather(lp, "layers")
         out, state = ssm.ssm_apply(lp["ssm"], cfg,
                                    common.rmsnorm(lp["ln"], hcur),
                                    return_state=True)
@@ -105,9 +106,9 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     position) but kept for the API. Writes the new states into ``cache``
     in place and returns (logits (B, 1, V) f32, cache)."""
     del lengths
-    h = common.embed_tokens(params["embed"], tokens)
+    h = common.embed_tokens(params["embed"], tokens, cfg)
     for i in range(cfg.n_layers):
-        lp = common.layer(params["layers"], i)
+        lp = common.fsdp_gather(common.layer(params["layers"], i), "layers")
         out, new = ssm.ssm_decode(lp["ssm"], cfg,
                                   common.rmsnorm(lp["ln"], h),
                                   common.layer(cache, i))

@@ -284,15 +284,31 @@ def group_size(cfg: ModelConfig, n_tokens: int) -> int:
     return max(g, 1)
 
 
+def v2_refusal(cfg: ModelConfig, n_tokens: int):
+    """Why V2 cannot dispatch ``n_tokens`` tokens a rank under the active
+    binding (None where it can, or where ``cfg`` has no V2 experts): its
+    group size comes from the global token count, and a group would
+    straddle two ranks' rows (ROADMAP A.4.8)."""
+    if not cfg.n_experts or Variant(cfg.moe_variant) != Variant.CNN:
+        return None
+    axis = shlib.batch_axis()
+    tg = group_size(cfg, n_tokens * (axis.extent if axis is not None
+                                     else 1))
+    if n_tokens % tg:
+        return (f"{cfg.name}: a V2 dispatch group of {tg} tokens would "
+                f"straddle two ranks holding {n_tokens} tokens each "
+                "(ROADMAP A.4.8)")
+    return None
+
+
 def _dispatch_onehot(cfg, params, x_flat, w, idx):
     t, d = x_flat.shape
     e, k = cfg.n_experts_eff, cfg.n_experts_per_tok
+    why = v2_refusal(cfg, t)
+    if why:
+        raise NotImplementedError(why)
     axis = shlib.batch_axis()
     tg = group_size(cfg, t * (axis.extent if axis is not None else 1))
-    if t % tg:
-        raise NotImplementedError(
-            f"a dispatch group of {tg} tokens would straddle two ranks "
-            f"holding {t} tokens each (ROADMAP A.4)")
     g = t // tg
     # capacity per group and per real expert (dead padding gets empty
     # slots); ranks recomputed within each group, over every expert

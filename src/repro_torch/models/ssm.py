@@ -218,11 +218,15 @@ def ssm_init_cache(cfg: ModelConfig, batch: int, dtype, device,
 
 def ssm_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """One-step decode. x (B, 1, d_model). No dynamic indexing anywhere."""
+    """One-step decode. x (B, 1, d_model). No dynamic indexing anywhere.
+    Under a "model" axis on the rank's heads, as `ssm_apply`: ``cache``
+    holds the rank's part of the conv state ([x of its heads | B | C])
+    and its heads' SSM states (`runtime.param_sharding.cache_layout`)."""
     dims = d_inner, nh, hd, ns = _local_dims(params, cfg)
     bsz = x.shape[0]
+    axis = shlib.model_axis()
 
-    proj = x @ params["in_proj"]
+    proj = collectives.copy_in(x, axis) @ params["in_proj"]
     z, xbc, dt = _split_proj(dims, proj)
     xbc, conv_state = _causal_conv(params["conv_w"], params["conv_b"],
                                    xbc, state=cache["conv"])
@@ -243,5 +247,6 @@ def ssm_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     y = torch.einsum("bn,bhnp->bhp", c1, h_new)
     y = y + params["d_skip"][None, :, None] * xh
     y = y.reshape(bsz, 1, d_inner).to(x.dtype)
-    y = common.rmsnorm(params["norm"], y * F.silu(z))
-    return y @ params["out_proj"], {"conv": conv_state, "ssm": h_new}
+    y = common.rmsnorm(params["norm"], y * F.silu(z), axis=axis)
+    return (collectives.reduce_out(y @ params["out_proj"], axis),
+            {"conv": conv_state, "ssm": h_new})

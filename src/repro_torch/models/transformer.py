@@ -24,7 +24,11 @@ A layer takes MLA (`attention.mla_attention`, `mla_decode`) under
 where the config has experts; `forward` averages the MoE losses over
 the layers (zeros for a dense model, as the reference's).
 `decode_step` writes each layer's token into the stacked cache in place
-(the V2 blend builds new tensors, copied back) and returns it.
+(the V2 blend builds new tensors, copied back) and returns it; it runs on
+the rank's heads, experts and vocabulary slice under a "model" axis,
+gathers each layer's FSDP blocks first, and attends over the rank's
+block of positions where the decode cache is split along its sequence
+(`models.attention`).
 """
 
 from __future__ import annotations
@@ -228,11 +232,11 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     (`attention.gqa_decode_stacked`, or `mla_decode` under MLA) and
     attends to its slice. Returns (logits (B, 1, V) f32, cache), the
     cache updated in place."""
-    h = _embed_scale(cfg, common.embed_tokens(params["embed"], tokens))
+    h = _embed_scale(cfg, common.embed_tokens(params["embed"], tokens, cfg))
     is_local, window = _kinds(cfg, h.device)
     kv = cache
     for i in range(cfg.n_layers):
-        lp = common.layer(params["layers"], i)
+        lp = common.fsdp_gather(common.layer(params["layers"], i), "layers")
         a_in = common.rmsnorm(lp["ln1"], h)
         if cfg.use_mla:
             a_out, kv = attention.mla_decode(lp["attn"], cfg, a_in, kv,

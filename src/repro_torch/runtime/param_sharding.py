@@ -336,8 +336,7 @@ def _tp_segments(names: Sequence[str], shape, cfg, m: int, spec):
                           Segment(2 * d_inner + ns, ns, 1),
                           Segment(2 * d_inner + 2 * ns, nh, m))
         if leaf in ("conv_w", "conv_b"):
-            return last, (Segment(0, d_inner, m), Segment(d_inner, ns, 1),
-                          Segment(d_inner + ns, ns, 1))
+            return last, _conv_segments(cfg, m)
         if leaf in ("a_log", "dt_bias", "d_skip"):
             return last, (Segment(0, nh, m),)
         if parent == "norm":                      # gated norm over d_inner
@@ -464,3 +463,212 @@ def zero1_blocks(params_shape: Dict, zero1: bool = True,
         zero1_moment_axes(logical_param_axes(params_shape), params_shape),
         params_shape, keep_fsdp=True)
     return _blocks_over_data(specs, params_shape, pieces, binding)
+
+
+# ---------------------------------------------------------------------------
+# The port's: the layout of a cache or a batch, and the decode relayout
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Parts:
+    """What this rank holds of a whole tensor laid out by the logical
+    axes ``logical`` (one a dim): ``spec``, their resolved spec (the
+    reference's ``PartitionSpec`` entries, extent-1 axes included), and
+    along each dim that a wider axis splits, this rank's `Block` (or,
+    for the SSM's conv state over "model", its `Piece`), in ``parts``.
+    No parts: the whole tensor on every rank."""
+    logical: Tuple
+    spec: Tuple
+    parts: Tuple = ()
+
+    def take(self, full):
+        """The rank's part of ``full``: a view where every part is one
+        contiguous block, else a new tensor."""
+        for p in self.parts:
+            full = p.take(full)
+        return full
+
+    def part_on(self, name: str):
+        """The part along the dim that ``logical`` names ``name``, or
+        None."""
+        if name not in self.logical:
+            return None
+        dim = self.logical.index(name)
+        return next((p for p in self.parts if p.dim == dim), None)
+
+
+def _conv_segments(cfg, m: int) -> Tuple[Segment, ...]:
+    """The SSM conv state's last dim [x | B | C] as conv_w's piece cuts
+    it: x by head, B and C whole (`_tp_segments`)."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    ns = cfg.ssm_state
+    return (Segment(0, d_inner, m), Segment(d_inner, ns, 1),
+            Segment(d_inner + ns, ns, 1))
+
+
+def _is_logical(x) -> bool:
+    return isinstance(x, tuple) and all(
+        a is None or isinstance(a, (str, tuple)) for a in x)
+
+
+def layout_of(logical: Tuple, shape, cfg=None, conv: bool = False
+              ) -> Parts:
+    """The `Parts` that the active binding gives a whole tensor of
+    ``shape`` whose dims the logical axes ``logical`` name: each dim's
+    spec by `runtime.sharding.resolve` (divisibility-safe, a mesh axis
+    claimed once), and a `Block` over the ranks of each entry wider than
+    one rank; with ``conv`` (the SSM's conv state, ``cfg`` given) its
+    "model" dim as conv_w's piece. Without a binding: the whole."""
+    binding = shlib.current_binding()
+    spec = shlib.resolve(tuple(shape), *logical)
+    if binding is None:
+        return Parts(tuple(logical), spec)
+    parts = []
+    for dim, entry in enumerate(spec):
+        phys = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        if binding.extent(phys) <= 1:
+            continue
+        axis = binding.axis_group(phys)
+        if conv and phys == ("model",):
+            parts.append(Piece(dim, _conv_segments(cfg, axis.extent),
+                               axis))
+        else:
+            parts.append(Block(dim, axis))
+    return Parts(tuple(logical), spec, tuple(parts))
+
+
+def cache_layout(model, cache_shapes, seq_sharded: bool = False) -> Dict:
+    """Tree (of the cache's structure) of the `Parts` that this rank
+    holds of each leaf of a whole cache of ``cache_shapes`` (tensors or
+    ``meta`` tensors) under the active binding: the reference's
+    ``_cache_shardings``, from ``model.cache_specs(seq_sharded=...)``
+    through `runtime.sharding.resolve`. The prefill cell's layout
+    (``seq_sharded`` False): the batch over "data", the KV heads over
+    "model" where it divides them, the SSM's states over "model" by
+    head; the decode cell's: the sequence over the "seq" rule's axes,
+    which take "model" from the KV heads (then whole). Raises
+    `NotImplementedError` where the "seq" ranks do not divide a
+    sequence that ``seq_sharded`` splits, or "model" does not divide an
+    SSM state the rank's heads need: the reference would replicate
+    such a leaf, and the port's decode step runs on the rank's part."""
+    cfg = model.cfg
+    binding = shlib.current_binding()
+    m = binding.extent(binding.rules.get("model", ())) if binding else 1
+
+    def leaf(logical, t, path):
+        out = layout_of(logical, t.shape, cfg,
+                        conv=path.endswith("conv"))
+        if binding is not None and seq_sharded and "seq" in logical:
+            dim = logical.index("seq")
+            want = tuple(a for a in binding.rules.get("seq", ())
+                         if a not in _claimed(out, dim))
+            if binding.extent(want) > 1 and out.part_on("seq") is None:
+                raise NotImplementedError(
+                    f"cache {path}: {t.shape[dim]} positions do not "
+                    f"split over {want}")
+        if m > 1 and cfg.family in ("ssm", "hybrid") and (
+                path.endswith("conv") or path.endswith("ssm")) and \
+                "model" not in out.spec:
+            raise NotImplementedError(
+                f"cache {path}: \"model\" of {m} does not divide it")
+        return out
+
+    def walk(spec, shapes, path):
+        if _is_logical(spec):
+            return leaf(spec, shapes, path)
+        return {k: walk(spec[k], shapes[k], f"{path}/{k}")
+                for k in shapes}
+    return walk(model.cache_specs(seq_sharded=seq_sharded), cache_shapes,
+                "")
+
+
+def _claimed(parts: Parts, dim: int) -> set:
+    """The mesh axes that dims before ``dim`` claim in ``parts.spec``."""
+    out = set()
+    for entry in parts.spec[:dim]:
+        out.update((entry,) if isinstance(entry, str) else (entry or ()))
+    return out
+
+
+def take_parts(whole: Dict, layouts: Dict) -> Dict:
+    """This rank's part of each leaf of the whole tree ``whole`` (a
+    cache, a batch, parameters) by ``layouts`` (a tree of `Parts`,
+    `Shard` or None: the whole leaf), each in storage of its own."""
+    return tree_lib.map_(
+        lambda t, lay: t if lay is None else lay.take(t).clone(
+            memory_format=torch.contiguous_format), whole, layouts)
+
+
+def gather_parts(local: Dict, layouts: Dict) -> Dict:
+    """The whole tree of which every rank holds the `Parts` ``layouts``
+    (``local`` here), each leaf gathered (`gather_whole`)."""
+    return tree_lib.map_(gather_whole, local, layouts)
+
+
+def gather_whole(local, parts: Parts):
+    """The whole tensor of which every rank holds its `Parts` ``parts``
+    (``local`` here): each part gathered over its ranks, last first."""
+    from repro_torch.runtime import collectives
+    for p in reversed(parts.parts):
+        if isinstance(p, Piece):
+            local = collectives.gather_piece(local, p)
+        else:
+            every = collectives.gathered(local.contiguous(), p.axis)
+            local = torch.cat(list(every), dim=p.dim)
+    return local
+
+
+def relayout(cache: Dict, src: Dict, dst: Dict) -> Dict:
+    """``cache`` (this rank's parts of it in the layout ``src``, the
+    prefill cell's: `cache_layout` without ``seq_sharded``) in the
+    layout ``dst`` (the decode cell's), leaf by leaf. A leaf whose
+    sequence ``dst`` splits over ranks that include "model" while
+    ``src`` splits its KV heads over "model" takes one all-to-all over
+    "model" (a layer at a time): each rank sends each rank its heads of
+    that rank's block of positions and receives every rank's heads of
+    its own (at batch 1 over ("data", "model"), of its "data"
+    coordinate's positions). A
+    leaf whose KV heads are whole in ``src`` (gemma3-1b's one, or a
+    count "model" does not divide) keeps the positions of its block; a
+    leaf whose parts agree (the SSM's states, or every leaf where the
+    "seq" ranks are one) comes back as it is."""
+    def move(local, s: Parts, d: Parts):
+        if s.parts == d.parts:
+            return local
+        seq = d.part_on("seq")
+        heads, heads_d = s.part_on("kv_heads"), d.part_on("kv_heads")
+        if seq is not None and s.part_on("seq") is None:
+            if heads is not None and heads_d is None and (
+                    "model" in seq.axis.axes):
+                return _seq_all_to_all(local, seq, heads)
+            if heads == heads_d:
+                return seq.take(local).contiguous()
+        raise NotImplementedError(f"relayout of {s.spec} into {d.spec}")
+
+    return tree_lib.map_(move, cache, src, dst)
+
+
+def _seq_all_to_all(local, seq: Block, heads: Block):
+    """The rank's `Block` ``seq`` of positions, every KV head, from each
+    "model" rank's `Block` ``heads`` of the heads, every position (of
+    its "data" coordinate's positions where ``seq`` spans "data" too):
+    one all-to-all over "model" a layer (the leaf's leading dim), so the
+    buffers stay one layer's."""
+    import torch.distributed as dist
+    m = heads.axis.extent
+    n = seq.axis.extent
+    k = local.shape[seq.dim] // n
+    if n > m:                       # ("data", "model"): the coarse block
+        local = local.narrow(seq.dim, (seq.axis.index // m) * m * k, m * k)
+    shape = list(local.shape)
+    shape[seq.dim], shape[heads.dim] = k, shape[heads.dim] * m
+    out = local.new_empty(shape)
+    sd, hd = seq.dim - 1, heads.dim - 1     # dims of one layer
+    for i in range(local.shape[0]):
+        send = local[i].unflatten(sd, (m, k)).movedim(sd, 0).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=heads.axis.group)
+        # recv[j]: rank j's heads of this rank's positions, in rank order
+        out[i] = recv.movedim(0, hd).flatten(hd, hd + 1)
+    return out

@@ -19,7 +19,10 @@ the MLP's width, the vocabulary and the experts ("model"). `shard` and
 `shard_pin` are the identity: each rank already holds its own block of
 every tensor. Under FSDP (``ParallelConfig.fsdp``) a binding also
 carries the parameters' FSDP layout (`fsdp_layout`), read by the layer
-bodies that gather their weights.
+bodies that gather their weights. A decode step whose KV cache is split
+along its sequence marks its binding ``seq_sharded``; `seq_axis` then
+gives the ranks of the "seq" rule, over which decode attention combines
+its partial softmaxes (`models.attention`).
 
 The active binding is the process's, not the thread's (the reference
 keeps it per thread): the mesh is one per process, and on the card
@@ -74,6 +77,7 @@ class AxisGroup:
     group: object
     extent: int
     index: int
+    axes: Tuple[str, ...] = ()    # the wide mesh axes it spans
 
 
 class Binding:
@@ -93,6 +97,9 @@ class Binding:
         # of each parameter this rank holds as its FSDP block, set by the
         # train step (`fsdp_layout`)
         self.fsdp_layout: Dict[str, Tuple[int, "AxisGroup"]] = {}
+        # the port's: set by a decode step whose cache is split along its
+        # sequence over the "seq" rule's axes (`seq_axis`)
+        self.seq_sharded = False
 
     def extent(self, phys: Tuple[str, ...]) -> int:
         n = 1
@@ -102,24 +109,38 @@ class Binding:
 
     def axis_group(self, phys: Tuple[str, ...]) -> AxisGroup:
         """The ranks over the mesh axes ``phys`` that share this rank's
-        coordinates on every other axis. A 2-D mesh has two wide axes,
-        "data" and "model", but each collective runs over one of them:
-        only one of ``phys`` may have an extent above 1 (a collective
-        over both is the ``attn_batch`` fallback, ROADMAP A.4.6). At
-        extent 1 the group is the mesh's own one-rank group of a single
-        named axis, else None."""
-        wide = [a for a in phys if self.axis_sizes.get(a, 1) > 1]
+        coordinates on every other axis. On a 2-D mesh a group spans
+        one wide axis, or both where they are the whole mesh in the
+        mesh's order (the decode cache split along its sequence over
+        ("data", "model") at batch 1, `launch.cells.parallel_for`): then
+        it is the mesh's world group, and this rank's index is its
+        row-major coordinate over them, the rank's place in the world.
+        Any other group over two wide axes (the ``attn_batch`` fallback,
+        ROADMAP A.4.6) raises. At extent 1 the group is the mesh's own
+        one-rank group of a single named axis, else None."""
+        wide = tuple(a for a in phys if self.axis_sizes.get(a, 1) > 1)
         if not wide:
             if (self.mesh is not None and len(phys) == 1
                     and phys[0] in self.mesh.mesh_dim_names):
                 return AxisGroup(self.mesh.get_group(phys[0]), 1, 0)
             return AxisGroup(None, 1, 0)
-        if len(wide) > 1 or self.mesh is None:
+        if self.mesh is None:
             raise NotImplementedError(
-                f"collectives over mesh axes {wide} (ROADMAP A.4.6)")
-        return AxisGroup(self.mesh.get_group(wide[0]),
-                         self.axis_sizes[wide[0]],
-                         self.mesh.get_local_rank(wide[0]))
+                f"collectives over mesh axes {list(wide)} without a mesh")
+        if len(wide) == 1:
+            return AxisGroup(self.mesh.get_group(wide[0]),
+                             self.axis_sizes[wide[0]],
+                             self.mesh.get_local_rank(wide[0]), wide)
+        whole = tuple(a for a in self.mesh.mesh_dim_names
+                      if self.axis_sizes.get(a, 1) > 1)
+        if wide != whole:
+            raise NotImplementedError(
+                f"collectives over mesh axes {list(wide)} (ROADMAP A.4.6)")
+        import torch.distributed as dist
+        index = 0
+        for a in wide:
+            index = index * self.axis_sizes[a] + self.mesh.get_local_rank(a)
+        return AxisGroup(dist.group.WORLD, self.extent(wide), index, wide)
 
 
 def current_binding() -> Optional[Binding]:
@@ -156,6 +177,18 @@ def model_axis() -> Optional[AxisGroup]:
     if binding is None:
         return None
     axis = binding.axis_group(binding.rules.get("model", ()))
+    return axis if axis.extent > 1 else None
+
+
+def seq_axis() -> Optional[AxisGroup]:
+    """The ranks over which the decode KV cache is split along its
+    sequence (the "seq" rule) under the active binding, where it is
+    marked ``seq_sharded`` and they are more than one rank; else None:
+    every rank holds the whole sequence."""
+    binding = current_binding()
+    if binding is None or not binding.seq_sharded:
+        return None
+    axis = binding.axis_group(binding.rules.get("seq", ()))
     return axis if axis.extent > 1 else None
 
 

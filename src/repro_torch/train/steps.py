@@ -57,6 +57,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ParallelConfig, TrainConfig
 from repro_torch.launch.mesh import binding_for, mesh_axes
+from repro_torch.models import attention, common, moe
 from repro_torch.models.api import Model, family_module
 from repro_torch.optim.adamw import (adamw_init, adamw_update, clip_scale,
                                      global_norm)
@@ -208,14 +209,7 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
                            layout["params"])
         fsdp = tree.map_(lambda s: None if s is None else s.block,
                          layout["params"])
-        spec = family_module(model.cfg).init_params(
-            model.cfg, None, torch.device("meta"))
-        # what the layer bodies gather (`models.common.fsdp_gather`)
-        binding.fsdp_layout = {
-            path: (blk.dim - len(leaf.shape), blk.axis)
-            for (path, leaf), blk in zip(tree.items(spec),
-                                         tree.leaves(fsdp))
-            if blk is not None}
+        binding.fsdp_layout = _fsdp_layout(model.cfg, fsdp)
 
     def grads_of(params: Dict, batch: Dict):
         live = tree.map_(lambda p: p.detach().requires_grad_(), params)
@@ -291,26 +285,167 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
     return train_step
 
 
-def make_prefill_step(model: Model) -> Callable:
+def _fsdp_layout(cfg, fsdp: Dict) -> Dict:
+    """{leaf path: (dim counted from the end, AxisGroup)} of the FSDP
+    blocks ``fsdp`` (a tree of `Block` or None), what the layer bodies
+    gather (`models.common.fsdp_gather`)."""
+    spec = family_module(cfg).init_params(cfg, None, torch.device("meta"))
+    return {path: (blk.dim - len(leaf.shape), blk.axis)
+            for (path, leaf), blk in zip(tree.items(spec),
+                                         tree.leaves(fsdp))
+            if blk is not None}
+
+
+def serve_binding(model: Model, mesh, parallel: ParallelConfig,
+                  global_batch: int, decode: bool = False) -> shlib.Binding:
+    """The binding of a prefill (or, with ``decode``, a decode) step of a
+    ``global_batch`` on ``mesh`` under ``parallel``, as the reference's
+    cells bind it (``_mesh_binding``): `launch.mesh.binding_for`'s, with
+    the batch over "data" where "data" divides ``global_batch`` and
+    else whole on every rank ("batch" bound to no axis), and "seq"
+    bound to ``parallel.seq_axes`` that the mesh has and the batch
+    leaves it, as `runtime.sharding.resolve` gives them to the cache's
+    dims; under ``parallel.fsdp`` the parameters' FSDP layout
+    (`state_blocks`); and for a decode step marked ``seq_sharded``: its
+    cache is the decode cell's, split along its sequence. Raises
+    `NotImplementedError` for a config that "model" cannot split
+    (`runtime.param_sharding.tp_refusal`) and for a decode step whose
+    ``parallel`` does not split the cache along its sequence (ROADMAP
+    A.4.4)."""
+    why = tp_refusal(model.cfg, dict(mesh_axes(mesh)).get("model", 1))
+    if why:
+        raise NotImplementedError(why)
+    if decode and not parallel.seq_shard_decode:
+        raise NotImplementedError(
+            "decode on a mesh without seq_shard_decode: the cache with "
+            "its KV heads over \"model\" (ROADMAP A.4.4)")
+    binding = binding_for(mesh, parallel)
+    batch = binding.rules["batch"]
+    if global_batch % binding.extent(batch):
+        batch = binding.rules["batch"] = ()
+    binding.rules["seq"] = tuple(a for a in parallel.seq_axes
+                                 if a in binding.axis_sizes
+                                 and a not in batch)
+    if parallel.fsdp:
+        layout = state_blocks(model.cfg, TrainConfig(), mesh, parallel)
+        binding.fsdp_layout = _fsdp_layout(model.cfg, tree.map_(
+            lambda sh: None if sh is None else sh.block, layout["params"]))
+    binding.seq_sharded = decode
+    return binding
+
+
+def _cell_binding(model: Model, mesh, parallel, global_batch,
+                  decode: bool = False):
+    """`serve_binding` where a ``mesh`` is given (then ``parallel`` and
+    ``global_batch`` are the cell's, `launch.cells.make_cell`), else
+    None."""
+    if mesh is None:
+        return None
+    if parallel is None or global_batch is None:
+        raise TypeError("a serving step on a mesh takes the cell's "
+                        "parallel and global_batch (launch.cells."
+                        "make_cell)")
+    return serve_binding(model, mesh, parallel, global_batch, decode)
+
+
+def _bound(binding):
+    """``binding`` active in the block; None: the caller's, as a step
+    without a mesh always ran."""
+    return (contextlib.nullcontext() if binding is None
+            else shlib.use_binding(binding))
+
+
+def _refuse_v2(cfg, n_tokens: int) -> None:
+    """Raise, before any collective, where MoE V2 cannot dispatch this
+    rank's ``n_tokens`` under the active binding (ROADMAP A.4.8)."""
+    why = moe.v2_refusal(cfg, n_tokens)
+    if why:
+        raise NotImplementedError(why)
+
+
+def _prefill_heads(model: Model, cache: Dict) -> Dict:
+    """``cache`` (a prefill's, under a "model" axis) in the prefill
+    cell's layout (`runtime.param_sharding.cache_layout`): each KV leaf
+    holds the rank's block of the heads where "model" divides their
+    count, else every head. A rank's attention leaves it its piece's KV
+    heads (one shared by several ranks where they are fewer than the
+    ranks: gathered) or, for the enc-dec's self-attention cache that
+    its BOS step writes, every head (cut to the block)."""
+    axis = shlib.model_axis()
+    n = model.cfg.n_kv_heads
+    if axis is None:
+        return cache
+    want = n // axis.extent if n % axis.extent == 0 else n
+
+    def fix(spec, t):
+        if isinstance(spec, dict):
+            return {k: fix(spec[k], t[k]) for k in t}
+        if "kv_heads" not in spec:
+            return t
+        dim = spec.index("kv_heads")
+        if t.shape[dim] == want:
+            return t
+        if t.shape[dim] == n:
+            return t.narrow(dim, axis.index * want, want).contiguous()
+        return attention.heads_of_ranks(
+            collectives.gathered(t.contiguous(), axis), n, dim)
+    return fix(model.cache_specs(), cache)
+
+
+def make_prefill_step(model: Model, mesh=None,
+                      parallel: Optional[ParallelConfig] = None,
+                      global_batch: Optional[int] = None) -> Callable:
+    """``prefill_step(params, batch) -> (next token (B,) int32, cache)``:
+    the prompt's cache and its greedy next token. With a ``mesh``
+    (`launch.mesh.make_mesh`), the cell's ``parallel`` and
+    ``global_batch`` too (`launch.cells.make_cell` passes all three),
+    under `serve_binding`: ``params`` the
+    rank's pieces (and FSDP blocks) of `state_blocks`, ``batch`` the
+    rank's rows, the layers on local heads, the next token the argmax
+    over the whole vocabulary (`models.common.greedy_token`, the same on
+    every rank of "model"), and the cache in the prefill cell's layout
+    (`runtime.param_sharding.cache_layout`). Without a mesh it computes
+    what it always has, bit for bit."""
+    binding = _cell_binding(model, mesh, parallel, global_batch)
+    cfg = model.cfg
+
     @torch.no_grad()
     def prefill_step(params: Dict, batch: Dict):
-        logits, cache = model.prefill(params, batch)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return next_tok, cache
+        with _bound(binding):
+            _refuse_v2(cfg, batch["tokens"].numel())
+            logits, cache = model.prefill(params, batch)
+            next_tok = common.greedy_token(logits[:, -1], params["embed"],
+                                           cfg)
+            return next_tok, _prefill_heads(model, cache)
 
+    prefill_step.binding = binding
     return prefill_step
 
 
-def make_serve_step(model: Model) -> Callable:
+def make_serve_step(model: Model, mesh=None,
+                    parallel: Optional[ParallelConfig] = None,
+                    global_batch: Optional[int] = None) -> Callable:
     """One decode iteration: write KV, attend, next token (greedy:
     deterministic, per the paper's execution model). The cache is
-    updated in place (``hybrid.decode_step``)."""
+    updated in place (``hybrid.decode_step``). With a ``mesh``, as
+    `make_prefill_step`'s, on the cache in the decode cell's layout,
+    split along its sequence over the "seq" ranks (flash-decode,
+    `models.attention`). Without a mesh
+    it computes what it always has, bit for bit."""
+    binding = _cell_binding(model, mesh, parallel, global_batch,
+                            decode=True)
+    cfg = model.cfg
 
     @torch.no_grad()
     def serve_step(params: Dict, tokens: torch.Tensor, cache: Dict,
                    lengths: torch.Tensor):
-        logits, new_cache = model.decode_step(params, tokens, cache, lengths)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        with _bound(binding):
+            _refuse_v2(cfg, tokens.numel())
+            logits, new_cache = model.decode_step(params, tokens, cache,
+                                                  lengths)
+            next_tok = common.greedy_token(logits[:, -1], params["embed"],
+                                           cfg)
         return next_tok[:, None], new_cache, lengths + 1
 
+    serve_step.binding = binding
     return serve_step

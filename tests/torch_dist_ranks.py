@@ -626,3 +626,31 @@ def _fsdp_resume(mesh, rank, root, c):
     resumed = loop_run(mesh, root, name, 4, arch=c["arch"],
                        overrides=c["overrides"], parallel=fsdp)
     return {"restored": restored, "resumed": resumed}
+
+
+# ---------------------------------------------------------------------------
+# The serving cells (tests/test_torch_serve_mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def serve_tool():
+    """tools/dist_serve_cells.py as a module."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "..", "tools"))
+    import dist_serve_cells
+    return dist_serve_cells
+
+
+def serve_rank(mesh, rank, shapes, faults_at=None):
+    """For each mesh shape of ``shapes`` (over this group), the tool's
+    f32 checks of the serving cells (`f32_rank`: every family's smoke,
+    batch 1 with "seq" over ("data", "model") at (2, 2)), with its
+    faults at the mesh ``faults_at`` only, each with rank 0's logits
+    and tokens. Rank 0: {shape: [reading]}."""
+    tool = serve_tool()
+    out = {tuple(shape): tool.f32_rank(_mesh_of(mesh, shape), "cpu",
+                                       faults=tuple(shape) == faults_at,
+                                       keep_logits=True)
+           for shape in shapes}
+    return out if rank == 0 else None
