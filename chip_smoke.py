@@ -205,6 +205,21 @@ last line):
                32,768-position cache, zamba2-1.2b's long_500k decode
                against one card, zamba2-1.2b's prefill cell at 32,768
                positions with the flash kernel);
+  8i. fallback — blocks that "model" does not divide (whole on every
+               rank, or the attention's rows split again over "model"
+               under ``attn_batch_fallback``) and MoE V2's dispatch
+               groups across ranks: with three or more cards, at (1, 3),
+               tools/dist_train_scaling.py --attn-batch (its own
+               process: gemma3-1b's f32 checks at full width with the
+               fallback off and on, each with its faults, then gemma3-1b
+               off and on, qwen2-vl-2b and granite-moe bf16 at (3, 2048)
+               against one card; no kernel launched) and
+               tools/dist_serve_cells.py --fallback (the f32 checks of
+               every family's smoke at (1, 3), and zamba2-1.2b's prefill
+               cell at 32,768 positions, batch 1, attention and SSM whole
+               on every rank: the flash kernel's launches, 6 a rank, are
+               added to the kernels line, and its next token equals one
+               card's); with fewer cards it says that it needs three;
   9. launches — how many CUDA launches one call of each multi-launch
                kernel makes, and the device time of each (torch.profiler,
                after every timed phase): the fused spans at the paper's
@@ -2702,6 +2717,83 @@ def phase_cells() -> dict:
     return launched
 
 
+FALLBACK_MESH = "1x3"     # "model" 3 divides none of the configs' blocks
+
+
+def _tool_run(tag, script, args, timeout) -> dict:
+    """tools/``script`` with ``args`` and ``--out`` in a process of its
+    own; its lines tagged ``tag`` (or FAILED) printed, its exit checked;
+    its JSON results."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", f"{script[:-3]}_{os.getpid()}.json")
+    proc = subprocess.run([sys.executable, os.path.join(root, "tools",
+                                                        script),
+                           *args, "--out", out],
+                          capture_output=True, text=True, timeout=timeout)
+    for line in proc.stdout.splitlines():
+        if line.startswith((tag, "FAILED")):
+            say(line)
+    check(proc.returncode == 0, f"{tag} {script}: exit "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    with open(out) as f:
+        results = json.load(f)
+    os.remove(out)
+    return results
+
+
+def phase_fallback() -> dict:
+    """8i [fallback]: the blocks that "model" does not divide and MoE
+    V2's groups across ranks (module doc). With three or more cards,
+    both tools at FALLBACK_MESH in processes of their own: the train
+    tool's f32 checks must hold and their faults fail, and it must
+    launch no kernel; the serve tool's f32 checks must hold, and its
+    zamba2-1.2b prefill cell must launch the flash kernel
+    `n_attn_invocations` times a rank and give one card's next token.
+    Returns those launches, summed over the ranks."""
+    t0 = time.perf_counter()
+    launched = {}
+    n = torch.cuda.device_count()
+    if n < 3:
+        say(f"[fallback] blocks \"model\" does not divide need a \"model\" "
+            f"extent of 3, three cards; {n} here")
+        return launched
+    train = _tool_run("[fallback]", "dist_train_scaling.py",
+                      ["--attn-batch", "--meshes", FALLBACK_MESH,
+                       "--steps", str(TP_STEPS)], 900)
+    jobs = train["timed"] + train["f32"]
+    tool_launched = {k: v for r in jobs for k, v in r["launches"].items()
+                     if v}
+    check(not tool_launched, f"[fallback] training launched "
+          f"{tool_launched}")
+    check(train["f32"] and all(r["ok"] and r["controls_caught"]
+                               for r in train["f32"]),
+          "[fallback] an f32 check failed or a fault passed")
+    serve = _tool_run("[fallback]", "dist_serve_cells.py",
+                      ["--meshes", FALLBACK_MESH, "--fallback"], 900)
+    results = serve["results"]
+    check(all(r["ok"] for r in results if r["kind"] == "f32"),
+          "[fallback] a serving f32 check failed")
+    prefills = [x for r in results if r["kind"] == "prefill"
+                for x in r["runs"]]
+    cfg, _ = lm_config(ARCH, **LM_FLAGS)
+    ranks = int(FALLBACK_MESH.split("x")[1])
+    for x in prefills:
+        check(x.get("tokens_equal", False),
+              "[fallback] the prefill cell's next token differs from one "
+              "card's")
+        got = x["launches"].get("flash_attention", 0)
+        check(got == ranks * n_attn_invocations(cfg),
+              f"[fallback] prefill flash launches {got} != "
+              f"{ranks} x {n_attn_invocations(cfg)}")
+        for k, v in x["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    check(bool(prefills), "[fallback] no prefill ran")
+    say(f"[fallback] kernels launched: "
+        f"{ {k: v for k, v in launched.items() if v} or 'none'}; took "
+        f"{time.perf_counter() - t0:.1f}s")
+    return launched
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # constants are built afresh: the disk tier is on only in its own
@@ -2737,6 +2829,8 @@ def main() -> None:
     phase_ep()
     phase_fsdp()
     for kernel, n in phase_cells().items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    for kernel, n in phase_fallback().items():
         launches[kernel] = launches.get(kernel, 0) + n
     phase_launches()
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")

@@ -3,8 +3,11 @@
 The port's own copies of the reference's ``ModelConfig`` and
 ``TrainConfig``, with the same names, defaults and meaning, so one config
 reads the same in both packages: every family of the reference (dense,
-MoE with MLA, the VLM's M-RoPE, ssm, hybrid, enc-dec). The sharding-only
-field ``attn_batch_fallback`` has no counterpart here. ``TrainConfig``'s
+MoE with MLA, the VLM's M-RoPE, ssm, hybrid, enc-dec).
+``attn_batch_fallback`` is the reference's too: where "model" does not
+divide the query heads, a config that sets it splits each "data" rank's
+rows of the attention again over "model" (`models.attention`), else the
+attention runs whole on every rank. ``TrainConfig``'s
 ``zero1`` splits the Adam moments over the "data" axis in the
 data-parallel step (`train.steps.make_train_step` with a mesh);
 ``grad_compression`` is read by nothing, as by the reference's train step
@@ -99,6 +102,13 @@ class ModelConfig:
     use_ssd_kernel: bool = False           # CUDA SSD scan (opt-in)
     kv_variant: Variant = Variant.DYNAMIC  # KV-cache update (paper V1/V2)
     attn_chunk: int = 512                  # q-block for chunked attention
+    # Where the query heads do not divide "model": fold "model" into the
+    # batch for the attention (its rows split over "data" x "model")
+    # rather than run it whole on every rank. Wins where attention's
+    # FLOPs outweigh the per-layer gathers (granite-moe), loses for thin
+    # attention (gemma3, qwen2-vl), as the reference measured; per
+    # config, as the reference's.
+    attn_batch_fallback: bool = False
 
     # ---------------------------------------------------------------------
     @property

@@ -4,9 +4,10 @@ vocab=49155, MoE 40 experts top-8. [hf:ibm-granite family; hf]
 The MoE dispatch is the paper's taxonomy applied at LM scale: the default
 variant is V2 (one-hot einsum); V1 and V3 are selectable
 (``moe_variant``). The same numbers as the reference's
-``repro/configs/granite_moe_3b_a800m.py``, without ``attn_batch_fallback``;
-the 8 dead experts (40 -> 48) are kept, so the weights
-have the reference's shapes.
+``repro/configs/granite_moe_3b_a800m.py``, ``attn_batch_fallback``
+included (its 24 query heads do not divide a "model" of 16: the
+attention's rows split over "model" there); the 8 dead experts
+(40 -> 48) are kept, so the weights have the reference's shapes.
 """
 
 from repro_torch.configs.base import ModelConfig
@@ -26,6 +27,7 @@ def config() -> ModelConfig:
         n_experts_per_tok=8,
         moe_d_ff=512,
         n_experts_padded=48,
+        attn_batch_fallback=True,
         tie_embeddings=True,
     )
 

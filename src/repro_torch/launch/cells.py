@@ -182,7 +182,7 @@ def make_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                 cfg, shape.global_batch, shape.seq_len)))
     else:
         step = steps_lib.make_serve_step(model, mesh, parallel,
-                                         shape.global_batch)
+                                         shape.global_batch, shape.seq_len)
         with shlib.use_binding(step.binding):
             tok = psh.layout_of(("batch", None), specs["tokens"].shape)
             cache = psh.cache_layout(model, specs["cache"],

@@ -13,14 +13,16 @@ The port runs a 2-D mesh (data = d, model = m), d x m = world:
 "data" splits the batch, "model" the heads, the MLP's width, the SSM's
 heads, the vocabulary (Megatron tensor parallelism, `models.common`,
 `runtime.param_sharding.tp_pieces`) and the experts (the "expert" rule,
-`models.moe`); under ``ParallelConfig.fsdp`` "data" also splits the
-parameters whose rule marks "fsdp" (`runtime.param_sharding.
-fsdp_blocks`, gathered a layer at a time: `train.steps`). `make_mesh`
-raises `NotImplementedError` for a "pod" extent above 1 and for a
-pipeline "pod" axis (ROADMAP A.4.5), so nothing is replicated where the
-reference would split it; `train.steps.make_train_step` refuses the
-configs that "model" cannot split yet (heads or widths it does not
-divide, A.4.6).
+`models.moe`), each block where its heads or width divide; a block
+they do not divide runs whole on every rank, as the reference's
+divisibility-safe resolve leaves it, or, under ``attn_batch_fallback``,
+the attention on each rank's block of the rows split again over "model"
+(`runtime.param_sharding.tp_layout`, `models.attention`). Under
+``ParallelConfig.fsdp`` "data" also splits the parameters whose rule
+marks "fsdp" (`runtime.param_sharding.fsdp_blocks`, gathered a layer at
+a time: `train.steps`). `make_mesh` raises `NotImplementedError` for a
+"pod" extent above 1 and for a pipeline "pod" axis (ROADMAP A.4.5), so
+nothing is replicated where the reference would split it.
 """
 
 from __future__ import annotations

@@ -36,6 +36,19 @@ the new token's q, k and v over "model" (`_decode_qkv`: a few KB a
 step, one all-gather), attend with every query head and keep their
 own heads' rows.
 
+Where "model" does not divide the query heads (`heads_axis` None) the
+block is whole on every rank: every head, no ``copy_in`` and no
+``reduce_out``, in train, prefill and decode alike, as one device runs
+it. Under the config's ``attn_batch_fallback`` (the reference's) the
+train / prefill attention instead splits each rank's rows again over
+"model" where they divide (`rows_axis`): a rank projects and attends
+its block of the rows with every head, and the blocks are gathered
+(`collectives.split_rows`, `gather_rows`). Where "model" splits the
+query heads but neither divides nor is divided by the KV heads, every
+rank holds every KV head and reads those of its query heads, a map not
+aligned with the ranks (`_kv_of_heads`); its decode gathers the query
+heads as the decode cell does.
+
 Flash-decode (`runtime.sharding.seq_axis`: the decode cache split along
 its sequence over the "seq" ranks): each rank attends over its block of
 positions at its global offset (the mask and gemma3's window read
@@ -346,19 +359,70 @@ def combine_partials(mx: torch.Tensor, denom: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def heads_axis(cfg: ModelConfig):
+    """The "model" ranks that split the attention's query heads, or None
+    where the block is whole on every rank (no "model" axis, or one
+    that does not divide the heads: `runtime.param_sharding.
+    tp_layout`)."""
+    return shlib.model_axis_over(cfg.n_heads)
+
+
+def rows_axis(cfg: ModelConfig, rows: int):
+    """The "model" ranks over which the ``attn_batch`` fallback splits
+    this rank's ``rows`` of the attention (each takes its block of them),
+    or None where it does not: the config does not ask for it, "model"
+    divides the query heads, or "model" does not divide ``rows`` (then
+    the block runs whole on every rank). The reference's
+    ``_attn_fallback_shard``: its row block ``i * m + j`` of the batch
+    over ("data", "model") is the "model" block ``j`` of "data" rank
+    ``i``'s rows, so only "model" takes part."""
+    axis = shlib.model_axis()
+    if (axis is None or not cfg.attn_batch_fallback or cfg.use_mla
+            or cfg.n_heads % axis.extent == 0 or rows % axis.extent):
+        return None
+    return axis
+
+
+def _kv_all(cfg: ModelConfig, axis) -> bool:
+    """Whether every rank holds every KV head while "model" splits the
+    query heads: KV heads that neither divide nor are divided by it
+    (granite-moe's 8 at 3 ranks)."""
+    hkv = cfg.n_kv_heads
+    return axis is not None and bool(hkv % axis.extent and
+                                     axis.extent % hkv)
+
+
+def _kv_of_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                 axis, h: int):
+    """k and v (B, S, every KV head, dh) cut to the KV heads that this
+    rank's ``h`` query heads read, in their order: query head j (of the
+    whole block) reads KV head j // (n_heads / n_kv_heads), a map that
+    need not align with the ranks (rank 0 of 3 with 24 heads over 8 KV
+    heads reads 0, 0, 0, 1, 1, 1, 2, 2): one KV head a query head where
+    it does not, else the rank's whole groups."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    first = axis.index * h
+    if first % rep == 0 and h % rep == 0:
+        return (k.narrow(2, first // rep, h // rep),
+                v.narrow(2, first // rep, h // rep))
+    idx = torch.div(torch.arange(first, first + h, device=k.device), rep,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def gqa_project_qkv(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor, is_local=None,
+                    positions: torch.Tensor, is_local=None, axis=None,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q, k, v of ``x``; q and k rms-normed per head under ``qk_norm``
     and rotated. Where the config has a local rope base (gemma3), a layer
     whose ``is_local`` (a 0-d bool tensor) is set takes it, picked on
     the device as the reference's traced ``jnp.where``. The head counts
-    are those of the pieces of wq and wk (module doc); under a "model"
-    axis ``x`` enters through `collectives.copy_in`."""
+    are those of the pieces of wq and wk (module doc); ``x`` enters
+    through `collectives.copy_in` over ``axis`` (`heads_axis`)."""
     b, s, _ = x.shape
     dh = cfg.head_dim
     h, hkv = params["wq"].shape[-1] // dh, params["wk"].shape[-1] // dh
-    x = collectives.copy_in(x, shlib.model_axis())
+    x = collectives.copy_in(x, axis)
     q = common.matmul(x, params["wq"]).reshape(b, s, h, dh)
     k = common.matmul(x, params["wk"]).reshape(b, s, hkv, dh)
     v = common.matmul(x, params["wv"]).reshape(b, s, hkv, dh)
@@ -388,11 +452,35 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     Takes the flash kernel under the reference's condition: the flag set,
     causal, a Python-int ``window`` equal to 0, no cross KV. A tensor
     window (the dense transformer's, ROADMAP C) never takes it.
+
+    Under a "model" axis that splits the query heads, on the rank's
+    heads (module doc), those KV heads that they read where every rank
+    holds every KV head (`_kv_of_heads`). Where it does not split them,
+    the block runs whole on every rank; or, under the ``attn_batch``
+    fallback (`rows_axis`), each rank takes its block of the rows
+    (`collectives.split_rows`), projects and attends them with every
+    head, applies wo, and the rows are gathered over "model"
+    (`collectives.gather_rows`; with ``return_kv``, k and v too). The
+    K and V it returns are of every KV head the rank holds.
     """
-    q, k, v = gqa_project_qkv(params, cfg, x, positions, is_local)
+    rows = rows_axis(cfg, x.shape[0])
+    axis = heads_axis(cfg)
+    if rows is not None:
+        x = collectives.split_rows(x, rows)
+        n = x.shape[0]
+        positions = positions.narrow(0, rows.index * n, n)
+        if cross_kv is not None:
+            # partial gradients of the cross K/V: their rows enter
+            # `encdec.cross_kv` through `copy_in` over "model"
+            cross_kv = tuple(t.narrow(0, rows.index * n, n)
+                             for t in cross_kv)
+    q, k, v = gqa_project_qkv(params, cfg, x, positions, is_local, axis)
     if cross_kv is not None:
         k, v = cross_kv
         causal = False
+    kv = (k, v)
+    if _kv_all(cfg, axis):
+        k, v = _kv_of_heads(k, v, cfg, axis, q.shape[2])
     static_window = isinstance(window, int) and window == 0
     if (cfg.use_flash_kernel and causal and static_window
             and cross_kv is None):
@@ -404,10 +492,13 @@ def gqa_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                                 softcap=cfg.attn_logit_softcap)
     b, s = x.shape[:2]
     y = collectives.reduce_out(
-        common.matmul(out.reshape(b, s, -1), params["wo"]),
-        shlib.model_axis())
+        common.matmul(out.reshape(b, s, -1), params["wo"]), axis)
+    if rows is not None:
+        y = collectives.gather_rows(y, rows)
+        if return_kv:
+            kv = tuple(collectives.gather_rows(t, rows) for t in kv)
     if return_kv:
-        return y, (k, v)
+        return y, kv
     return y
 
 
@@ -436,10 +527,11 @@ def _decode_qkv(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     cache's), and ``keep`` the slice of the rank's own query heads."""
     if positions is None:
         positions = decode_positions(cfg, lengths)
-    q, k, v = gqa_project_qkv(params, cfg, x, positions, is_local)
-    axis, seq = shlib.model_axis(), shlib.seq_axis()
-    if axis is None or (k.shape[2] == cache_heads and (
-            seq is None or "model" not in seq.axes)):
+    axis, seq = heads_axis(cfg), shlib.seq_axis()
+    q, k, v = gqa_project_qkv(params, cfg, x, positions, is_local, axis)
+    if axis is None or (k.shape[2] == cache_heads
+                        and not _kv_all(cfg, axis)
+                        and (seq is None or "model" not in seq.axes)):
         return q, k, v, None
     h, hk = q.shape[2], k.shape[2]
     kv = with_kv and hk != cache_heads
@@ -452,13 +544,15 @@ def _decode_qkv(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v, slice(axis.index * h, (axis.index + 1) * h)
 
 
-def _decode_out(params: Dict, out: torch.Tensor, keep) -> torch.Tensor:
+def _decode_out(params: Dict, cfg: ModelConfig, out: torch.Tensor, keep
+                ) -> torch.Tensor:
     """The block's output of the attention ``out`` (B, 1, H, dh): the
-    rank's own heads (``keep``) through wo, row-parallel."""
+    rank's own heads (``keep``) through wo, row-parallel where "model"
+    splits the heads."""
     if keep is not None:
         out = out[:, :, keep]
     y = out.reshape(out.shape[0], 1, -1) @ params["wo"]
-    return collectives.reduce_out(y, shlib.model_axis())
+    return collectives.reduce_out(y, heads_axis(cfg))
 
 
 def gqa_decode_stacked(params: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -478,7 +572,7 @@ def gqa_decode_stacked(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     out = decode_attention(q, k_full[layer_idx], v_full[layer_idx], lengths,
                            window=window, softcap=cfg.attn_logit_softcap,
                            seq=seq)
-    return _decode_out(params, out, keep), {"k": k_full, "v": v_full}
+    return _decode_out(params, cfg, out, keep), {"k": k_full, "v": v_full}
 
 
 def gqa_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -492,7 +586,7 @@ def gqa_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     v_cache = cache_update(cache["v"], v, lengths, cfg.kv_variant, seq)
     out = decode_attention(q, k_cache, v_cache, lengths, window=window,
                            softcap=cfg.attn_logit_softcap, seq=seq)
-    return _decode_out(params, out, keep), {"k": k_cache, "v": v_cache}
+    return _decode_out(params, cfg, out, keep), {"k": k_cache, "v": v_cache}
 
 
 def cross_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -509,7 +603,7 @@ def cross_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     every = torch.full((x.shape[0],), s - 1, dtype=torch.int32,
                        device=x.device)
     out = decode_attention(q, k_cache, v_cache, every, seq=seq)
-    return _decode_out(params, out, keep)
+    return _decode_out(params, cfg, out, keep)
 
 
 # ---------------------------------------------------------------------------
@@ -549,7 +643,7 @@ def mla_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     b, s, _ = x.shape
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     h = params["wk_b"].shape[-1] // dn
-    axis = shlib.model_axis()
+    axis = heads_axis(cfg)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_expand(params, cfg, x, positions,
                                                    axis)
     c_in = collectives.copy_in(c_kv, axis)
@@ -594,7 +688,7 @@ def mla_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     h = params["wk_b"].shape[-1] // dn
     rank = cfg.kv_lora_rank
-    axis, seq = shlib.model_axis(), shlib.seq_axis()
+    axis, seq = heads_axis(cfg), shlib.seq_axis()
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_expand(
         params, cfg, x, lengths[:, None], axis)
     if layer_idx is not None:

@@ -17,7 +17,10 @@ parameters (`runtime.param_sharding.tp_pieces`), and the layers read
 their local widths from the pieces' shapes. A replicated activation
 enters a column-parallel product through `collectives.copy_in`, and a
 row-parallel product leaves through `collectives.reduce_out`: `mlp_apply`
-here, attention and the SSM block in their modules. Where "model"
+here, attention and the SSM block in their modules. A block whose heads
+or width "model" does not divide is whole on every rank and runs as on
+one device, with no collective over "model"
+(`runtime.sharding.model_axis_over`). Where "model"
 divides the vocabulary, `embed_tokens`, `logits_from_hidden` and
 `softmax_xent` run vocab-parallel; elsewhere the vocabulary is whole on
 every rank, as the reference's divisibility-safe ``resolve`` leaves it.
@@ -264,10 +267,12 @@ def mlp_params(d: int, ff: int, dtype, gen, device, lead=()) -> Dict:
     }
 
 
-def mlp_apply(params: Dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(params: Dict, x: torch.Tensor, width: int) -> torch.Tensor:
     """SwiGLU; under a "model" axis on the rank's columns of wi_* and
-    rows of wo (column- then row-parallel)."""
-    axis = shlib.model_axis()
+    rows of wo (column- then row-parallel). ``width``: the whole MLP's
+    (d_ff); where "model" does not divide it the MLP is whole on every
+    rank and runs as on one device (`runtime.sharding.model_axis_over`)."""
+    axis = shlib.model_axis_over(width)
     x = collectives.copy_in(x, axis)
     gate = F.silu(matmul(x, params["wi_gate"]))
     up = matmul(x, params["wi_up"])

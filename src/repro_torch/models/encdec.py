@@ -34,7 +34,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common
 from repro_torch.models.common import dtype_of
 from repro_torch.runtime import collectives
-from repro_torch.runtime import sharding as shlib
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
@@ -89,7 +88,8 @@ def encode(params: Dict, cfg: ModelConfig, enc_embeds: torch.Tensor
             lp["attn"], cfg, common.rmsnorm(lp["ln1"], hcur), positions,
             causal=False)
         return hcur + common.mlp_apply(lp["mlp"],
-                                       common.rmsnorm(lp["ln2"], hcur))
+                                       common.rmsnorm(lp["ln2"], hcur),
+                                       cfg.d_ff)
 
     body = common.remat(cfg, body)
     for lp in common.unstacked(params["enc_layers"], cfg.n_enc_layers):
@@ -100,15 +100,19 @@ def encode(params: Dict, cfg: ModelConfig, enc_embeds: torch.Tensor
 def cross_kv(params: Dict, cfg: ModelConfig, enc_out: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each decoder layer's cross K/V of the encoder states, computed
-    once: two (L, B, S_enc, hkv, dh); under a "model" axis, of the
-    rank's KV heads (the encoder states enter through
-    `collectives.copy_in`); under FSDP each layer's wk and wv gathered
+    once: two (L, B, S_enc, hkv, dh); under a "model" axis that splits
+    the heads, of the rank's KV heads (the encoder states enter through
+    `collectives.copy_in`), else of every KV head, the states entering
+    through `copy_in` where the ``attn_batch`` fallback splits the rows
+    (each rank's cross attention reads its rows of the K/V:
+    `attention.rows_axis`); under FSDP each layer's wk and wv gathered
     first (`common.fsdp_gather`)."""
     b, s, _ = enc_out.shape
     xattn = params["dec_layers"]["cross_attn"]
     dh = cfg.head_dim
     hkv = xattn["wk"].shape[-1] // dh
-    enc_out = collectives.copy_in(enc_out, shlib.model_axis())
+    enc_out = collectives.copy_in(enc_out, attention.heads_axis(cfg)
+                                  or attention.rows_axis(cfg, b))
     ks, vs = [], []
     for wk, wv in zip(torch.unbind(xattn["wk"]), torch.unbind(xattn["wv"])):
         w = common.fsdp_gather({"wk": wk, "wv": wv}, "dec_layers/cross_attn")
@@ -135,7 +139,8 @@ def _decoder(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             lp["cross_attn"], cfg, common.rmsnorm(lp["ln_x"], hcur),
             positions, cross_kv=(xk_l, xv_l))
         return hcur + common.mlp_apply(lp["mlp"],
-                                       common.rmsnorm(lp["ln2"], hcur))
+                                       common.rmsnorm(lp["ln2"], hcur),
+                                       cfg.d_ff)
 
     body = common.remat(cfg, body)
     for lp, xk_l, xv_l in zip(
@@ -226,6 +231,7 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         h = h + attention.cross_decode(
             lp["cross_attn"], cfg, common.rmsnorm(lp["ln_x"], h),
             cache["xk"][i], cache["xv"][i], lengths)
-        h = h + common.mlp_apply(lp["mlp"], common.rmsnorm(lp["ln2"], h))
+        h = h + common.mlp_apply(lp["mlp"], common.rmsnorm(lp["ln2"], h),
+                                 cfg.d_ff)
     h = common.rmsnorm(params["final_norm"], h)
     return common.logits_from_hidden(params["embed"], cfg, h), cache

@@ -82,7 +82,7 @@ def _shared_attn_block(cfg: ModelConfig, shared: Dict, h, positions,
     a_out, kv = res if return_kv else (res, None)
     h = h + a_out
     h = h + common.mlp_apply(shared["mlp"],
-                             common.rmsnorm(shared["ln2"], h))
+                             common.rmsnorm(shared["ln2"], h), cfg.d_ff)
     return (h, kv) if return_kv else h
 
 
@@ -191,7 +191,8 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 shared["attn"], cfg, a_in, {"k": k_i, "v": v_i}, lengths)
             h = h + a_out
             h = h + common.mlp_apply(shared["mlp"],
-                                     common.rmsnorm(shared["ln2"], h))
+                                     common.rmsnorm(shared["ln2"], h),
+                                     cfg.d_ff)
             for dst, src in ((k_i, kv["k"]), (v_i, kv["v"])):
                 if src is not dst:            # the CNN variant's new tensor
                     dst.copy_(src)

@@ -32,7 +32,14 @@ partitioned program computes them: the load-balance fractions and the
 z-loss over all tokens (each rank returns its share of the losses; the
 shares add up to the global values), V1/V3's capacity and ranking over
 all b*s tokens (the lower ranks' tokens first), and V2's group size from
-the global token count. No collective over "data" is differentiated.
+the global token count. Where that group size does not divide a rank's
+tokens, a group straddles ranks' rows: the routes (idx, a few KB) are
+gathered over the "batch" ranks, each group the rank's tokens touch is
+ranked as the reference ranks it (k-major, then token order, the count
+carried over kept choices only), and the rank dispatches and combines
+its own tokens' slots of those groups (the expert FFN is row-wise, so
+no other collective runs); groups within a rank's rows take the local
+path. No collective over "data" is differentiated.
 
 Under a "model" axis (`runtime.sharding.model_axis`, m ranks) the
 experts are split as `runtime.param_sharding.tp_pieces` gives them:
@@ -49,8 +56,11 @@ the combine weights enter through `collectives.copy_in`
 gradient on every rank and nothing is counted m times: routing reads
 ``x`` as it is, and the router's gradient (from the combine weights,
 summed over "model", and from the aux losses, whole on every rank)
-needs no sum of its own. The shared experts run column / row parallel
-(`common.mlp_apply`).
+needs no sum of its own. Where "model" divides neither the padded
+expert count nor the width, every rank holds every expert whole and
+runs them as one device does, with no collective over "model". The shared experts run column / row parallel
+(`common.mlp_apply`), or whole where "model" does not divide their
+width.
 """
 
 from __future__ import annotations
@@ -200,8 +210,8 @@ def capacity_and_rank(cfg: ModelConfig, idx: torch.Tensor, n_tokens: int,
 
 def local_experts(cfg: ModelConfig, params: Dict) -> Tuple[int, int]:
     """(first, count) of the experts whose weights this rank holds: all
-    of them on one device and under the f-split, else its E_eff / m
-    contiguous ones (module doc)."""
+    of them on one device, under the f-split and where they are whole,
+    else its E_eff / m contiguous ones (module doc)."""
     n = params["wi_gate"].shape[0]
     axis = shlib.model_axis()
     if axis is None or n == cfg.n_experts_eff:
@@ -284,39 +294,62 @@ def group_size(cfg: ModelConfig, n_tokens: int) -> int:
     return max(g, 1)
 
 
-def v2_refusal(cfg: ModelConfig, n_tokens: int):
-    """Why V2 cannot dispatch ``n_tokens`` tokens a rank under the active
-    binding (None where it can, or where ``cfg`` has no V2 experts): its
-    group size comes from the global token count, and a group would
-    straddle two ranks' rows (ROADMAP A.4.8)."""
-    if not cfg.n_experts or Variant(cfg.moe_variant) != Variant.CNN:
-        return None
-    axis = shlib.batch_axis()
-    tg = group_size(cfg, n_tokens * (axis.extent if axis is not None
-                                     else 1))
-    if n_tokens % tg:
-        return (f"{cfg.name}: a V2 dispatch group of {tg} tokens would "
-                f"straddle two ranks holding {n_tokens} tokens each "
-                "(ROADMAP A.4.8)")
-    return None
+def groups_across(cfg: ModelConfig, every: torch.Tensor, start: int,
+                  t: int, tg: int, cap_g: int):
+    """(idx_g, rank_g, keep_g, lo) of the groups of ``tg`` tokens that
+    this rank's ``t`` tokens touch, its tokens being ``[start, start +
+    t)`` of the global route list ``every`` (T_all, k): each group
+    ranked on the global routes as the reference ranks it (`_rank`:
+    k-major, then token order, the count carried over kept choices),
+    keep cleared for the other ranks' tokens; ``lo``, the place of this
+    rank's first token in the groups' flat (G * Tg) order."""
+    g0, g1 = start // tg, -(-(start + t) // tg)
+    idx_g = every[g0 * tg:g1 * tg].reshape(g1 - g0, tg, every.shape[1])
+    rank_g, keep_g = _rank(idx_g, cfg.n_experts_eff, cap_g)
+    lo = start - g0 * tg
+    mine = torch.zeros(idx_g.shape[:2], dtype=torch.bool,
+                       device=idx_g.device)
+    mine.view(-1)[lo:lo + t] = True
+    return idx_g, rank_g, keep_g & mine[..., None], lo
 
 
 def _dispatch_onehot(cfg, params, x_flat, w, idx):
     t, d = x_flat.shape
-    e, k = cfg.n_experts_eff, cfg.n_experts_per_tok
-    why = v2_refusal(cfg, t)
-    if why:
-        raise NotImplementedError(why)
+    k = cfg.n_experts_per_tok
     axis = shlib.batch_axis()
-    tg = group_size(cfg, t * (axis.extent if axis is not None else 1))
-    g = t // tg
+    n_ranks = axis.extent if axis is not None else 1
+    tg = group_size(cfg, t * n_ranks)
     # capacity per group and per real expert (dead padding gets empty
-    # slots); ranks recomputed within each group, over every expert
+    # slots)
     cap_g = _capacity(tg, k, cfg.capacity_factor, cfg.n_experts)
-    idx_g = idx.reshape(g, tg, k)
-    rank_g, keep_g = _rank(idx_g, e, cap_g)              # (G, Tg, k)
+    if t % tg == 0:
+        # the groups lie within this rank's tokens: ranks recomputed
+        # within each group, over every expert
+        g = t // tg
+        idx_g = idx.reshape(g, tg, k)
+        rank_g, keep_g = _rank(idx_g, cfg.n_experts_eff, cap_g)
+        return _onehot_groups(cfg, params, x_flat.reshape(g, tg, d),
+                              w.reshape(g, tg, k), idx_g, rank_g, keep_g,
+                              cap_g).reshape(t, d)
+    # a group straddles ranks' rows (module doc)
+    every = collectives.gathered(idx.contiguous(), axis).reshape(-1, k)
+    idx_g, rank_g, keep_g, lo = groups_across(cfg, every, axis.index * t,
+                                              t, tg, cap_g)
+    g = idx_g.shape[0]
+    hi = g * tg - lo - t
+    y = _onehot_groups(cfg, params,
+                       F.pad(x_flat, (0, 0, lo, hi)).reshape(g, tg, d),
+                       F.pad(w, (0, 0, lo, hi)).reshape(g, tg, k),
+                       idx_g, rank_g, keep_g, cap_g)
+    return y.reshape(g * tg, d)[lo:lo + t]
 
-    act = x_flat.dtype
+
+def _onehot_groups(cfg, params, x_g, w_g, idx_g, rank_g, keep_g, cap_g):
+    """The one-hot dispatch, expert FFN and combine of the groups: x_g
+    (G, Tg, d), w_g, idx_g, rank_g, keep_g (G, Tg, k) -> (G, Tg, d)."""
+    g, tg, d = x_g.shape
+    e = cfg.n_experts_eff
+    act = x_g.dtype
     # this rank's experts' columns only (module doc)
     first, n = local_experts(cfg, params)
     if n == e:
@@ -329,14 +362,14 @@ def _dispatch_onehot(cfg, params, x_flat, w, idx):
     oh_c = (F.one_hot(rank_g.clamp(max=cap_g - 1), cap_g).to(act)
             * keep_g[..., None].to(act))                 # (G, Tg, k, C)
     disp = torch.einsum("gtke,gtkc->gtec", oh_e, oh_c)   # 0/1
-    wsum = torch.einsum("gtke,gtk->gte", oh_e, w.reshape(g, tg, k).to(act))
+    wsum = torch.einsum("gtke,gtk->gte", oh_e, w_g.to(act))
     comb = disp * wsum[..., None]
 
-    xe = torch.einsum("gtec,gtd->gecd", disp, x_flat.reshape(g, tg, d))
+    xe = torch.einsum("gtec,gtd->gecd", disp, x_g)
     # every group's slots of one expert in one bmm: (E, G*C, d)
     ye = _expert_ffn(params, xe.transpose(0, 1).reshape(n, g * cap_g, d))
     ye = ye.reshape(n, g, cap_g, d).transpose(0, 1)      # (G, E, C, d)
-    return torch.einsum("gtec,gecd->gtd", comb, ye).reshape(t, d)
+    return torch.einsum("gtec,gecd->gtd", comb, ye)
 
 
 # ---------------------------------------------------------------------------
@@ -354,7 +387,10 @@ def moe_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     b, s, d = x.shape
     x_flat = x.reshape(b * s, d)
     w, idx, aux = route(cfg, params["router"], x_flat)
-    axis = shlib.model_axis()
+    # the ranks that split the experts (along the padded expert dim, or
+    # their width); None where they are whole on every rank
+    axis = (shlib.model_axis_over(cfg.n_experts_eff)
+            or shlib.model_axis_over(cfg.moe_d_ff))
     x_in, w = expert_inputs(x_flat, w, axis)
 
     if variant == Variant.CNN:
@@ -367,5 +403,6 @@ def moe_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     y = collectives.reduce_out(y, axis)
 
     if cfg.n_shared_experts:
-        y = y + common.mlp_apply(params["shared"], x_flat)
+        y = y + common.mlp_apply(params["shared"], x_flat,
+                                 cfg.moe_d_ff * cfg.n_shared_experts)
     return y.reshape(b, s, d), aux

@@ -19,7 +19,10 @@ local widths (z, x and dt of its heads, B and C whole), the causal conv
 runs on [x_local | B | C], the SSD on the local heads, the gated norm
 takes its mean of squares over the whole d_inner (`common.rmsnorm` with
 the axis), and out_proj is row-parallel (`collectives.reduce_out`). The
-local widths come from the pieces' shapes (`_local_dims`).
+local widths come from the pieces' shapes (`_local_dims`). Where "model"
+does not divide the heads the block is whole on every rank and runs as
+on one device: no copy_in, no "model" sum, the norm over its own width
+(`_heads_axis`).
 """
 
 from __future__ import annotations
@@ -75,6 +78,12 @@ def _local_dims(params: Dict, cfg: ModelConfig
     them, or the rank's under a "model" axis."""
     nh = params["a_log"].shape[-1]
     return nh * cfg.ssm_head_dim, nh, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def _heads_axis(cfg: ModelConfig):
+    """The "model" ranks that split the SSM's heads, or None (a whole
+    block)."""
+    return shlib.model_axis_over(_dims(cfg)[1])
 
 
 def _split_proj(dims, proj: torch.Tensor):
@@ -166,7 +175,7 @@ def ssm_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     """
     dims = d_inner, nh, hd, ns = _local_dims(params, cfg)
     bsz, s, _ = x.shape
-    axis = shlib.model_axis()
+    axis = _heads_axis(cfg)
 
     proj = collectives.copy_in(x, axis) @ params["in_proj"]
     z, xbc_raw, dt = _split_proj(dims, proj)
@@ -224,7 +233,7 @@ def ssm_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     and its heads' SSM states (`runtime.param_sharding.cache_layout`)."""
     dims = d_inner, nh, hd, ns = _local_dims(params, cfg)
     bsz = x.shape[0]
-    axis = shlib.model_axis()
+    axis = _heads_axis(cfg)
 
     proj = collectives.copy_in(x, axis) @ params["in_proj"]
     z, xbc, dt = _split_proj(dims, proj)

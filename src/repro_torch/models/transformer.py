@@ -118,7 +118,7 @@ def _ffn(lp: Dict, cfg: ModelConfig, x: torch.Tensor):
     """(the layer's MLP or MoE output, its MoE losses or None)."""
     if cfg.n_experts:
         return moe.moe_apply(lp["moe"], cfg, x)
-    return common.mlp_apply(lp["mlp"], x), None
+    return common.mlp_apply(lp["mlp"], x, cfg.d_ff), None
 
 
 def _block(lp: Dict, cfg: ModelConfig, h, positions, is_local, window,

@@ -64,8 +64,11 @@ def global_norm(grads: Dict, pieces: Optional[Dict] = None, axis=None,
     `runtime.param_sharding.Piece` or None, and ``axis``, the "model"
     ranks) the norm of the whole leaves: the squares of the parts each
     rank counts (`Piece.counted`: its own, and a shared part once) are
-    summed over ``axis``, and a leaf whole on every rank is counted once,
-    on every rank alike. Under FSDP (``blocks``, a tree of the
+    summed over ``axis``, and a leaf whole on every rank (piece None: a
+    block "model" does not divide too) is counted once, on every rank
+    alike; a whole leaf held as a piece of one shared segment (KV heads
+    under split query heads, an ``attn_batch`` fallback block) is
+    counted on the first rank only. Under FSDP (``blocks``, a tree of the
     parameters' `Block` over "data" or None, and ``data_axis``, the
     "data" ranks) the squares of a gradient held as its block are summed
     over ``data_axis`` too, before those over ``axis``."""

@@ -13,7 +13,12 @@ a row-parallel product's partial sums leave through `reduce_out`
 (all-reduce forward, identity backward). Both run inside the layer
 bodies that `models.common.remat` recomputes, so a recompute on
 autograd's device thread issues them again, on every rank in the same
-order (the binding is the process's: `runtime.sharding`).
+order (the binding is the process's: `runtime.sharding`). The
+``attn_batch`` fallback's pair is one more (`split_rows`, `gather_rows`,
+one differentiated operator in its two directions): a replicated
+activation's rows split over "model" (each rank keeps its block of
+rows; backward, the blocks' gradients gathered), and a block of rows
+gathered whole (backward, each rank keeps its block of the gradient).
 
 Over "data" under FSDP one more operator is differentiated (`gather_in`):
 a parameter held as its block enters a layer body gathered whole (an
@@ -108,6 +113,44 @@ def reduce_out(x: torch.Tensor, axis) -> torch.Tensor:
     all-reduce), whose backward hands each rank the gradient of the sum
     as it is. ``axis`` None: ``x`` itself."""
     return x if axis is None else _ReduceOut.apply(x, axis.group)
+
+
+class _Rows(torch.autograd.Function):
+    """The rows (dim 0) of a tensor split over ``axis`` (``gather``
+    False: this rank's block of a tensor whole on every rank) or
+    gathered whole from every rank's block (``gather`` True); the
+    backward runs the other direction on the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, axis, gather):
+        ctx.axis, ctx.gather = axis, gather
+        return _rows(x, axis, gather)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows(g, ctx.axis, not ctx.gather), None, None
+
+
+def _rows(x: torch.Tensor, axis, gather: bool) -> torch.Tensor:
+    if gather:
+        return gathered(x.contiguous(), axis).flatten(0, 1)
+    n = x.shape[0] // axis.extent
+    return x.narrow(0, axis.index * n, n).contiguous()
+
+
+def split_rows(x: torch.Tensor, axis) -> torch.Tensor:
+    """This rank's block of the rows (dim 0) of ``x``, the same on every
+    rank of ``axis`` (a replicated activation), in rank order; its
+    backward gathers every rank's block of the gradient, so each rank
+    ends with the whole gradient of ``x``, the same on all."""
+    return _Rows.apply(x, axis, False)
+
+
+def gather_rows(x: torch.Tensor, axis) -> torch.Tensor:
+    """Every rank's block of rows ``x`` along dim 0, in rank order: an
+    all-gather over ``axis``, whose backward hands each rank its block
+    of the (replicated) gradient."""
+    return _Rows.apply(x, axis, True)
 
 
 def sum_scatter(g: torch.Tensor, dim: int, axis) -> torch.Tensor:

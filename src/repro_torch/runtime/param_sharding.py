@@ -32,12 +32,25 @@ its gated norm, a_log, dt_bias and d_skip by head; and where the rule
 would name the wrong dim: the shared experts' SwiGLU, whose (L, d, f)
 leaves the 3-D expert rule would split along the layers, takes the
 dense MLP's column / row split.
-The parts that several ranks hold (a shared KV head, B and C, the
-per-head q_norm / k_norm scales) each use in part: their gradients are
-partial and are summed over "model" (`Piece.shared`). Leaves whole on
-every rank (the norms on the replicated residual stream, MLA's q_norm
-and kv_norm before its split, the router, a vocabulary "model" does not
-divide) get the whole gradient on every rank.
+A block whose heads or width "model" does not divide is whole on every
+rank (`tp_layout`): the reference's divisibility-safe resolve, taken
+block by block. The port's pieces are head-aligned, so a block is split
+wholly or held whole: the query heads (with them every leaf of the
+attention block), the SSM's heads (in_proj, conv, the norms, out_proj),
+the MLP's d_ff, the experts' width where the padded expert count does
+not divide either, and the shared experts' width. Under a split
+attention block, KV heads that neither divide nor are divided by "model"
+are whole on every rank, each rank reading those of its query heads.
+The parts that several ranks hold (a shared KV head, KV heads whole
+under split query heads, B and C, the per-head q_norm / k_norm scales)
+each use in part: their gradients are partial and are summed over
+"model" (`Piece.shared`). The leaves of an attention block under the
+``attn_batch`` fallback are whole too, and their gradients partial
+where the fallback split the rows (`Piece.rows`). Leaves whole on every
+rank otherwise (a block "model" does not divide, the norms on the
+replicated residual stream, MLA's q_norm and kv_norm before its split,
+the router, a vocabulary "model" does not divide) get the whole
+gradient on every rank.
 """
 
 from __future__ import annotations
@@ -204,10 +217,14 @@ class Segment:
 class Piece:
     """This rank's piece of a leaf over "model": along ``dim``, its part
     of each of ``segments`` (which tile the dim), concatenated in order.
-    ``axis``: the "model" ranks (`runtime.sharding.model_axis`)."""
+    ``axis``: the "model" ranks (`runtime.sharding.model_axis`).
+    ``rows``: a leaf of an ``attn_batch`` fallback block (one segment,
+    the whole leaf): each rank's gradient is of its rows of the batch
+    where the fallback split them, and only then partial."""
     dim: int
     segments: Tuple[Segment, ...]
     axis: shlib.AxisGroup
+    rows: bool = False
 
     def spans(self, index: Optional[int] = None) -> List[Tuple[int, int]]:
         """(start in the whole leaf, length) of each part that rank
@@ -282,49 +299,70 @@ class Shard:
         return t if self.block is None else self.block.take(t)
 
 
-def tp_refusal(cfg, extent: int) -> Optional[str]:
-    """Why "model" of ``extent`` cannot split ``cfg`` in this port (None
-    where it can): heads or widths that ``extent`` does not divide, or
-    KV heads that neither divide nor are divided by it (the reference's
-    ``attn_batch`` fallback, ROADMAP A.4.6). With experts: the query
-    heads, GQA's KV heads, the shared experts' width, and the experts'
-    width where ``extent`` does not divide the (padded) expert count
-    (their f-split, the reference's "TP over the ffn dim")."""
-    if extent <= 1:
-        return None
-    counts = []
-    if cfg.family != "ssm":
+def tp_layout(cfg, extent: int) -> Dict[str, str]:
+    """How "model" of ``extent`` lays out each block of ``cfg`` in this
+    port: the reference's divisibility-safe resolve, taken block by
+    block (module doc). {block: mode}:
+
+      "attn": "split" (the query heads divide), "whole" (every head on
+          every rank, as one device runs it), or "rows" (whole, and
+          where ``attn_batch_fallback`` is set the rows split over
+          "model" wherever they divide: `models.attention`); MLA is
+          "split" or "whole" (the reference has no fallback for it);
+      "kv": GQA's KV heads under a split "attn": "split" (m divides
+          them), "shared" (they divide m: one a rank, m / n ranks
+          sharing it) or "all" (neither: every KV head on every rank,
+          each rank reading those of its query heads);
+      "mlp", "ssm", "shared" (the shared experts' width): "split" or
+          "whole";
+      "experts": "experts" (along the padded expert dim), "width" (every
+          expert on 1 / m of its width) or "whole".
+
+    At an extent of 1 every block is "split" into one piece: whole."""
+    m = max(extent, 1)
+
+    def split(n):
+        return "split" if n % m == 0 else "whole"
+
+    out = {}
+    if cfg.n_heads:
+        heads = split(cfg.n_heads)
+        if heads == "whole" and cfg.attn_batch_fallback and not \
+                cfg.use_mla:
+            heads = "rows"
+        out["attn"] = heads
         hkv = cfg.n_kv_heads
-        counts.append(("n_heads", cfg.n_heads))
-        if not cfg.use_mla and hkv % extent and extent % hkv:
-            counts.append(("n_kv_heads", hkv))
-    if cfg.n_experts:
-        if cfg.n_shared_experts:
-            counts.append(("the shared experts' width",
-                           cfg.moe_d_ff * cfg.n_shared_experts))
-        if cfg.n_experts_eff % extent:
-            counts.append(("moe_d_ff", cfg.moe_d_ff))
-    elif cfg.family != "ssm":
-        counts.append(("d_ff", cfg.d_ff))
+        out["kv"] = ("split" if hkv % m == 0 else "shared" if m % hkv == 0
+                     else "all")
+    out["mlp"] = split(cfg.d_ff)
     if cfg.family in ("ssm", "hybrid"):
-        counts.append(("SSM heads",
-                       cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim))
-    bad = [f"{name} {n}" for name, n in counts if n % extent]
-    if bad:
-        return (f"{cfg.name}: \"model\" of {extent} does not divide "
-                f"{', '.join(bad)} (the attn_batch fallback, ROADMAP "
-                "A.4.6)")
-    return None
+        out["ssm"] = split(cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim)
+    if cfg.n_experts:
+        out["experts"] = ("experts" if cfg.n_experts_eff % m == 0 else
+                          "width" if cfg.moe_d_ff % m == 0 else "whole")
+        out["shared"] = split(cfg.moe_d_ff * max(cfg.n_shared_experts, 1))
+    return out
 
 
-def _tp_segments(names: Sequence[str], shape, cfg, m: int, spec):
-    """(dim, segments) of a leaf's piece over "model" of ``m``, or None
-    (whole on every rank). The reference's spec where it cuts at head or
-    segment boundaries; the port's own head-aligned layout where a
-    contiguous split would cut through a head or a segment."""
+_ATTN = ("attn", "self_attn", "cross_attn")
+
+
+def _tp_segments(names: Sequence[str], shape, cfg, m: int, spec,
+                 layout: Dict[str, str]):
+    """(dim, segments, rows) of a leaf's piece over "model" of ``m``, or
+    None (whole on every rank, its gradient whole on each). The
+    reference's spec where it cuts at head or segment boundaries; the
+    port's own head-aligned layout where a contiguous split would cut
+    through a head or a segment; a block that "model" does not divide
+    (``layout``, `tp_layout`) whole. ``rows``: the leaf of an
+    ``attn_batch`` fallback block, whole on every rank, whose gradient
+    is summed over "model" where the fallback split the rows."""
     leaf, last = names[-1], len(shape) - 1
     parent = names[-2] if len(names) > 1 else ""
+    whole = (last, (Segment(0, shape[last], 1),), False)
     if "ssm" in names:
+        if layout["ssm"] == "whole":
+            return None
         d_inner = cfg.ssm_expand * cfg.d_model
         nh, ns = d_inner // cfg.ssm_head_dim, cfg.ssm_state
         # in_proj [z | x | B | C | dt]; conv [x | B | C]: z, x, dt by
@@ -334,52 +372,62 @@ def _tp_segments(names: Sequence[str], shape, cfg, m: int, spec):
                           Segment(d_inner, d_inner, m),
                           Segment(2 * d_inner, ns, 1),
                           Segment(2 * d_inner + ns, ns, 1),
-                          Segment(2 * d_inner + 2 * ns, nh, m))
+                          Segment(2 * d_inner + 2 * ns, nh, m)), False
         if leaf in ("conv_w", "conv_b"):
-            return last, _conv_segments(cfg, m)
+            return last, _conv_segments(cfg, m), False
         if leaf in ("a_log", "dt_bias", "d_skip"):
-            return last, (Segment(0, nh, m),)
+            return last, (Segment(0, nh, m),), False
         if parent == "norm":                      # gated norm over d_inner
-            return last, (Segment(0, d_inner, m),)
-    if leaf in ("wk", "wv") and cfg.n_kv_heads % m:
-        # fewer KV heads than ranks: each rank holds the one its query
-        # heads read (m / n_kv_heads ranks share it)
-        n = cfg.n_kv_heads
-        return last, (Segment(0, n * cfg.head_dim, n),)
-    if parent in ("q_norm", "k_norm") and not cfg.use_mla:
-        # one scale a head dim, applied to every rank's heads (MLA's
-        # q_norm is over q_lora_rank, before the split: whole)
-        return last, (Segment(0, shape[last], 1),)
+            return last, (Segment(0, d_inner, m),), False
+    if any(n in _ATTN for n in names[:-1]):
+        if layout["attn"] == "whole":
+            return None
+        if layout["attn"] == "rows":
+            return whole[:2] + (True,)
+        if leaf in ("wk", "wv") and layout["kv"] != "split":
+            n = cfg.n_kv_heads
+            # "shared": each rank holds the KV head its query heads read
+            # (m / n ranks share it); "all": every rank holds every KV
+            # head and reads those of its query heads
+            parts = n if layout["kv"] == "shared" else 1
+            return last, (Segment(0, n * cfg.head_dim, parts),), False
+        if parent in ("q_norm", "k_norm") and not cfg.use_mla:
+            # one scale a head dim, applied to every rank's heads (MLA's
+            # q_norm is over q_lora_rank, before the split: whole)
+            return whole
+    if "mlp" in names and layout["mlp"] == "whole":
+        return None
     if "shared" in names and leaf in _MOE_RULES:
         # the shared experts' SwiGLU: the dense MLP's column / row split
         # (the reference's expert rule would name their layer dim)
+        if layout["shared"] == "whole":
+            return None
         dim = last - 1 if leaf == "wo" else last
-        return dim, (Segment(0, shape[dim], m),)
+        return dim, (Segment(0, shape[dim], m),), False
     dims = [i for i, e in enumerate(spec)
             if e == "model" or (isinstance(e, tuple) and "model" in e)]
     if not dims:
         return None
-    return dims[0], (Segment(0, shape[dims[0]], m),)
+    return dims[0], (Segment(0, shape[dims[0]], m),), False
 
 
 def tp_pieces(params_shape: Dict, cfg) -> Dict:
     """Tree (of the parameters' structure) of the `Piece` of each leaf
     that this rank holds over "model" under the active binding, None
     where it holds the whole leaf (every leaf without a binding, or at a
-    "model" extent of 1). Raises `NotImplementedError` where
-    `tp_refusal` refuses ``cfg``."""
+    "model" extent of 1, and every leaf of a block that "model" does not
+    divide: `tp_layout`)."""
     axis = shlib.model_axis()
     if axis is None:
         return tree_lib.map_(lambda _: None, params_shape)
-    why = tp_refusal(cfg, axis.extent)
-    if why:
-        raise NotImplementedError(why)
+    layout = tp_layout(cfg, axis.extent)
     specs = dict(tree_lib.items(param_pspecs(params_shape)))
     out = []
     for path, leaf in tree_lib.items(params_shape):
         seg = _tp_segments(path.split("/"), tuple(leaf.shape), cfg,
-                           axis.extent, specs[path])
-        out.append(None if seg is None else Piece(seg[0], seg[1], axis))
+                           axis.extent, specs[path], layout)
+        out.append(None if seg is None else
+                   Piece(seg[0], seg[1], axis, rows=seg[2]))
     return tree_lib.unflatten(params_shape, out)
 
 
@@ -518,10 +566,15 @@ def layout_of(logical: Tuple, shape, cfg=None, conv: bool = False
     ``shape`` whose dims the logical axes ``logical`` name: each dim's
     spec by `runtime.sharding.resolve` (divisibility-safe, a mesh axis
     claimed once), and a `Block` over the ranks of each entry wider than
-    one rank; with ``conv`` (the SSM's conv state, ``cfg`` given) its
-    "model" dim as conv_w's piece. Without a binding: the whole."""
+    one rank; with ``conv`` (the SSM's conv state of a block whose heads
+    "model" divides, ``cfg`` given) its "model" dim as conv_w's piece,
+    whatever that dim's length (the piece is cut by head). Without a
+    binding: the whole."""
     binding = shlib.current_binding()
-    spec = shlib.resolve(tuple(shape), *logical)
+    rshape = list(shape)
+    if conv and "model" in logical:
+        rshape[logical.index("model")] = 0        # every extent divides 0
+    spec = shlib.resolve(tuple(rshape), *logical)
     if binding is None:
         return Parts(tuple(logical), spec)
     parts = []
@@ -547,16 +600,22 @@ def cache_layout(model, cache_shapes, seq_sharded: bool = False) -> Dict:
     (``seq_sharded`` False): the batch over "data", the KV heads over
     "model" where it divides them, the SSM's states over "model" by
     head; the decode cell's: the sequence over the "seq" rule's axes,
-    which take "model" from the KV heads (then whole). Raises
+    which take "model" from the KV heads (then whole). The SSM's states
+    are whole on every rank where "model" does not divide its heads (the
+    block is whole, `tp_layout`), whatever their widths. Raises
     `NotImplementedError` where the "seq" ranks do not divide a
-    sequence that ``seq_sharded`` splits, or "model" does not divide an
-    SSM state the rank's heads need: the reference would replicate
+    sequence that ``seq_sharded`` splits: the reference would replicate
     such a leaf, and the port's decode step runs on the rank's part."""
     cfg = model.cfg
     binding = shlib.current_binding()
     m = binding.extent(binding.rules.get("model", ())) if binding else 1
+    ssm_whole = (m > 1 and cfg.family in ("ssm", "hybrid")
+                 and tp_layout(cfg, m)["ssm"] == "whole")
 
     def leaf(logical, t, path):
+        ssm = path.endswith("conv") or path.endswith("ssm")
+        if ssm and ssm_whole:
+            logical = tuple(None if a == "model" else a for a in logical)
         out = layout_of(logical, t.shape, cfg,
                         conv=path.endswith("conv"))
         if binding is not None and seq_sharded and "seq" in logical:
@@ -567,11 +626,6 @@ def cache_layout(model, cache_shapes, seq_sharded: bool = False) -> Dict:
                 raise NotImplementedError(
                     f"cache {path}: {t.shape[dim]} positions do not "
                     f"split over {want}")
-        if m > 1 and cfg.family in ("ssm", "hybrid") and (
-                path.endswith("conv") or path.endswith("ssm")) and \
-                "model" not in out.spec:
-            raise NotImplementedError(
-                f"cache {path}: \"model\" of {m} does not divide it")
         return out
 
     def walk(spec, shapes, path):

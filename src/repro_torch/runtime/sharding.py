@@ -15,7 +15,10 @@ The port runs its collectives explicitly (`torch.distributed`), so a
 binding also carries the mesh (`launch.mesh.make_mesh`): `batch_axis`
 gives the process group, extent and index of the ranks that split the
 batch ("data"), and `model_axis` those of the ranks that split the heads,
-the MLP's width, the vocabulary and the experts ("model"). `shard` and
+the MLP's width, the vocabulary and the experts ("model");
+`model_axis_over` gives them to a block only where they divide its
+heads or width (else the block is whole on every rank, as `resolve`
+drops an axis that does not divide). `shard` and
 `shard_pin` are the identity: each rank already holds its own block of
 every tensor. Under FSDP (``ParallelConfig.fsdp``) a binding also
 carries the parameters' FSDP layout (`fsdp_layout`), read by the layer
@@ -115,9 +118,11 @@ class Binding:
         ("data", "model") at batch 1, `launch.cells.parallel_for`): then
         it is the mesh's world group, and this rank's index is its
         row-major coordinate over them, the rank's place in the world.
-        Any other group over two wide axes (the ``attn_batch`` fallback,
-        ROADMAP A.4.6) raises. At extent 1 the group is the mesh's own
-        one-rank group of a single named axis, else None."""
+        Any other group over two wide axes (one of a mesh with a "pod"
+        axis, ROADMAP A.4.5) raises; the ``attn_batch`` fallback needs
+        none (its rows split again over "model" alone, `models.
+        attention`). At extent 1 the group is the mesh's own one-rank
+        group of a single named axis, else None."""
         wide = tuple(a for a in phys if self.axis_sizes.get(a, 1) > 1)
         if not wide:
             if (self.mesh is not None and len(phys) == 1
@@ -135,7 +140,8 @@ class Binding:
                       if self.axis_sizes.get(a, 1) > 1)
         if wide != whole:
             raise NotImplementedError(
-                f"collectives over mesh axes {list(wide)} (ROADMAP A.4.6)")
+                f"collectives over mesh axes {list(wide)} of a mesh "
+                f"{list(self.mesh.mesh_dim_names)} (ROADMAP A.4.5)")
         import torch.distributed as dist
         index = 0
         for a in wide:
@@ -178,6 +184,15 @@ def model_axis() -> Optional[AxisGroup]:
         return None
     axis = binding.axis_group(binding.rules.get("model", ()))
     return axis if axis.extent > 1 else None
+
+
+def model_axis_over(n: int) -> Optional[AxisGroup]:
+    """`model_axis` where its extent divides ``n`` (a block's heads or
+    width), else None: the block is whole on every rank, as the
+    reference's divisibility-safe `resolve` leaves a dim that "model"
+    does not divide (`runtime.param_sharding.tp_layout`)."""
+    axis = model_axis()
+    return axis if axis is not None and n % axis.extent == 0 else None
 
 
 def seq_axis() -> Optional[AxisGroup]:

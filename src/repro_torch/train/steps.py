@@ -16,8 +16,10 @@ parameters (`runtime.param_sharding.tp_pieces`), and runs the loss under
 the mesh's binding, where every statistic over the batch is the global
 batch's, the loss is the rank's share of the global loss
 (`models.common.softmax_xent`, `models.moe`), and the layers run on
-local heads (`models.common`) and local experts (`models.moe`). Then,
-in order: the loss and metrics
+local heads (`models.common`) and local experts (`models.moe`); a
+block whose heads or width "model" does not divide runs whole on every
+rank, or under the ``attn_batch`` fallback on the rank's block of the
+rows (`models.attention`). Then, in order: the loss and metrics
 summed over "data"; the gradients of the parts that several "model"
 ranks use in part summed over "model" (`sum_shared_grads`); the
 gradients summed over "data" in f32 buckets
@@ -56,16 +58,15 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ParallelConfig, TrainConfig
-from repro_torch.launch.mesh import binding_for, mesh_axes
-from repro_torch.models import attention, common, moe
+from repro_torch.launch.mesh import binding_for
+from repro_torch.models import attention, common
 from repro_torch.models.api import Model, family_module
 from repro_torch.optim.adamw import (adamw_init, adamw_update, clip_scale,
                                      global_norm)
 from repro_torch.runtime import collectives
 from repro_torch.runtime import sharding as shlib
 from repro_torch.runtime.param_sharding import (Shard, fsdp_blocks,
-                                                tp_pieces, tp_refusal,
-                                                zero1_blocks)
+                                                tp_pieces, zero1_blocks)
 
 
 def state_blocks(cfg, tcfg: TrainConfig, mesh=None,
@@ -76,9 +77,10 @@ def state_blocks(cfg, tcfg: TrainConfig, mesh=None,
     "data" under ``parallel.fsdp`` (`runtime.param_sharding.fsdp_blocks`),
     and the moments' pieces split over "data" as their parameters are
     under FSDP, else by ZeRO-1 where ``tcfg.zero1``; all None without a
-    mesh. `checkpoint` reads and writes states by it. Raises
-    `NotImplementedError` for a config "model" cannot split
-    (`runtime.param_sharding.tp_refusal`)."""
+    mesh. A block whose heads or width "model" does not divide is whole
+    on every rank (`runtime.param_sharding.tp_layout`), and so are its
+    leaves' blocks over "data" of the whole leaf. `checkpoint` reads and
+    writes states by it."""
     spec = family_module(cfg).init_params(cfg, None, torch.device("meta"))
     if mesh is None:
         none = tree.map_(lambda _: None, spec)
@@ -127,17 +129,23 @@ def init_train_state(model: Model, seed: int = 0,
             "opt": adamw_init(params, moment_blocks(blocks))}
 
 
-def sum_shared_grads(grads: Dict, pieces: Dict, axis) -> None:
+def sum_shared_grads(grads: Dict, pieces: Dict, axis,
+                     rows: bool = False) -> None:
     """The gradients of the parts of pieces that several "model" ranks
-    hold (`runtime.param_sharding.Piece.shared`: a shared KV head, the
-    SSM's B and C columns, the q_norm / k_norm scales), each rank's
-    partial, summed over ``axis`` in place: each part is laid in a
-    buffer of its whole segment, at its place (zeros elsewhere), and the
-    buffers are summed in f32 buckets (`collectives.sum_in_f32_buckets`);
-    a part then reads its sum back."""
+    hold (`runtime.param_sharding.Piece.shared`: a shared KV head, KV
+    heads whole under split query heads, the SSM's B and C columns, the
+    q_norm / k_norm scales), each rank's partial, summed over ``axis``
+    in place: each part is laid in a buffer of its whole segment, at its
+    place (zeros elsewhere), and the buffers are summed in f32 buckets
+    (`collectives.sum_in_f32_buckets`); a part then reads its sum back.
+    The leaves of an ``attn_batch`` fallback block (`Piece.rows`) are
+    summed only with ``rows`` (the fallback split the step's rows: each
+    rank's gradient is of its own); a leaf whole on every rank (piece
+    None: a block "model" does not divide, a norm of the residual
+    stream) is never summed, since each rank holds its whole gradient."""
     work = []
     for g, piece in zip(tree.leaves(grads), tree.leaves(pieces)):
-        if piece is None:
+        if piece is None or (piece.rows and not rows):
             continue
         for seg, off, n in piece.shared():
             mine = g.narrow(piece.dim, off, n)
@@ -186,20 +194,18 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
     metrics are the global batch's on every rank. At a mesh of (1, 1)
     it takes the step without a mesh's path (no "model" axis: every
     piece whole, no collective over "model") and computes what that step
-    computes, bit for bit.
-    Raises `NotImplementedError`, before any collective runs, for a
-    config that the mesh's "model" axis cannot split
-    (`runtime.param_sharding.tp_refusal`: heads or widths it does not
-    divide, ROADMAP A.4.6).
+    computes, bit for bit. A block whose heads or width "model" does not
+    divide runs whole on every rank (`runtime.param_sharding.
+    tp_layout`), its gradients whole on each and not summed over
+    "model"; an ``attn_batch`` fallback block's are summed over "model"
+    where its rows split (`models.attention.rows_axis` of a
+    microbatch's rows).
 
     The new state reuses the old state's storage: parameters and moments
     are updated in place (`optim.adamw.adamw_update`), so the state
     passed in is the state returned."""
     binding = blocks = pieces = fsdp = None
     if mesh is not None:
-        why = tp_refusal(model.cfg, dict(mesh_axes(mesh)).get("model", 1))
-        if why:
-            raise NotImplementedError(why)
         binding = binding_for(mesh, parallel)
         # the layout `state_blocks` gives the caller for the state it
         # passes in
@@ -264,7 +270,9 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None,
             loss, metrics = summed[0], dict(zip(names, summed[1:]))
             grads = tree.map_(lambda g: g.contiguous(), grads)
             if model_axis is not None:
-                sum_shared_grads(grads, pieces, model_axis)
+                split = attention.rows_axis(model.cfg, rows // m)
+                sum_shared_grads(grads, pieces, model_axis,
+                                 rows=split is not None)
             # the shares' gradients summed over "data" (an FSDP block's
             # came back summed)
             collectives.sum_in_f32_buckets(
@@ -297,7 +305,8 @@ def _fsdp_layout(cfg, fsdp: Dict) -> Dict:
 
 
 def serve_binding(model: Model, mesh, parallel: ParallelConfig,
-                  global_batch: int, decode: bool = False) -> shlib.Binding:
+                  global_batch: int, decode: bool = False,
+                  seq_len: Optional[int] = None) -> shlib.Binding:
     """The binding of a prefill (or, with ``decode``, a decode) step of a
     ``global_batch`` on ``mesh`` under ``parallel``, as the reference's
     cells bind it (``_mesh_binding``): `launch.mesh.binding_for`'s, with
@@ -307,14 +316,13 @@ def serve_binding(model: Model, mesh, parallel: ParallelConfig,
     leaves it, as `runtime.sharding.resolve` gives them to the cache's
     dims; under ``parallel.fsdp`` the parameters' FSDP layout
     (`state_blocks`); and for a decode step marked ``seq_sharded``: its
-    cache is the decode cell's, split along its sequence. Raises
-    `NotImplementedError` for a config that "model" cannot split
-    (`runtime.param_sharding.tp_refusal`) and for a decode step whose
-    ``parallel`` does not split the cache along its sequence (ROADMAP
-    A.4.4)."""
-    why = tp_refusal(model.cfg, dict(mesh_axes(mesh)).get("model", 1))
-    if why:
-        raise NotImplementedError(why)
+    cache is the decode cell's, split along its sequence, where the
+    "seq" ranks divide its ``seq_len`` positions; where they do not, the
+    reference's resolve drops the axis, and so does this binding: the
+    cache is whole along its sequence on every rank (its KV heads over
+    "model" where "model" divides them) and decode attends it whole.
+    Raises `NotImplementedError` for a decode step whose ``parallel``
+    does not split the cache along its sequence (ROADMAP A.4.4)."""
     if decode and not parallel.seq_shard_decode:
         raise NotImplementedError(
             "decode on a mesh without seq_shard_decode: the cache with "
@@ -323,9 +331,11 @@ def serve_binding(model: Model, mesh, parallel: ParallelConfig,
     batch = binding.rules["batch"]
     if global_batch % binding.extent(batch):
         batch = binding.rules["batch"] = ()
-    binding.rules["seq"] = tuple(a for a in parallel.seq_axes
-                                 if a in binding.axis_sizes
-                                 and a not in batch)
+    seq = tuple(a for a in parallel.seq_axes
+                if a in binding.axis_sizes and a not in batch)
+    if seq_len is not None and seq_len % binding.extent(seq):
+        seq = ()
+    binding.rules["seq"] = seq
     if parallel.fsdp:
         layout = state_blocks(model.cfg, TrainConfig(), mesh, parallel)
         binding.fsdp_layout = _fsdp_layout(model.cfg, tree.map_(
@@ -335,17 +345,18 @@ def serve_binding(model: Model, mesh, parallel: ParallelConfig,
 
 
 def _cell_binding(model: Model, mesh, parallel, global_batch,
-                  decode: bool = False):
-    """`serve_binding` where a ``mesh`` is given (then ``parallel`` and
-    ``global_batch`` are the cell's, `launch.cells.make_cell`), else
-    None."""
+                  decode: bool = False, seq_len: Optional[int] = None):
+    """`serve_binding` where a ``mesh`` is given (then ``parallel``,
+    ``global_batch`` and a decode cell's ``seq_len`` are the cell's,
+    `launch.cells.make_cell`), else None."""
     if mesh is None:
         return None
     if parallel is None or global_batch is None:
         raise TypeError("a serving step on a mesh takes the cell's "
                         "parallel and global_batch (launch.cells."
                         "make_cell)")
-    return serve_binding(model, mesh, parallel, global_batch, decode)
+    return serve_binding(model, mesh, parallel, global_batch, decode,
+                         seq_len)
 
 
 def _bound(binding):
@@ -353,14 +364,6 @@ def _bound(binding):
     without a mesh always ran."""
     return (contextlib.nullcontext() if binding is None
             else shlib.use_binding(binding))
-
-
-def _refuse_v2(cfg, n_tokens: int) -> None:
-    """Raise, before any collective, where MoE V2 cannot dispatch this
-    rank's ``n_tokens`` under the active binding (ROADMAP A.4.8)."""
-    why = moe.v2_refusal(cfg, n_tokens)
-    if why:
-        raise NotImplementedError(why)
 
 
 def _prefill_heads(model: Model, cache: Dict) -> Dict:
@@ -412,7 +415,6 @@ def make_prefill_step(model: Model, mesh=None,
     @torch.no_grad()
     def prefill_step(params: Dict, batch: Dict):
         with _bound(binding):
-            _refuse_v2(cfg, batch["tokens"].numel())
             logits, cache = model.prefill(params, batch)
             next_tok = common.greedy_token(logits[:, -1], params["embed"],
                                            cfg)
@@ -424,23 +426,24 @@ def make_prefill_step(model: Model, mesh=None,
 
 def make_serve_step(model: Model, mesh=None,
                     parallel: Optional[ParallelConfig] = None,
-                    global_batch: Optional[int] = None) -> Callable:
+                    global_batch: Optional[int] = None,
+                    seq_len: Optional[int] = None) -> Callable:
     """One decode iteration: write KV, attend, next token (greedy:
     deterministic, per the paper's execution model). The cache is
     updated in place (``hybrid.decode_step``). With a ``mesh``, as
     `make_prefill_step`'s, on the cache in the decode cell's layout,
     split along its sequence over the "seq" ranks (flash-decode,
-    `models.attention`). Without a mesh
+    `models.attention`) where they divide the cache's ``seq_len``
+    positions (`serve_binding`). Without a mesh
     it computes what it always has, bit for bit."""
     binding = _cell_binding(model, mesh, parallel, global_batch,
-                            decode=True)
+                            decode=True, seq_len=seq_len)
     cfg = model.cfg
 
     @torch.no_grad()
     def serve_step(params: Dict, tokens: torch.Tensor, cache: Dict,
                    lengths: torch.Tensor):
         with _bound(binding):
-            _refuse_v2(cfg, tokens.numel())
             logits, new_cache = model.decode_step(params, tokens, cache,
                                                   lengths)
             next_tok = common.greedy_token(logits[:, -1], params["embed"],

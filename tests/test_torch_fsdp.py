@@ -13,9 +13,9 @@ their gradients back reduce-scattered in f32.
   the dim where the spec names "model" (but for the port's own layouts,
   `runtime.param_sharding`), and each moment's block where the
   reference's ``specs_from_logical(zero1_moment_axes(...),
-  keep_fsdp=True)`` names "data". At (16, 16), where "model" cannot
-  split a config's heads (ROADMAP A.4.6), the blocks of the whole
-  leaves.
+  keep_fsdp=True)`` names "data". At (16, 16), where "model" does not
+  divide a config's heads or widths (once refused, ROADMAP A.4.6), the
+  blocks of the whole leaves of those blocks.
 - Steps 1 and 2, with remat on, from the reference's initial parameters
   (``PRNGKey(0)``, each rank's blocks taken by ``params_from_numpy(...,
   shards=)``), on TokenDataset batches, each rank holding the rows of
@@ -385,22 +385,11 @@ def test_fsdp_layout_matches_reference_specs(arch, mesh):
             ref, keep_fsdp=True))
     rank = (d - 1, m - 1)
     fake = _tool()._MeshShape(mesh, rank)
-    refused = psh.tp_refusal(cfg, m)
-    if refused:
-        with pytest.raises(NotImplementedError, match=r"A\.4\.6"):
-            state_blocks(cfg, TrainConfig(), fake, ParallelConfig(fsdp=True))
-        with shlib.use_binding(shlib.Binding(
-                shlib.SINGLE_POD_RULES, {"data": d, "model": m}, fsdp=True,
-                mesh=fake)):
-            blocks = psh.fsdp_blocks(port)
-        params = {p: None if b is None else psh.Shard(None, b)
-                  for p, b in tree.items(blocks)}
-        moment_shards = None
-    else:
-        layout = state_blocks(cfg, TrainConfig(), fake,
-                              ParallelConfig(fsdp=True))
-        params = dict(tree.items(layout["params"]))
-        moment_shards = dict(tree.items(layout["opt"]["m"]))
+    layout = state_blocks(cfg, TrainConfig(), fake,
+                          ParallelConfig(fsdp=True))
+    params = dict(tree.items(layout["params"]))
+    moment_shards = dict(tree.items(layout["opt"]["m"]))
+    shapes = {p: tuple(leaf.shape) for p, leaf in tree.items(port)}
     assert set(params) == set(pspecs)
     n_split = 0
     for path, spec in pspecs.items():
@@ -414,22 +403,25 @@ def test_fsdp_layout_matches_reference_specs(arch, mesh):
             n_split += 1
             assert (block.dim, block.axis.extent, block.axis.index) == (
                 data_dim, d, rank[0]), path
-        if piece is not None and not _own_piece(path):
+        # a block "model" does not divide is whole: no piece, or (KV heads
+        # under split query heads, the attn_batch fallback's leaves) a
+        # piece of the whole leaf
+        if piece is not None and not _own_piece(path) and \
+                piece.shape(shapes[path]) != shapes[path]:
             assert (piece.dim, piece.axis.extent) == (
                 _dim_of(spec, "model"), m), path
-        if moment_shards is not None:
-            mo = moment_shards[path]
-            mo_dim = _dim_of(moments[path], "data")
-            got = None if mo is None or mo.block is None else mo.block.dim
-            if got is None and mo_dim is not None and _own_piece(path):
-                # the moment's block is of the port's own piece, which
-                # "data" does not divide there (zamba2's 4 heads a rank
-                # at "model" 16): whole, as before FSDP
-                assert piece.size() % d, path
-            else:
-                assert got == mo_dim, path
-            if block is not None:
-                assert mo.block == block, path
+        mo = moment_shards[path]
+        mo_dim = _dim_of(moments[path], "data")
+        got = None if mo is None or mo.block is None else mo.block.dim
+        if got is None and mo_dim is not None and _own_piece(path):
+            # the moment's block is of the port's own piece, which
+            # "data" does not divide there (zamba2's 4 heads a rank
+            # at "model" 16): whole, as before FSDP
+            assert piece.size() % d, path
+        else:
+            assert got == mo_dim, path
+        if block is not None:
+            assert mo.block == block, path
     # the projections in and out of every layer split (mamba2: 2)
     assert n_split >= 2
 

@@ -201,7 +201,9 @@ def test_shared_experts_are_applied():
     assert dropped.any()
     from repro_torch.models.common import mlp_apply
     torch.testing.assert_close(y[dropped],
-                               mlp_apply(params["shared"], x_flat)[dropped],
+                               mlp_apply(params["shared"], x_flat,
+                                         cfg.moe_d_ff * cfg.n_shared_experts
+                                         )[dropped],
                                rtol=0, atol=0)
 
 

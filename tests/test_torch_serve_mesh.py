@@ -4,7 +4,7 @@ On meshes (1, 2), (2, 1), (2, 2) and (1, 4), for the f32 smoke config
 of every family (gemma3-1b: one KV head for all, a sliding window of 8;
 qwen3-8b: 2 KV heads, shared by two ranks at "model" 4; mamba2-130m;
 zamba2-1.2b; granite-moe V2 with its dead experts; deepseek-v2 with MLA
-under FSDP, its experts V1; seamless with its cross-attention cache;
+under FSDP, its experts V2 and V1; seamless with its cross-attention cache;
 qwen2-vl with M-RoPE), through tools/dist_serve_cells.py's `f32_case`:
 the smoke parameters of seed 0 and a prompt of (4, 16), the same on
 every rank, which computes the one-card run itself
@@ -26,8 +26,13 @@ reference):
   layers meet blocks of positions that their window masks whole);
 - at (2, 2), batch 1 with "seq" over ("data", "model"): zamba2 and
   gemma3;
-- granite-moe V2 on a "data" extent of 2 raises ROADMAP A.4.8 (a
-  dispatch group across ranks) before any collective;
+- granite-moe V2 and deepseek-v2 V2 on a "data" extent of 2, their
+  dispatch groups straddling the "data" ranks' rows (once refused,
+  ROADMAP A.4.8), held as every other case;
+- where "model" does not divide their heads, qwen3 with 3 heads and one
+  KV head, with and without ``attn_batch_fallback``, at a global batch
+  of 2 d m rows (the attention whole on every rank, or its rows split
+  over "model");
 - at (1, 4), three faults that the check must catch: the partial
   softmaxes combined without their max rescale, the new K/V written on
   every rank rather than the owner of its position, and the greedy
@@ -71,11 +76,17 @@ def _id(shape, job):
 
 def _reference(name, batch):
     """The reference's f32 run of the tool's case ``name`` at ``batch``
-    (`f32_case`: the port's smoke parameters of seed 0, carried leaf by
-    leaf into the reference's tree, and its prompt of seed 1): the
-    prefill's last logits, then STEPS greedy decode steps (jitted), each
-    step's logits; and the greedy tokens (numpy)."""
-    _, arch, over, _ = next(c for c in TOOL.F32_CASES if c[0] == name)
+    (`reference_run`)."""
+    return reference_run(*TOOL.case_of(name), batch)
+
+
+def reference_run(arch, over, batch):
+    """The reference's f32 run of ``arch`` (``over`` on its smoke
+    config) at ``batch``, as the tool's `f32_case` runs it (the port's
+    smoke parameters of seed 0, carried leaf by leaf into the
+    reference's tree, and its prompt of seed 1): the prefill's last
+    logits, then STEPS greedy decode steps (jitted), each step's logits;
+    and the greedy tokens (numpy)."""
     cfg = TOOL._cfg(arch, over)
     flat = dict(tree.items(get_model(cfg, device="cpu").init_params(0)))
     prompt = synth_train_batch(cfg, batch, TOOL.PROMPT, seed=1)
@@ -135,8 +146,7 @@ def readings(started):
 
 
 CELLS = [(s, j) for s, j in JOBS if j[4] is None]
-SERVED = [(s, j) for s, j in CELLS
-          if not TOOL.expect_refusal(j[0], s, j[3])]
+SERVED = CELLS
 FAULTY = [(s, j) for s, j in JOBS if j[4] is not None]
 
 
@@ -144,9 +154,6 @@ FAULTY = [(s, j) for s, j in JOBS if j[4] is not None]
                          ids=[_id(s, j) for s, j in CELLS])
 def test_cells_match_one_card(readings, shape, job):
     r = readings[_id(shape, job)]
-    if TOOL.expect_refusal(job[0], shape, job[3]):
-        assert "ROADMAP A.4.8" in r.get("refused", ""), r
-        return
     assert "refused" not in r, r["refused"]
     assert r["seq_axes"] == (["data", "model"] if job[3] == 1
                              else ["model"])

@@ -51,8 +51,10 @@ parameters (``PRNGKey(0)``), each rank's pieces taken by
   ``checkpoint.restore`` reads that save.
 - Without ranks: the MoE configs accepted over "model" with their
   expert and MLA pieces (their steps across ranks are
-  tests/test_torch_ep.py's); refusals of heads or widths "model" does
-  not divide (A.4.6), experts' widths included; the pieces' layout
+  tests/test_torch_ep.py's); the configs with heads or widths "model"
+  does not divide, once refused (A.4.6), experts' widths included,
+  now accepted with those blocks' leaves whole (their steps across
+  ranks are tests/test_torch_attn_fallback.py's); the pieces' layout
   (head-aligned, tiling every leaf); and the CLI's ``--model``.
 
 The cases of each world size run in one spawn of gloo ranks
@@ -241,13 +243,14 @@ def second(tp):
             for case in CASES for mesh in MESHES}
 
 
-def _held(case, got, want, ref_steps, tol):
+def _held(case, got, want, ref_steps, tol, apart=None):
     """`_states_close` of the flat state ``got`` against the state
-    ``want``, with the APART entries of ``case`` each checked at its own
-    limit (as `_states_close` checks an entry) and then left out."""
+    ``want``, with the entries of ``case`` in ``apart`` (default APART)
+    each checked at its own limit (as `_states_close` checks an entry)
+    and then left out."""
     got = dict(got)
     flat = dict(tree.items(want))
-    for (c, path, i), limit in APART.items():
+    for (c, path, i), limit in (APART if apart is None else apart).items():
         if c != case:
             continue
         w = np.asarray(flat[path], np.float64)
@@ -437,8 +440,11 @@ def test_experts_over_model_refused(arch):
     `make_train_step` takes the MoE smoke configs at "model" 2 and 4, and
     each rank's pieces are E_eff / m experts (deepseek-v2: also its
     shared expert column / row, its MLA heads, the norms before the
-    split whole); only heads "model" does not divide are still refused
-    (A.4.6)."""
+    split whole). At "model" 8, which divides neither smoke's 4 heads
+    (once refused, A.4.6), the step is built too and the attention's
+    leaves are whole on every rank (granite-moe's under its
+    ``attn_batch`` fallback: whole, their gradients partial where the
+    rows split)."""
     from repro_torch.models import get_model
     cfg = get_smoke(arch)
     model = get_model(cfg, device="cpu")
@@ -460,27 +466,61 @@ def test_experts_over_model_refused(arch):
             assert got["layers/attn/wo"] == (2, 4 // m * 16, 64)
             assert got["layers/attn/q_norm/scale"] is None
             assert got["layers/attn/kv_norm/scale"] is None
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.4\.6"):
-        make_train_step(model, TrainConfig(), _FakeMesh((1, 8)))
+    make_train_step(model, TrainConfig(), _FakeMesh((1, 8)))
+    spec, pieces = _pieces(cfg, 8, 7)
+    _assert_whole(spec, pieces, ("layers/attn/",), rows=not cfg.use_mla)
 
 
-@pytest.mark.parametrize("arch,overrides,m", [
-    ("qwen3-8b", {}, 8),                                  # 4 heads
-    ("qwen3-8b", dict(n_heads=6, n_kv_heads=2, d_head=16, d_ff=129), 3),
-    ("mamba2-130m", {}, 16),                              # 8 SSM heads
-    ("gemma3-1b", dict(d_ff=130), 4),                     # the MLP
-    # granite-moe's 24 heads at full width
-    ("granite-moe-3b-a800m", dict(n_heads=24, n_kv_heads=8), 16),
+# the seven configs once refused (A.4.6), each with the leaves of its
+# block that "model" does not divide (path prefixes)
+INDIVISIBLE = [
+    ("qwen3-8b", {}, 8, ("layers/attn/",)),               # 4 heads
+    # 6 heads over 3, their 2 KV heads whole on every rank
+    ("qwen3-8b", dict(n_heads=6, n_kv_heads=2, d_head=16, d_ff=129), 3,
+     ("layers/attn/wk", "layers/attn/wv")),
+    ("mamba2-130m", {}, 16, ("layers/ssm/",)),            # 8 SSM heads
+    ("gemma3-1b", dict(d_ff=130), 4, ("layers/mlp/",)),   # the MLP
+    # granite-moe's 24 heads at full width (its attn_batch fallback)
+    ("granite-moe-3b-a800m", dict(n_heads=24, n_kv_heads=8), 16,
+     ("layers/attn/",)),
     # 6 experts, which 4 does not divide, on a width it does not either
     ("granite-moe-3b-a800m", dict(n_experts=6, n_experts_padded=0,
-                                  moe_d_ff=66), 4),
-    ("deepseek-v2-236b", dict(moe_d_ff=66), 4),           # shared width
-])
-def test_heads_model_does_not_divide_refused(arch, overrides, m):
+                                  moe_d_ff=66), 4,
+     ("layers/moe/wi_", "layers/moe/wo")),
+    ("deepseek-v2-236b", dict(moe_d_ff=66), 4,            # shared width
+     ("layers/moe/shared/",)),
+]
+
+
+def _assert_whole(spec, pieces, prefixes, rows=False):
+    """Every leaf under ``prefixes`` is whole on the rank: no piece, or
+    (KV heads under split query heads, an ``attn_batch`` fallback
+    block's leaves) a piece of the whole leaf, marked ``rows`` where
+    ``rows``."""
+    hit = 0
+    for (path, leaf), piece in zip(tree.items(spec), tree.leaves(pieces)):
+        if not path.startswith(prefixes):
+            continue
+        hit += 1
+        if piece is not None:
+            assert piece.shape(leaf.shape) == tuple(leaf.shape), path
+            assert piece.rows == rows, path
+    assert hit, prefixes
+
+
+@pytest.mark.parametrize("arch,overrides,m,whole", INDIVISIBLE, ids=[
+    f"{a}-overrides{i}-{m}" for i, (a, _, m, _) in enumerate(INDIVISIBLE)])
+def test_heads_model_does_not_divide_refused(arch, overrides, m, whole):
+    """Once refused (A.4.6): `make_train_step` takes each config at a
+    "model" extent that does not divide one of its blocks, and the
+    leaves of that block are whole on every rank."""
     from repro_torch.models import get_model
-    model = get_model(get_smoke(arch, **overrides), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.4\.6"):
-        make_train_step(model, TrainConfig(), _FakeMesh((1, m)))
+    cfg = get_smoke(arch, **overrides)
+    model = get_model(cfg, device="cpu")
+    make_train_step(model, TrainConfig(), _FakeMesh((1, m)))
+    spec, pieces = _pieces(cfg, m, m - 1)
+    rows = cfg.attn_batch_fallback and whole == ("layers/attn/",)
+    _assert_whole(spec, pieces, whole, rows=rows)
 
 
 def _pieces(cfg, m, index):

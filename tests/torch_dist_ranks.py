@@ -386,7 +386,7 @@ def tp_forward(mesh, seed=0):
         gemma = _smoke("gemma3-1b", {})
         p = local(gemma)
         lp = common.layer(p["layers"], 0)
-        out["mlp"] = common.mlp_apply(lp["mlp"], x)
+        out["mlp"] = common.mlp_apply(lp["mlp"], x, gemma.d_ff)
         pos = common.positions_of(x[..., 0])
         out["attn"] = attention.gqa_attention(lp["attn"], gemma, x, pos)
 
@@ -425,7 +425,9 @@ def tp_fault(mesh, fault, arch, init, shape, overrides=None):
     shared wk / wv gradients left out), "local_norm" (the SSM's gated
     norm over the rank's width only), "experts_input_uncopied" or
     "combine_weights_uncopied" (the experts' input or the combine
-    weights without their backward "model" sum)."""
+    weights without their backward "model" sum), "whole_summed" (a
+    whole leaf's gradient summed over "model") or "rows_unsummed" (the
+    ``attn_batch`` fallback's "model" sum left out)."""
     with _tool().fault_in(fault):
         return dp_run(mesh, arch, overrides or {}, init, shape, 1)
 
@@ -653,4 +655,43 @@ def serve_rank(mesh, rank, shapes, faults_at=None):
                                        faults=tuple(shape) == faults_at,
                                        keep_logits=True)
            for shape in shapes}
+    return out if rank == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# Blocks that "model" does not divide (tests/test_torch_attn_fallback.py)
+# ---------------------------------------------------------------------------
+
+
+FALLBACK_FAULTS = ("whole_summed", "rows_unsummed")
+
+
+def fallback_rank(mesh, rank, shapes, cases, faults=None, serve=None):
+    """For each mesh shape of ``shapes`` (over this group): `dp_run` of
+    every case of ``cases`` ({name: {"arch", "overrides", "init",
+    "shape", "steps", "meshes"}}) whose "meshes" name it; with
+    ``faults`` ({fault: (mesh shape, case name)}) one step of that case
+    under the fault (tools/dist_train_scaling.py's `fault_in`) at that
+    mesh; with ``serve`` ({mesh shape: [(name, arch, overrides,
+    batch)]}) the serving tool's f32 check of each at that mesh, worst
+    over the ranks, with rank 0's logits (`f32_case`). Rank 0: {shape:
+    {name: runs, fault: runs, ("serve", name): reading}}."""
+    tool = serve_tool()
+    out = {}
+    for shape in shapes:
+        m = _mesh_of(mesh, shape)
+        got = {name: dp_run(m, c["arch"], c["overrides"], c["init"],
+                            c["shape"], c["steps"])
+               for name, c in cases.items() if tuple(shape) in c["meshes"]}
+        for fault, (at, name) in (faults or {}).items():
+            if tuple(at) == tuple(shape):
+                c = cases[name]
+                got[fault] = tp_fault(m, fault, c["arch"], c["init"],
+                                      c["shape"], c["overrides"])
+        for name, arch, over, batch in (serve or {}).get(tuple(shape), ()):
+            r = tool.f32_case(m, name, arch, over, batch, None, "cpu",
+                              keep_logits=True)
+            r["ok"] = tool.case_ok(tool._worst_over_ranks(r))
+            got[("serve", name)] = r
+        out[tuple(shape)] = got
     return out if rank == 0 else None

@@ -7,6 +7,7 @@ Run from the repository root on a machine with CUDA cards:
     python3 tools/dist_serve_cells.py                  # 1xn and n/2x2
     python3 tools/dist_serve_cells.py --meshes 1x4 2x2 --f32-only
     python3 tools/dist_serve_cells.py --smoke --device cpu --meshes 1x2
+    python3 tools/dist_serve_cells.py --meshes 1x3 --fallback
 
 Each world size runs in its own spawn of one process a card (NCCL for
 CUDA tensors, gloo for CPU ones, over tcp://localhost on a free port),
@@ -16,7 +17,8 @@ inputs and outputs; `runtime.param_sharding.relayout`).
 
   - f32 checks (`f32_case`), on every mesh: the smoke config of every
     family (gemma3-1b, qwen3-8b, mamba2-130m, zamba2-1.2b, granite-moe
-    V2, deepseek-v2 with MLA, FSDP and V1, seamless, qwen2-vl) in f32, the
+    V2, deepseek-v2 with MLA and FSDP, V2 and V1, seamless, qwen2-vl) in
+    f32, the
     prefill cell against one card's `make_prefill_step` and four decode
     steps of the decode cell against `make_serve_step`, each from the
     same whole cache (every rank computes the one-card run itself):
@@ -24,12 +26,16 @@ inputs and outputs; `runtime.param_sharding.relayout`).
     cache part within CACHE_TOL of the one-card cache's, and `relayout`
     of the prefill cell's own cache exact; at a mesh whose "data" is 2,
     batch 1 with "seq" over ("data", "model") (zamba2, gemma3); where
-    "model" >= 2, three faults that the check must catch (`fault_in`):
-    the partial softmaxes combined without their max rescale, the new
-    K/V written on every rank of "seq" rather than the owner of its
-    position, and the greedy token taken over the rank's vocabulary
-    slice. A config that `tp_refusal` or ROADMAP A.4.8 refuses must
-    raise, with its label.
+    "model" >= 2 divides the decode cache's MAX_LEN positions, three
+    faults that the check must catch (`fault_in`): the partial
+    softmaxes combined without their max rescale, the new K/V written on
+    every rank of "seq" rather than the owner of its position, and the
+    greedy token taken over the rank's vocabulary slice. V2's dispatch
+    groups straddle the "data" ranks' rows wherever "data" is 2 or more
+    (64 prompt tokens, 4 decode tokens). Where "model" >= 2 does not
+    divide their heads, the cases of FALLBACK_CASES at a global batch
+    of 2 d m rows (gemma3 with ``attn_batch_fallback``, qwen3 with 3
+    heads and one KV head, with and without it).
   - bf16 runs (`--timed`, default on CUDA): qwen3-8b at full width and
     depth, a 4,096-token prompt at a global batch of 16 (QWEN_PROMPT),
     the cache grown to decode_32k's 32,768 positions, relayout, DECODE
@@ -40,7 +46,15 @@ inputs and outputs; `runtime.param_sharding.relayout`).
     largest, and a pick may differ only at a near tie (`timed_decode`);
     zamba2-1.2b's prefill cell at prefill_32k's length with the flash
     kernel, at the largest global batch the cards hold (reckoned from a
-    batch of 1's peak). Each: ms a step, tok/s,
+    batch of 1's peak). With ``--fallback``, in place of those: at a
+    "model" extent that does not divide zamba2's 32 heads (3), its
+    prefill cell at prefill_32k's length, batch 1, attention and SSM
+    whole on every rank, its tokens against one card's
+    (`timed_prefill` with ``compare``); at (2, 2), granite-moe V2
+    (its dispatch groups over both "data" ranks' rows) decoding a
+    QWEN_PROMPT prompt grown to QWEN_LEN positions, DECODE steps fed
+    one card's tokens and held to one card's under the near-tie rule,
+    then DECODE timed ones. Each: ms a step, tok/s,
     peak GB a card (the largest over the ranks), the cache a card
     reckoned by bytes, NCCL calls a step (counted at the
     ``torch.distributed`` calls), and each kernel's launches summed over
@@ -80,13 +94,24 @@ F32_CASES = (
     ("mamba2", "mamba2-130m", {}, 4),
     ("zamba2", "zamba2-1.2b", {}, 4),
     ("granite-moe-v2", "granite-moe-3b-a800m", {}, 4),
-    # V1: V2 is refused on a "data" extent of 2 (ROADMAP A.4.8), and
-    # deepseek-v2 is the FSDP arch (`launch.cells.FSDP_ARCHS`)
+    # deepseek-v2 is the FSDP arch (`launch.cells.FSDP_ARCHS`): its own
+    # V2, and V1
+    ("deepseek-v2", "deepseek-v2-236b", {}, 4),
     ("deepseek-v2-v1", "deepseek-v2-236b", {"moe_variant": "dynamic"}, 4),
     ("seamless", "seamless-m4t-large-v2", {}, 4),
     ("qwen2-vl", "qwen2-vl-2b", {}, 4),
 )
 BATCH1 = ("zamba2", "gemma3")   # batch 1, "seq" over ("data", "model")
+# blocks "model" does not divide (name, arch, overrides), at a global
+# batch of 2 d m rows, which the attn_batch fallback splits over
+# ("data", "model")
+FALLBACK_CASES = (
+    ("gemma3-fallback", "gemma3-1b", {"attn_batch_fallback": True}),
+    ("qwen3-3h", "qwen3-8b", {"n_heads": 3, "n_kv_heads": 1, "d_head": 16}),
+    ("qwen3-3h-fallback", "qwen3-8b", {"n_heads": 3, "n_kv_heads": 1,
+                                       "d_head": 16,
+                                       "attn_batch_fallback": True}),
+)
 FAULT_CASE = "qwen3"
 FAULTS = ("unrescaled", "every_rank_writes", "local_argmax")
 PROMPT = 16
@@ -349,39 +374,41 @@ def case_ok(r: dict) -> bool:
 
 def f32_jobs(mesh_shape, faults: bool = True) -> list:
     """The f32 cases of a mesh (module doc): (name, arch, overrides,
-    batch, fault); the faults where ``faults``."""
+    batch, fault); the faults where ``faults`` and "model" divides the
+    decode cache's MAX_LEN positions (else the cache is whole along
+    them, and nothing combines: `train.steps.serve_binding`)."""
     data, model = mesh_shape
     jobs = [(n, a, o, b, None) for n, a, o, b in F32_CASES]
     if data == 2 and model >= 2:
         jobs += [(n, a, o, 1, None) for n, a, o, _ in F32_CASES
                  if n in BATCH1]
-    if faults and model >= 2:
+    if model >= 2:
+        jobs += [(n, a, o, 2 * data * model, None)
+                 for n, a, o in FALLBACK_CASES
+                 if _cfg(a, o).n_heads % model]
+    if faults and model >= 2 and MAX_LEN % model == 0:
         case = next(c for c in F32_CASES if c[0] == FAULT_CASE)
         jobs += [(*case, f) for f in FAULTS]
     return jobs
 
 
-def expect_refusal(name, mesh_shape, batch) -> bool:
-    """Where the f32 check must be refused: granite-moe's V2 on a
-    "data" extent of 2 (a dispatch group across ranks, ROADMAP A.4.8)."""
-    return name == "granite-moe-v2" and mesh_shape[0] > 1
+def case_of(name) -> tuple:
+    """(arch, overrides) of the f32 case ``name``."""
+    return next((a, o) for n, a, o, *_ in F32_CASES + FALLBACK_CASES
+                if n == name)
 
 
 def f32_rank(mesh, device, faults: bool = True,
              keep_logits: bool = False) -> list:
     """Every f32 job of the mesh (`f32_jobs`) on this rank: each
-    reading, the worst over the ranks, with "ok" (whether it holds, or
-    for a config the mesh must refuse, whether it was refused with its
-    label); with ``keep_logits`` this rank's "logits" (`f32_case`)."""
+    reading, the worst over the ranks, with "ok" (whether it holds);
+    with ``keep_logits`` this rank's "logits" (`f32_case`)."""
     shape = tuple(mesh.mesh.shape)
     out = []
     for name, arch, over, batch, fault in f32_jobs(shape, faults):
         r = _worst_over_ranks(f32_case(mesh, name, arch, over, batch,
                                        fault, device, keep_logits))
-        if expect_refusal(name, shape, batch):
-            r["ok"] = "ROADMAP A.4.8" in r.get("refused", "")
-        else:
-            r["ok"] = case_ok(r)
+        r["ok"] = case_ok(r)
         out.append(r)
     return out
 
@@ -628,23 +655,39 @@ def _against_one_card(got: torch.Tensor, want: torch.Tensor) -> dict:
 
 
 def timed_prefill(mesh, arch, seq, smoke=False, cap=32,
-                  dtype="bfloat16", flags=None) -> dict:
+                  dtype="bfloat16", flags=None, compare=False) -> dict:
     """bf16 ``arch``'s prefill cell at ``seq`` positions with the flash
     kernel: a global batch of 1 first (its peak a card), then the
     largest power of two up to ``cap`` that the batch-1 peak reckons
-    within 70 GB a card, timed (CUDA events on rank 0)."""
+    within 70 GB a card, timed (CUDA events on rank 0). With
+    ``compare``, rank 0 first runs one card's prefill step of the batch
+    of 1 (`train.steps.make_prefill_step` without a mesh), and the
+    cell's next token is held to it ("tokens_equal" on the batch-1
+    run)."""
     import torch.distributed as dist
     from repro_torch import kernels
     from repro_torch.configs import ShapeConfig
     from repro_torch.data.batches import synth_train_batch
     from repro_torch.launch import cells
     from repro_torch.models import get_model
+    from repro_torch.train.steps import make_prefill_step
 
     dev = _dev()
     timer = _Timer(dev)
     cfg = _cfg(arch, {}, smoke, dtype, **(flags or {}))
     model = get_model(cfg, device=dev)
     runs = []
+    one = None
+    if compare:
+        one = torch.zeros((1,), dtype=torch.int32, device=dev)
+        if dist.get_rank() == 0:
+            one = make_prefill_step(model)(model.init_params(0),
+                                           synth_train_batch(
+                                               cfg, 1, seq, seed=1,
+                                               device=dev))[0]
+            if timer.cuda:
+                torch.cuda.empty_cache()
+        dist.broadcast(one, 0)
 
     def run(batch):
         cell = cells.make_cell(cfg, ShapeConfig("prefill", "prefill", seq,
@@ -670,6 +713,11 @@ def timed_prefill(mesh, arch, seq, smoke=False, cap=32,
                  peak_gb_a_card=_peak_gb(), base_gb=base,
                  cache_gb_a_card=_cache_gb(cache),
                  nccl_calls=n["calls"], launches=_launches())
+        if one is not None and batch == 1:
+            same = torch.tensor([float(torch.equal(
+                tok, cell.out_layouts[0].take(one)))], device=dev)
+            dist.all_reduce(same, op=dist.ReduceOp.MIN)
+            r["tokens_equal"] = bool(same.item())
         del cache, prompt
         runs.append(r)
         return r
@@ -694,7 +742,7 @@ def timed_prefill(mesh, arch, seq, smoke=False, cap=32,
 
 
 def rank_main(rank, world, port, shapes, out_path, device, smoke, timed,
-              f32):
+              f32, fallback=False):
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     _start(rank, world, port, device)
@@ -710,14 +758,17 @@ def rank_main(rank, world, port, shapes, out_path, device, smoke, timed,
                 continue
             data, model = shape
             flags = dict(use_flash_kernel=True)
-            if (data, model) == (1, 4) or (smoke and data == 1):
+            if fallback:
+                results += fallback_timed(mesh, shape, smoke, flags)
+            elif (data, model) == (1, 4) or (smoke and data == 1):
                 results.append(dict(kind="decode", **timed_decode(
                     mesh, "qwen3-8b", (4, 64) if smoke else QWEN_PROMPT,
                     128 if smoke else QWEN_LEN, smoke)))
                 results.append(dict(kind="prefill", **timed_prefill(
                     mesh, "zamba2-1.2b", 64 if smoke else ZAMBA_PREFILL,
                     smoke, cap=2 if smoke else 32, flags=flags)))
-            if (data, model) == (2, 2) or (smoke and data == 2):
+            if not fallback and ((data, model) == (2, 2)
+                                 or (smoke and data == 2)):
                 results.append(dict(kind="decode", **timed_decode(
                     mesh, "zamba2-1.2b", (1, 32 if smoke else ZAMBA_PROMPT),
                     256 if smoke else 524288, smoke, compare=True,
@@ -731,10 +782,28 @@ def rank_main(rank, world, port, shapes, out_path, device, smoke, timed,
             json.dump(results, f)
 
 
-def run_world(world, shapes, tmp, device, smoke, timed, f32) -> list:
+def fallback_timed(mesh, shape, smoke, flags) -> list:
+    """``--fallback``'s bf16 runs on the mesh ``shape`` (module doc)."""
+    data, model = shape
+    out = []
+    if 32 % model:                  # zamba2's heads, whole on every rank
+        out.append(dict(kind="prefill", **timed_prefill(
+            mesh, "zamba2-1.2b", 64 if smoke else ZAMBA_PREFILL, smoke,
+            cap=1, flags=flags, compare=True)))
+    if data >= 2 and model >= 2:    # V2 groups over the "data" ranks
+        out.append(dict(kind="decode", **timed_decode(
+            mesh, "granite-moe-3b-a800m", (16, 64) if smoke else
+            QWEN_PROMPT, 128 if smoke else QWEN_LEN, smoke,
+            compare=True)))
+    return out
+
+
+def run_world(world, shapes, tmp, device, smoke, timed, f32,
+              fallback=False) -> list:
     path = os.path.join(tmp, f"cells_world{world}.json")
     mp.start_processes(rank_main, args=(world, free_port(), shapes, path,
-                                        device, smoke, timed, f32),
+                                        device, smoke, timed, f32,
+                                        fallback),
                        nprocs=world, join=True, start_method="spawn")
     with open(path) as f:
         return json.load(f)
@@ -772,7 +841,10 @@ def report(r: dict) -> str:
             f"{x['tok_s']:.0f} tok/s, peak {x['peak_gb_a_card']:.2f} GB a "
             f"card (weights {x['base_gb']:.2f}), cache "
             f"{x['cache_gb_a_card']:.2f} GB a card, {x['nccl_calls']} NCCL "
-            f"calls, launches {_nonzero(x['launches'])}"
+            f"calls, launches {_nonzero(x['launches'])}" + (
+                "" if "tokens_equal" not in x else "; next tokens "
+                + ("equal" if x["tokens_equal"] else "DIFFER from")
+                + " one card's")
             for x in r["runs"]) + (f"\n[cells] prefill batch cut to "
                                    f"{r['chosen']} of the cell's 32")
     cmp = r["compared"]
@@ -819,7 +891,7 @@ def result_ok(r: dict) -> bool:
         return (not r["ok"]) if r["fault"] else r["ok"]
     if r["kind"] == "decode":
         return all(np.isfinite(r["step_ms"])) and r["ties_ok"]
-    return True
+    return all(x.get("tokens_equal", True) for x in r["runs"])
 
 
 def _mesh_arg(text: str):
@@ -835,6 +907,10 @@ def main(argv=None) -> int:
     ap.add_argument("--timed-only", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="smoke configs for the timed runs")
+    ap.add_argument("--fallback", action="store_true",
+                    help="the timed runs of blocks \"model\" does not "
+                    "divide and of V2 groups across ranks (module doc), "
+                    "in place of the others; lines tagged [fallback]")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--out", default=os.path.join(
         ROOT, "build", "dist_serve_cells.json"))
@@ -859,9 +935,12 @@ def main(argv=None) -> int:
     for world, shapes in plan.items():
         t0 = time.perf_counter()
         results = run_world(world, shapes, tmp, args.device, args.smoke,
-                            not args.f32_only, not args.timed_only)
+                            not args.f32_only, not args.timed_only,
+                            args.fallback)
         for r in results:
-            say(report(r))
+            line = report(r)
+            say(line.replace("[cells]", "[fallback]") if args.fallback
+                else line)
             ok &= result_ok(r)
             out["results"].append(r)
         say(f"[cells] world {world} took {time.perf_counter() - t0:.1f}s")

@@ -11,6 +11,7 @@ Run from the repository root on a machine with CUDA cards:
     python3 tools/dist_train_scaling.py --meshes 4x1 2x2 1x4 --qwen
     python3 tools/dist_train_scaling.py --meshes 1x4 2x2 --steps 2
     python3 tools/dist_train_scaling.py --moe --meshes 4x1 2x2 1x4
+    python3 tools/dist_train_scaling.py --attn-batch --meshes 1x3 4x1
 
 Each world size runs in its own spawn of one process a card (NCCL for
 CUDA tensors, gloo for CPU ones, over tcp://localhost on a free port),
@@ -61,6 +62,25 @@ spawn).
     over "model" (`routes_agree`). Each timed line gives the state a
     card by bytes (its pieces of the parameters and gradients, its
     blocks of the moments).
+  - with ``--attn-batch`` (with ``--meshes``, in place of the jobs
+    above; lines tagged ``[fallback]``): where "model" does not divide
+    a block (at "model" 3: gemma3-1b's 4 heads, qwen2-vl-2b's 2 KV heads
+    and d_ff 8960, granite-moe's 8 KV heads under 24 split query
+    heads), the f32 checks of gemma3-1b at full width with
+    ``attn_batch_fallback`` off (attention whole on every rank) and on
+    (its rows split over "model"), each with the faults of its layout
+    (`controls`: a whole leaf's gradient summed over "model", the
+    fallback's "model" sum left out); bf16 at full width at
+    FALLBACK_SHAPE: gemma3-1b off and on, qwen2-vl-2b and
+    granite-moe-3b-a800m as configured, each against the mesh (1, 1)
+    at the same global batch (run first, in a world of one), and
+    gemma3-1b's attention block of one layer alone, forward and
+    backward, off and on (`attn_timed`). At a
+    "data" extent >= 2 with "model" 1, MoE V2's dispatch groups
+    straddling ranks' rows: the f32 check of granite-moe's smoke
+    without its dead experts at V2_F32_SEQ tokens a row, and
+    granite-moe V2 bf16 at full width at V2_ACROSS_SHAPE (128 tokens a
+    rank at 4 ranks, groups of 256), against the mesh (1, 1).
 
 Prints the card's name and power limit (``nvidia-smi``) and each result
 line; writes the results as JSON to ``--out`` (default
@@ -92,6 +112,9 @@ TP_QWEN = (4, 2048)             # global, --meshes
 MOE_SHAPE = (4, 2048)           # global, --moe
 DEEPSEEK_SHAPE = (1, 2048)      # global, --moe
 DEEPSEEK_LAYERS = 4             # of 60: the depth it is served at
+FALLBACK_SHAPE = (3, 2048)      # global, --attn-batch at "model" 3
+V2_ACROSS_SHAPE = (4, 128)      # global, --attn-batch at "data" >= 2
+V2_F32_SEQ = 16                 # the f32 check's V2 groups straddle ranks
 F32_SEQ = 256
 # --moe's f32 checks: smoke configs (name, arch, overrides); granite-moe
 # without the dead experts (with them, its 8 live experts lie on rank 0
@@ -306,6 +329,7 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
     timed = ms[1:]
     toks = shape[0] * shape[1]
     return dict(arch=arch, dtype=dtype, world=world,
+                overrides=overrides or {},
                 mesh=list(_extents(mesh)), zero1=zero1, fsdp=fsdp,
                 variant=cfg.moe_variant if cfg.n_experts else None,
                 layers=cfg.n_layers,
@@ -318,6 +342,63 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
                 init_peak_mb=float(peak[2].item()), loss=losses,
                 grad_norm=norms, routes_agree=agree,
                 finite=bool(np.all(np.isfinite(losses + norms))))
+
+
+def attn_timed(mesh, arch: str, shape, overrides: dict = None,
+               smoke: bool = False, reps: int = 10) -> dict:
+    """The attention block of ``arch``'s layer 0 (bf16, full width;
+    `models.attention.gqa_attention` with that layer's window, as
+    `models.transformer` calls it) on this rank's rows of a global batch
+    of ``shape`` drawn from seed 0 (the same on every rank), its pieces
+    of the layer's parameters under the mesh's binding: forward and
+    backward, ``reps`` calls after a warm one, CUDA events on rank 0:
+    ms a call. Where "model" does not divide the heads this is the whole
+    block on every rank, or under ``attn_batch_fallback`` its share of
+    the rows."""
+    from repro_torch import tree
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.mesh import binding_for
+    from repro_torch.models import attention, common, get_model
+    from repro_torch.models.transformer import _kinds
+    from repro_torch.runtime.sharding import use_binding
+    from repro_torch.train.steps import state_blocks
+    import torch.distributed as dist
+
+    cfg = _config(arch, "bfloat16", smoke, **(overrides or {}))
+    dev = _dev()
+    timer = _Timer(dev)
+    binding = binding_for(mesh)
+    data = binding.axis_group(("data",))
+    whole = get_model(cfg, device=dev).init_params(0)["layers"]["attn"]
+    shards = state_blocks(cfg, TrainConfig(), mesh)["params"]["layers"][
+        "attn"]
+    params = tree.map_(lambda p, s: (p if s is None else s.take(p))[0]
+                       .contiguous().requires_grad_(), whole, shards)
+    del whole
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = shape[0] // data.extent
+    x = torch.randn((shape[0], shape[1], cfg.d_model), generator=gen,
+                    device=dev, dtype=torch.bfloat16)
+    x = x[data.index * rows:(data.index + 1) * rows].contiguous()
+    x.requires_grad_()
+    pos = common.positions_of(x[..., 0])
+    is_local, window = _kinds(cfg, dev)
+
+    def call():
+        y = attention.gqa_attention(params, cfg, x, pos, window=window[0],
+                                    is_local=is_local[0])
+        torch.autograd.grad(y, [x] + tree.leaves(params),
+                            grad_outputs=torch.ones_like(y))
+    with use_binding(binding):
+        call()
+        dist.barrier()
+        timer.start()
+        for _ in range(reps):
+            call()
+        ms = timer.stop() / reps
+    return dict(kind="attn", arch=arch, overrides=overrides or {},
+                mesh=list(_extents(mesh)), world=mesh.size(),
+                global_rows=shape[0], seq=shape[1], reps=reps, ms=ms)
 
 
 F32_LIMIT = 1e-5                # rtol of the metrics and the parameters
@@ -333,10 +414,12 @@ MOMENT_LIMIT = 5e-5
 # router's gradient left partial); under FSDP, the gathered weights'
 # gradients left unsummed over "data" (each rank keeps its block of its
 # own), and each gathered layer cached across steps (step 2 runs on
-# step 1's weights)
+# step 1's weights); a block "model" does not divide: the gradients of
+# its whole leaves summed over "model" as if each rank's were partial,
+# and the attn_batch fallback's "model" sum of its leaves left out
 FAULTS = ("unsummed", "ungathered", "kv_unsummed", "local_norm",
           "experts_input_uncopied", "combine_weights_uncopied",
-          "fsdp_unsummed", "fsdp_cached")
+          "fsdp_unsummed", "fsdp_cached", "whole_summed", "rows_unsummed")
 # the experts' and FSDP's faults must read at least this many times
 # MOMENT_LIMIT
 MOE_FAULT_FACTOR = 10
@@ -348,16 +431,22 @@ def controls(cfg, mesh, fsdp: bool = False) -> tuple:
     """The faults of FAULTS that break the step of ``cfg`` on ``mesh``
     (a fault the mesh does not reach would pass the check); with
     ``fsdp`` FSDP's two in place of the data axis's."""
+    from repro_torch.runtime.param_sharding import tp_layout
     data, model = _extents(mesh)
     out = (() if data == 1 else ("fsdp_unsummed", "fsdp_cached") if fsdp
            else ("unsummed", "ungathered"))
-    if (model > 1 and cfg.family != "ssm" and not cfg.use_mla
-            and cfg.n_kv_heads % model):
+    layout = tp_layout(cfg, model) if model > 1 else {}
+    if (layout.get("attn") == "split" and not cfg.use_mla
+            and layout["kv"] != "split"):
         out += ("kv_unsummed",)
-    if model > 1 and cfg.family in ("ssm", "hybrid"):
+    if layout.get("ssm") == "split":
         out += ("local_norm",)
-    if model > 1 and cfg.n_experts:
+    if layout.get("experts", "whole") != "whole":
         out += ("experts_input_uncopied", "combine_weights_uncopied")
+    if "whole" in layout.values():
+        out += ("whole_summed",)
+    if layout.get("attn") == "rows":
+        out += ("rows_unsummed",)
     return out
 
 
@@ -372,13 +461,29 @@ def fault_in(fault):
             steps.sum_shared_grads, common.rmsnorm, moe.expert_inputs,
             collectives.sum_scatter, collectives.gather_in)
 
-    def skip_kv(grads, pieces, axis):
+    def skip_kv(grads, pieces, axis, rows=False):
         from repro_torch import tree
         names = [k.split("/")[-1] for k, _ in tree.items(pieces)]
         pieces = tree.unflatten(pieces, [
             None if n in ("wk", "wv") else p
             for n, p in zip(names, tree.leaves(pieces))])
-        return kept[2](grads, pieces, axis)
+        return kept[2](grads, pieces, axis, rows)
+
+    def whole_summed(grads, pieces, axis, rows=False):
+        # each whole leaf of a layer block taken for a part every rank
+        # holds, its gradient summed over "model"
+        from repro_torch import tree
+        from repro_torch.runtime.param_sharding import Piece, Segment
+        blocks = ("attn", "mlp", "ssm", "moe")
+        pieces = tree.unflatten(pieces, [
+            Piece(g.ndim - 1, (Segment(0, g.shape[-1], 1),), axis)
+            if p is None and any(b in path.split("/") for b in blocks)
+            else p for (path, p), g in zip(tree.items(pieces),
+                                           tree.leaves(grads))])
+        return kept[2](grads, pieces, axis, rows)
+
+    def rows_unsummed(grads, pieces, axis, rows=False):
+        return kept[2](grads, pieces, axis, False)
 
     def local_norm(params, x, eps=1e-6, axis=None):
         return kept[3](params, x, eps)
@@ -421,6 +526,10 @@ def fault_in(fault):
             collectives.sum_scatter = own_block
         elif fault == "fsdp_cached":
             collectives.gather_in = cached
+        elif fault == "whole_summed":
+            steps.sum_shared_grads = whole_summed
+        elif fault == "rows_unsummed":
+            steps.sum_shared_grads = rows_unsummed
         elif fault is not None:
             raise ValueError(fault)
         yield
@@ -530,9 +639,10 @@ def _worst(held: list) -> dict:
 
 
 def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
-              overrides: dict = None, fsdp: bool = False) -> dict:
+              overrides: dict = None, fsdp: bool = False,
+              seq: int = F32_SEQ) -> dict:
     """``arch`` in f32 with remat (``overrides`` on its config), global
-    batch (2n, F32_SEQ), n the mesh's ranks: one step on the mesh against
+    batch (2n, ``seq``), n the mesh's ranks: one step on the mesh against
     the single-card step on the global batch (rank 0), with ``fsdp``
     FSDP_STEPS steps under ``ParallelConfig(fsdp=True)``, each against
     the single card's step from the state the mesh's step started from
@@ -569,7 +679,7 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
     dev = _dev()
     model = get_model(cfg, device=dev)
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
-    data = TokenDataset(cfg, 2 * world, F32_SEQ, seed=0)
+    data = TokenDataset(cfg, 2 * world, seq, seed=0)
     lead = dist.get_rank() == 0
     steps = FSDP_STEPS if fsdp else 1
     one_step = make_train_step(model, tcfg)
@@ -618,7 +728,7 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
                            else None, overrides=overrides or {},
                            mesh=list(_extents(mesh)), fsdp=fsdp,
                            steps=steps,
-                           global_batch=[2 * world, F32_SEQ], **held,
+                           global_batch=[2 * world, seq], **held,
                            routes_agree=agree, controls={})
             else:
                 out["controls"][fault] = {
@@ -643,8 +753,8 @@ def rank_main(rank: int, world: int, port: int, jobs: list,
               out_path: str, device: str, smoke: bool) -> None:
     """``jobs`` on this rank, each ``(kind, mesh shape, *args)`` with
     kind "timed" (`timed_run`: arch, shape, steps, zero1[, overrides])
-    or "f32" (`f32_check`: arch[, overrides[, smoke]], a smoke config
-    where ``smoke`` or the job says so), either with "+fsdp" (under
+    or "f32" (`f32_check`: arch[, overrides[, smoke[, seq]]], a smoke
+    config where ``smoke`` or the job says so), either with "+fsdp" (under
     ``ParallelConfig(fsdp=True)``); each result with the job's kernel
     launch counts."""
     import torch.distributed as dist
@@ -658,10 +768,13 @@ def rank_main(rank: int, world: int, port: int, jobs: list,
             kind, _, flag = kind.partition("+")
             if kind == "timed":
                 r = timed_run(mesh, *args, smoke=smoke, fsdp=flag == "fsdp")
+            elif kind == "attn":
+                r = attn_timed(mesh, *args, smoke=smoke)
             else:
-                arch, overrides, job_smoke = (list(args) + [None, False])[:3]
+                arch, overrides, job_smoke, seq = (
+                    list(args) + [None, False, F32_SEQ][len(args) - 1:])[:4]
                 r = f32_check(mesh, smoke or job_smoke, arch, overrides,
-                              fsdp=flag == "fsdp")
+                              fsdp=flag == "fsdp", seq=seq)
             # no kernel lies on the training path: each kernel's launches
             # in this job, summed over the ranks
             counts = kernels.launch_counts()
@@ -774,6 +887,51 @@ def fsdp_jobs(mesh, steps: int, f32_only: bool) -> list:
     return jobs
 
 
+# --attn-batch's timed runs at "model" 3: (arch, overrides), each also
+# at the mesh (1, 1)
+FALLBACK_TIMED = (("gemma3-1b", {}), ("gemma3-1b",
+                                     {"attn_batch_fallback": True}),
+                  ("qwen2-vl-2b", {}), ("granite-moe-3b-a800m", {}))
+FALLBACK_ON = {"attn_batch_fallback": True}
+
+
+def fallback_jobs(mesh, steps: int, f32_only: bool, meshes=()) -> list:
+    """``--attn-batch`` (module doc): at a "model" extent that does not
+    divide them, gemma3-1b's f32 checks with the fallback off and on
+    and FALLBACK_TIMED at FALLBACK_SHAPE; at a "data" extent >= 2 and
+    "model" 1, granite-moe's V2 groups across ranks (its smoke's f32
+    check, then bf16 at V2_ACROSS_SHAPE). The mesh (1, 1) runs the
+    timed jobs of the other ``meshes`` at their global batches (each
+    config once: the fallback changes nothing on one card)."""
+    data, model = mesh
+    granite = ("granite-moe-3b-a800m", V2_ACROSS_SHAPE, steps, True)
+    if mesh == (1, 1):
+        if f32_only:
+            return []
+        jobs = []
+        if any(m > 1 for _, m in meshes):
+            jobs += [("timed", mesh, a, FALLBACK_SHAPE, steps, True, o)
+                     for a, o in FALLBACK_TIMED if not o]
+            jobs.append(("attn", mesh, "gemma3-1b", FALLBACK_SHAPE, {}))
+        if any(d > 1 and m == 1 for d, m in meshes):
+            jobs.append(("timed", mesh) + granite)
+        return jobs
+    jobs = []
+    if model > 1:
+        jobs += [("f32", mesh, "gemma3-1b", o) for o in ({}, FALLBACK_ON)]
+        if not f32_only:
+            jobs += [("timed", mesh, a, FALLBACK_SHAPE, steps, True, o)
+                     for a, o in FALLBACK_TIMED]
+            jobs += [("attn", mesh, "gemma3-1b", FALLBACK_SHAPE, o)
+                     for o in ({}, FALLBACK_ON)]
+    if data > 1 and model == 1:
+        jobs.append(("f32", mesh, "granite-moe-3b-a800m",
+                     {"n_experts_padded": 0}, True, V2_F32_SEQ))
+        if not f32_only:
+            jobs.append(("timed", mesh) + granite)
+    return jobs
+
+
 def _where(r: dict) -> str:
     d, m = r["mesh"]
     return f"world {r['world']}" if m == 1 else f"mesh (data {d}, model {m})"
@@ -782,7 +940,7 @@ def _where(r: dict) -> str:
 def report_timed(r: dict, tag: str, base: dict = None,
                  against: str = "world 1") -> str:
     eff = ""
-    if base is not None and base["world"] == 1:
+    if base is not None and base["world"] == 1 and against == "world 1":
         e = r["tok_s"] / (base["tok_s"] * r["world"])
         eff = f"; scale efficiency {e:.3f} against {against}"
     elif base is not None:
@@ -791,6 +949,8 @@ def report_timed(r: dict, tag: str, base: dict = None,
     moe = (f" ({r['variant']}, {r['layers']} layers; routes "
            f"{'agree' if r['routes_agree'] else 'DIFFER'} over \"model\")"
            if r.get("variant") else "")
+    if r.get("overrides"):
+        moe += f" {r['overrides']}"
     return (f"{tag} {r['arch']}{moe} {r['dtype']} {_where(r)} zero1 "
             f"{'on' if r['zero1'] else 'off'}, fsdp "
             f"{'on' if r.get('fsdp') else 'off'}, global ({r['global_rows']}, "
@@ -931,6 +1091,11 @@ def main(argv=None) -> int:
                     help="with --meshes: FSDP (ParallelConfig.fsdp): its "
                     "f32 checks, qwen3-8b with FSDP on and off, "
                     "granite-moe with FSDP, in place of the dense jobs")
+    ap.add_argument("--attn-batch", action="store_true",
+                    help="with --meshes: blocks \"model\" does not divide "
+                    "(whole, or the attn_batch fallback) and V2 groups "
+                    "across ranks, in place of the dense jobs; the mesh "
+                    "(1, 1) first for the timed runs")
     ap.add_argument("--moe-timed", default="all", choices=["all", "v2"],
                     help="--moe's timed runs: all of them, or granite-moe "
                     "V2 alone")
@@ -945,19 +1110,26 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("FAILED: no CUDA device")
     tp = args.meshes is not None
-    if (args.moe or args.fsdp) and not tp:
-        raise SystemExit("FAILED: --moe and --fsdp run on --meshes")
-    tag = ("[fsdp]" if args.fsdp else "[ep]" if args.moe
-           else "[tp]" if tp else "[dist]")
+    if (args.moe or args.fsdp or args.attn_batch) and not tp:
+        raise SystemExit("FAILED: --moe, --fsdp and --attn-batch run on "
+                         "--meshes")
+    tag = ("[fsdp]" if args.fsdp else "[ep]" if args.moe else "[fallback]"
+           if args.attn_batch else "[tp]" if tp else "[dist]")
     if tp:
         # one spawn a world, its meshes in order
         plan = {}
-        for d, m in args.meshes:
+        meshes = list(args.meshes)
+        if args.attn_batch and (1, 1) not in meshes:
+            meshes.insert(0, (1, 1))
+        for d, m in meshes:
             plan.setdefault(d * m, []).extend(
+                fallback_jobs((d, m), args.steps, args.f32_only, meshes)
+                if args.attn_batch else
                 fsdp_jobs((d, m), args.steps, args.f32_only) if args.fsdp
                 else moe_jobs((d, m), args.steps, args.f32_only,
                               args.moe_timed) if args.moe else
                 mesh_jobs((d, m), args.steps, args.f32_only, args.qwen))
+        plan = {w: jobs for w, jobs in plan.items() if jobs}
     else:
         plan = None
     asked = (list(plan) if tp else args.worlds) or [1]
@@ -983,18 +1155,28 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         results = run_world(world, jobs, tmp, args.device, args.smoke)
         for r in results:
-            if "tok_s" in r:
+            if r.get("kind") == "attn":
+                over = f" {r['overrides']}" if r["overrides"] else ""
+                say(f"{tag} {r['arch']}{over} layer 0's "
+                    f"attention block bf16 {_where(r)}, global "
+                    f"({r['global_rows']}, {r['seq']}), forward and "
+                    f"backward: {r['ms']:.3f} ms a call (mean of "
+                    f"{r['reps']})")
+                out["timed"].append(r)
+            elif "tok_s" in r:
                 # against world 1 (--worlds), or against the mesh of
                 # every card on "data" at the same global batch
                 # (--meshes), where the call ran it first
                 key = ((r["arch"], r["zero1"], r["global_rows"],
                         r.get("variant"), r["fsdp"]) if tp
                        else (r["arch"], r["zero1"]))
-                one = r["mesh"][1] == 1 if tp else r["world"] == 1
+                one = (r["mesh"] == [1, 1] if args.attn_batch
+                       else r["mesh"][1] == 1 if tp else r["world"] == 1)
                 if one:
                     base[key] = r
                 ref = None if one else base.get(key)
-                say(report_timed(r, tag, ref, "the mesh (data "
+                say(report_timed(r, tag, ref, "the mesh (1, 1)"
+                                 if args.attn_batch else "the mesh (data "
                                  f"{r['world']}, model 1)" if tp
                                  else "world 1"))
                 ok &= r["finite"] and r["routes_agree"]
