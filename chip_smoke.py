@@ -220,6 +220,22 @@ last line):
                on every rank: the flash kernel's launches, 6 a rank, are
                added to the kernels line, and its next token equals one
                card's); with fewer cards it says that it needs three;
+  8j. pod    — the "pod" axis as data (the reference's multi-pod rules:
+               the batch and FSDP's blocks over ("pod", "data")) and
+               decode with the cache's KV heads over "model": with four
+               or more cards, at (2, 2, 1) and (2, 1, 2),
+               tools/dist_train_scaling.py --f32-only (its own process:
+               gemma3-1b's f32 check at full width, mamba2-130m's at
+               "model" 2, each with its faults, among them the gradients
+               summed over "data" alone; no kernel launched) and
+               tools/dist_serve_cells.py --kv-heads --prefill-only (the
+               f32 checks of qwen3 and zamba2 at batch 4 and 1 and of the
+               decode cells without seq_shard_decode, with the fault
+               that writes head block 0's K/V into every rank's cache;
+               zamba2-1.2b's prefill cell at 32,768 positions, batch 1,
+               at (2, 1, 2): the flash kernel's launches, 6 a rank, are
+               added to the kernels line, and its next token equals one
+               card's); with fewer cards it says that it needs four;
   9. launches — how many CUDA launches one call of each multi-launch
                kernel makes, and the device time of each (torch.profiler,
                after every timed phase): the fused spans at the paper's
@@ -2393,8 +2409,7 @@ def mesh_1x1(tag, cfg, name, shape, steps, parallel=None) -> None:
                             init_method=f"tcp://localhost:{_free_port()}",
                             rank=0, world_size=1)
     try:
-        for mesh in (None, make_mesh((1, 1), ("data", "model"),
-                                     parallel=parallel)):
+        for mesh in (None, make_mesh((1, 1), ("data", "model"))):
             blocks = state_blocks(cfg, tcfg, mesh, parallel)
             split = [s for s in tree_lib.leaves(blocks["params"])
                      if s is not None]
@@ -2794,6 +2809,63 @@ def phase_fallback() -> dict:
     return launched
 
 
+POD_MESHES = ("2x2x1", "2x1x2")
+
+
+def phase_pod() -> dict:
+    """8j [pod]: the "pod" axis as data and decode with the cache's KV
+    heads over "model" (module doc). With four or more cards, both tools
+    at POD_MESHES in processes of their own: the train tool's f32 checks
+    must hold and their faults fail, and it must launch no kernel; the
+    serve tool's f32 checks must hold (its fault fail), and zamba2-1.2b's
+    prefill cell at (2, 1, 2) must launch the flash kernel
+    `n_attn_invocations` times a rank and give one card's next token.
+    Returns those launches, summed over the ranks."""
+    t0 = time.perf_counter()
+    launched = {}
+    n = torch.cuda.device_count()
+    if n < 4:
+        say(f"[pod] a mesh (pod 2, data 2, model 1) or (2, 1, 2) needs "
+            f"four cards; {n} here")
+        return launched
+    train = _tool_run("[pod]", "dist_train_scaling.py",
+                      ["--meshes", *POD_MESHES, "--f32-only"], 900)
+    tool_launched = {k: v for r in train["f32"]
+                     for k, v in r["launches"].items() if v}
+    check(not tool_launched, f"[pod] training launched {tool_launched}")
+    check(train["f32"] and all(r["ok"] and r["controls_caught"]
+                               and "pod_unsummed" in r["controls"]
+                               for r in train["f32"]),
+          "[pod] an f32 check failed or a fault passed")
+    serve = _tool_run("[pod]", "dist_serve_cells.py",
+                      ["--meshes", *POD_MESHES, "--kv-heads",
+                       "--prefill-only"], 900)
+    results = serve["results"]
+    f32 = [r for r in results if r["kind"] == "f32"]
+    check(f32 and all(r["ok"] != bool(r["fault"]) for r in f32),
+          "[pod] a serving f32 check failed or its fault passed")
+    check(any(r.get("kv_heads") and not r["fault"] for r in f32),
+          "[pod] no decode cell with the KV heads over model ran")
+    prefills = [x for r in results if r["kind"] == "prefill"
+                for x in r["runs"]]
+    cfg, _ = lm_config(ARCH, **LM_FLAGS)
+    for x in prefills:
+        check(x.get("tokens_equal", False),
+              "[pod] the prefill cell's next token differs from one card's")
+        ranks = int(np.prod(x["mesh"]))
+        got = x["launches"].get("flash_attention", 0)
+        check(got == ranks * n_attn_invocations(cfg),
+              f"[pod] prefill flash launches {got} != "
+              f"{ranks} x {n_attn_invocations(cfg)}")
+        for k, v in x["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    check(bool(prefills), "[pod] no prefill ran")
+    say(f"[pod] kernels launched: "
+        f"{ {k: v for k, v in launched.items() if v} or 'none'}; took "
+        f"{time.perf_counter() - t0:.1f}s")
+    return launched
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # constants are built afresh: the disk tier is on only in its own
@@ -2831,6 +2903,8 @@ def main() -> None:
     for kernel, n in phase_cells().items():
         launches[kernel] = launches.get(kernel, 0) + n
     for kernel, n in phase_fallback().items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    for kernel, n in phase_pod().items():
         launches[kernel] = launches.get(kernel, 0) + n
     phase_launches()
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")

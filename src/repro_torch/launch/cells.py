@@ -21,6 +21,14 @@ parts of the inputs and gets its parts of the outputs. A decode cell
 reads the prefill cell's cache after `runtime.param_sharding.relayout`
 (the decode cache grown to its length first, `launch.serve._grow_cache`).
 
+On a mesh with a "pod" axis the cells take the reference's
+``MULTI_POD_RULES`` (`launch.mesh.binding_for`): the batch, and under
+FSDP the parameters, over ("pod", "data"), "seq" as on the mesh without
+it (replicated over "pod"). `make_cell` also takes a ``parallel`` of
+the caller's: a decode cell without ``seq_shard_decode`` keeps the
+prefill cell's cache, its KV heads over "model" (`train.steps.
+serve_binding`).
+
 The reference lowers and compiles each cell on forced host devices
 (``lower_cell``, ``launch/dryrun.py``) and never runs it; the port runs
 eagerly, so ``lower_cell`` has no counterpart (ROADMAP A.5): a cell is
@@ -157,10 +165,12 @@ def build_cell(arch: str, shape_name: str, mesh,
 
 
 def make_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
-              tcfg: Optional[TrainConfig] = None, device=None) -> Cell:
+              tcfg: Optional[TrainConfig] = None, device=None,
+              parallel: Optional[ParallelConfig] = None) -> Cell:
     """`build_cell` of a config and a shape given as they are (a smoke
-    config, a shape cut to size)."""
-    parallel = parallel_for(cfg, shape)
+    config, a shape cut to size), under ``parallel`` (default:
+    `parallel_for`'s)."""
+    parallel = parallel or parallel_for(cfg, shape)
     model = get_model(cfg, device=device)
     tcfg = tcfg or TrainConfig()
     specs = input_specs(cfg, shape)

@@ -9,8 +9,10 @@ per device; the caller starts the group (``torchrun``, or
 Production: single pod (data=16, model=16), 256 ranks; multi-pod
 (pod=2, data=16, model=16), 512 ranks.
 
-The port runs a 2-D mesh (data = d, model = m), d x m = world:
-"data" splits the batch, "model" the heads, the MLP's width, the SSM's
+The port runs a mesh (data = d, model = m), d x m = world, or (pod = p,
+data = d, model = m), p x d x m = world: "data" splits the batch (with
+"pod", the batch over ("pod", "data"), pod-major: the reference's
+``MULTI_POD_RULES``), "model" the heads, the MLP's width, the SSM's
 heads, the vocabulary (Megatron tensor parallelism, `models.common`,
 `runtime.param_sharding.tp_pieces`) and the experts (the "expert" rule,
 `models.moe`), each block where its heads or width divide; a block
@@ -18,11 +20,17 @@ they do not divide runs whole on every rank, as the reference's
 divisibility-safe resolve leaves it, or, under ``attn_batch_fallback``,
 the attention on each rank's block of the rows split again over "model"
 (`runtime.param_sharding.tp_layout`, `models.attention`). Under
-``ParallelConfig.fsdp`` "data" also splits the parameters whose rule
-marks "fsdp" (`runtime.param_sharding.fsdp_blocks`, gathered a layer at
-a time: `train.steps`). `make_mesh` raises `NotImplementedError` for a
-"pod" extent above 1 and for a pipeline "pod" axis (ROADMAP A.4.5), so
-nothing is replicated where the reference would split it.
+``ParallelConfig.fsdp`` the "fsdp" rule's axes ("data", or ("pod",
+"data")) also split the parameters whose rule marks "fsdp"
+(`runtime.param_sharding.fsdp_blocks`, gathered a layer at a time:
+`train.steps`). The "pod" axis is data whatever
+``ParallelConfig.pod_axis_role`` says: the reference's `binding_for`
+binds ``MULTI_POD_RULES`` on any mesh with a "pod" axis and no module
+of the reference reads the role. `make_mesh` raises
+`NotImplementedError` for a wide axis that no rule binds, so nothing is
+replicated where the reference would split it, and makes the process
+groups over each set of several wide axes once
+(`runtime.sharding.make_axis_groups`).
 """
 
 from __future__ import annotations
@@ -32,22 +40,24 @@ from typing import Optional, Sequence, Tuple
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.runtime import sharding as shlib
 
-_TODO = "ROADMAP A.4 (training across cards: {})"
+_AXES = ("pod", "data", "model")     # the axes the rules bind
 
 
 def make_mesh(shape: Sequence[int] = None,
               axes: Sequence[str] = ("data", "model"), *,
-              parallel: Optional[ParallelConfig] = None,
               device_type: Optional[str] = None):
     """A ``DeviceMesh`` of ``shape`` (default: every rank on "data")
     with ``axes`` as its dimension names, over the default process
-    group. ``device_type`` defaults to "cuda" where the group's backend
+    group, with its groups over several wide axes (``mesh.axis_groups``,
+    `runtime.sharding.make_axis_groups`; every rank calls this alike).
+    ``device_type`` defaults to "cuda" where the group's backend
     is NCCL alone, else "cpu" (the mesh's groups serve the tensors of
-    every device their backend takes either way)."""
+    every device their backend takes either way). No choice of
+    `ParallelConfig` changes the mesh (a "pipeline" pod binds as data,
+    module doc)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    parallel = parallel or ParallelConfig()
     axes = tuple(axes)
     world = dist.get_world_size()
     if shape is None:
@@ -56,10 +66,9 @@ def make_mesh(shape: Sequence[int] = None,
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} for axes {axes}")
     for a, n in zip(axes, shape):
-        if a not in ("data", "model") and n > 1:
-            raise NotImplementedError(_TODO.format(f'a "{a}" axis of {n}'))
-    if parallel.pod_axis_role == "pipeline":
-        raise NotImplementedError(_TODO.format('a pipeline "pod" axis'))
+        if a not in _AXES and n > 1:
+            raise NotImplementedError(
+                f'a "{a}" axis of {n}: no sharding rule binds it')
     n = 1
     for s in shape:
         n *= s
@@ -68,7 +77,9 @@ def make_mesh(shape: Sequence[int] = None,
                          "ranks")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    mesh = init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    mesh.axis_groups = shlib.make_axis_groups(mesh)
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False):

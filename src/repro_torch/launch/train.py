@@ -6,8 +6,9 @@ handling -> restart from the latest checkpoint. Runs on the card unless
 asked for the CPU (``--device cpu``), on one device, or over the ranks of
 a ``torchrun`` on a mesh of (data = N / M, model = M) (``--data N`` ranks
 in all, one card a rank, ``--model M`` of them splitting the model;
-``--batch`` is the global batch; ``--fsdp`` splits the parameters over
-"data" too, ``ParallelConfig.fsdp``):
+``--pod P`` makes it (pod = P, data = N / (P M), model = M), the batch
+over ("pod", "data"); ``--batch`` is the global batch; ``--fsdp`` splits
+the parameters over the data axes too, ``ParallelConfig.fsdp``):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
       --smoke --device cpu --steps 50 --batch 8 --seq 128 --ckpt-dir CKPT
@@ -20,6 +21,9 @@ in all, one card a rank, ``--model M`` of them splitting the model;
       --data 4 --model 4           # 12 of its 48 experts a card
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch qwen3-8b --steps 20 --batch 4 --seq 2048 --data 4 --fsdp
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen3-8b --steps 20 --batch 4 --seq 2048 --data 4 --pod 2 \
+      --model 2                    # the mesh (pod 2, data 1, model 2)
 """
 
 from __future__ import annotations
@@ -65,8 +69,9 @@ def train_loop(cfg, tcfg: TrainConfig, *, batch: int, seq: int,
 
     With a ``mesh`` (`launch.mesh.make_mesh`; every rank calls this with
     the same arguments), the step across ranks on the rows of each
-    rank's "data" coordinate of the global ``batch`` (the ranks of
-    "model" share them) and its pieces of the model: rank 0 picks the
+    rank's coordinate over the "batch" rule's axes ("data", or ("pod",
+    "data"), pod-major) of the global ``batch`` (the ranks of "model"
+    share them) and its pieces of the model: rank 0 picks the
     step to resume from and writes the checkpoints (whole, in the
     one-device layout, so a run resumes at any mesh), the ranks agree on
     preemption through one all-reduce of the flag a step over all of
@@ -77,8 +82,10 @@ def train_loop(cfg, tcfg: TrainConfig, *, batch: int, seq: int,
     train_step = steps_lib.make_train_step(model, tcfg, mesh, parallel)
     spec = family_module(cfg).init_params(cfg, None, torch.device("meta"))
     blocks = steps_lib.state_blocks(cfg, tcfg, mesh, parallel)
-    axis = (binding_for(mesh, parallel).axis_group(("data",))
-            if mesh is not None else None)
+    axis = None
+    if mesh is not None:
+        binding = binding_for(mesh, parallel)
+        axis = binding.axis_group(binding.rules["batch"])
     shardings = blocks if mesh is not None else None
     lead = axis is None or dist.get_rank() == 0
 
@@ -173,6 +180,10 @@ def main() -> None:
                     help="of the --data ranks, how many split the model "
                     "(its heads, widths, vocabulary and experts): a mesh "
                     "of (data / model, model)")
+    ap.add_argument("--pod", type=int, default=1,
+                    help="of the --data ranks, how many pods: a mesh of "
+                    "(pod, data / (pod x model), model), the batch over "
+                    "(pod, data), as the reference's multi-pod rules")
     ap.add_argument("--fsdp", action="store_true",
                     help="split the parameters over the data axis too, "
                     "each layer gathered as it runs (ParallelConfig.fsdp)")
@@ -188,10 +199,13 @@ def main() -> None:
     parallel = ParallelConfig(fsdp=args.fsdp)
     if args.data > 1:
         mesh, device = start_ranks(args.data, args.device, args.model,
-                                   parallel)
+                                   args.pod)
     elif args.model > 1:
         raise ValueError(f"--model {args.model} needs --data of at least "
                          "as many ranks")
+    elif args.pod > 1:
+        raise ValueError(f"--pod {args.pod} needs --data of at least as "
+                         "many ranks")
     elif args.fsdp:
         raise ValueError("--fsdp needs --data of two or more ranks")
     watchdog = HangWatchdog(args.hang_timeout).start()
@@ -207,15 +221,16 @@ def main() -> None:
             dist.destroy_process_group()
 
 
-def start_ranks(n: int, device: str, model: int = 1,
-                parallel: Optional[ParallelConfig] = None):
+def start_ranks(n: int, device: str, model: int = 1, pod: int = 1):
     """The process group of a ``torchrun`` of ``n`` ranks (its
     environment: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT) and its
-    mesh of (n / model, model) on ("data", "model") under ``parallel``;
-    NCCL with one card a rank (set before the group starts), gloo on the
+    mesh of (n / model, model) on ("data", "model"), or with ``pod`` > 1
+    of (pod, n / (pod model), model) on ("pod", "data", "model"); NCCL
+    with one card a rank (set before the group starts), gloo on the
     CPU. -> (mesh, this rank's device)."""
-    if model < 1 or n % model:
-        raise ValueError(f"--model {model} does not divide --data {n}")
+    if model < 1 or pod < 1 or n % (model * pod):
+        raise ValueError(f"--model {model} x --pod {pod} does not divide "
+                         f"--data {n}")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world != n:
         raise ValueError(f"--data {n} under a world of {world} ranks "
@@ -229,8 +244,10 @@ def start_ranks(n: int, device: str, model: int = 1,
     else:
         dist.init_process_group("gloo")
         dev = "cpu"
-    return make_mesh((n // model, model), ("data", "model"),
-                     parallel=parallel), dev
+    if pod > 1:
+        return make_mesh((pod, n // (pod * model), model),
+                         ("pod", "data", "model")), dev
+    return make_mesh((n // model, model), ("data", "model")), dev
 
 
 if __name__ == "__main__":

@@ -381,7 +381,8 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     mask's sum added over the ranks, without gradient). That is the
     rank's share; the shares add up to the global mean over the ranks,
     and so do their gradients (`train.steps`). The count and the shares
-    run over "data" only: the ranks of "model" hold the same rows.
+    run over the "batch" ranks only ("data", or ("pod", "data")): the
+    ranks of "model" hold the same rows.
 
     With ``split`` (`vocab_split`) the logits are this rank's slice of
     the vocabulary: the max is taken over "model" without gradient, the

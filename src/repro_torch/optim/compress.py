@@ -1,4 +1,4 @@
-"""Gradient compression: an int8 all-reduce over the data axis.
+"""Gradient compression: an int8 all-reduce over the data axes.
 
 The port of the reference's ``repro.optim.compress``: per-tensor
 symmetric int8 quantization before the sum over ranks, dequantization
@@ -7,9 +7,12 @@ the cost of one extra max-reduce (the scale) and bounded quantization
 noise (the residual is returned so callers can carry it: error
 feedback).
 
-Usage, on every rank of the mesh bound by `runtime.sharding.use_binding`:
+Usage, on every rank of the mesh bound by `runtime.sharding.use_binding`,
+over the data axes (("pod", "data") on a mesh with a "pod" axis, as the
+reference's usage names them; their group is `runtime.sharding.Binding.
+axis_group`'s):
 
-    grads, residual = compressed_psum_mean(grads, "data", residual)
+    grads, residual = compressed_psum_mean(grads, ("pod", "data"), residual)
 
 Like the reference's ``TrainConfig.grad_compression``, nothing in the
 train step calls it.

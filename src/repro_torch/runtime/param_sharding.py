@@ -17,7 +17,11 @@ The rest is the port's (the reference lets the partitioner place each
 block): `tp_pieces` gives the `Piece` of each leaf that a rank holds over
 "model", `fsdp_blocks` the FSDP `Block` of each parameter over "data"
 (of the piece; ``ParallelConfig.fsdp``), `zero1_blocks` the ZeRO-1
-`Block` of each moment over "data" (of the piece), and `Shard` the two
+`Block` of each moment over "data" (of the piece; "data" here and below
+means the axes of the "fsdp" rule: ("pod", "data") on a mesh with a
+"pod" axis, a leaf split over both or whole over both, as the
+reference's resolve drops both where pod x data does not divide), and
+`Shard` the two
 together, the layout of a train state's leaf (`train.steps.state_blocks`,
 `checkpoint`). A piece keeps
 the reference's spec where that cuts at head or segment boundaries
@@ -433,10 +437,15 @@ def tp_pieces(params_shape: Dict, cfg) -> Dict:
 
 def _blocks_over_data(specs: Dict, params_shape: Dict, pieces: Dict,
                       binding) -> Dict:
-    """Tree of the `Block` over "data" that ``specs`` give each leaf, of
-    its piece over "model" where ``pieces`` gives one: along the dim
-    whose entry names "data", where the piece's extent there divides;
-    None where no entry names it or it does not divide."""
+    """Tree of the `Block` that ``specs`` give each leaf over the axes of
+    its entry other than "model" (the "fsdp" rule's: "data", or ("pod",
+    "data")), of its piece over "model" where ``pieces`` gives one:
+    along the dim whose entry names them, over their group
+    (`runtime.sharding.Binding.axis_group`), where the piece's extent
+    there divides; None where no entry names them or it does not
+    divide. The rules name "fsdp" on one dim of a leaf, and `resolve`
+    gives a mesh axis to one dim only, so no leaf is split along two
+    (every config's layout on the (2, 16, 16) mesh, in the tests)."""
     def block(spec, leaf, piece):
         split = []
         for i, e in enumerate(spec):
@@ -446,10 +455,7 @@ def _blocks_over_data(specs: Dict, params_shape: Dict, pieces: Dict,
                 split.append((i, phys))
         if not split:
             return None
-        if len(split) > 1:
-            raise NotImplementedError(
-                f"a leaf split along dims {[i for i, _ in split]} over "
-                "\"data\" (ROADMAP A.4)")
+        assert len(split) == 1, (spec, split)
         dim, phys = split[0]
         local = (piece.size() if piece is not None and piece.dim == dim
                  else leaf.shape[dim])
@@ -597,10 +603,13 @@ def cache_layout(model, cache_shapes, seq_sharded: bool = False) -> Dict:
     ``meta`` tensors) under the active binding: the reference's
     ``_cache_shardings``, from ``model.cache_specs(seq_sharded=...)``
     through `runtime.sharding.resolve`. The prefill cell's layout
-    (``seq_sharded`` False): the batch over "data", the KV heads over
-    "model" where it divides them, the SSM's states over "model" by
-    head; the decode cell's: the sequence over the "seq" rule's axes,
-    which take "model" from the KV heads (then whole). The SSM's states
+    (``seq_sharded`` False), which a decode cell without
+    ``seq_shard_decode`` keeps: the batch over the "batch" rule's axes
+    ("data", or ("pod", "data")), the KV heads over "model" where it
+    divides them (else every KV head on every rank), the SSM's states
+    over "model" by head; the decode cell's with ``seq_shard_decode``:
+    the sequence over the "seq" rule's axes, which take "model" from
+    the KV heads (then whole). The SSM's states
     are whole on every rank where "model" does not divide its heads (the
     block is whole, `tp_layout`), whatever their widths. Raises
     `NotImplementedError` where the "seq" ranks do not divide a
@@ -706,14 +715,17 @@ def relayout(cache: Dict, src: Dict, dst: Dict) -> Dict:
 def _seq_all_to_all(local, seq: Block, heads: Block):
     """The rank's `Block` ``seq`` of positions, every KV head, from each
     "model" rank's `Block` ``heads`` of the heads, every position (of
-    its "data" coordinate's positions where ``seq`` spans "data" too):
-    one all-to-all over "model" a layer (the leaf's leading dim), so the
-    buffers stay one layer's."""
+    the coarse block of its coordinate on the "seq" group's other axes
+    where the group spans more than "model", as ("data", "model") at
+    batch 1: "model" is the group's last axis, so its index is that
+    coordinate times m plus the "model" one): one all-to-all over
+    "model" a layer (the leaf's leading dim), so the buffers stay one
+    layer's."""
     import torch.distributed as dist
     m = heads.axis.extent
     n = seq.axis.extent
     k = local.shape[seq.dim] // n
-    if n > m:                       # ("data", "model"): the coarse block
+    if tuple(seq.axis.axes) != ("model",):      # the coarse block
         local = local.narrow(seq.dim, (seq.axis.index // m) * m * k, m * k)
     shape = list(local.shape)
     shape[seq.dim], shape[heads.dim] = k, shape[heads.dim] * m

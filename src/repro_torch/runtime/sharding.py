@@ -14,7 +14,8 @@ axis already claimed by an earlier dimension is dropped from later ones.
 The port runs its collectives explicitly (`torch.distributed`), so a
 binding also carries the mesh (`launch.mesh.make_mesh`): `batch_axis`
 gives the process group, extent and index of the ranks that split the
-batch ("data"), and `model_axis` those of the ranks that split the heads,
+batch (the "batch" rule: "data", or ("pod", "data") on a mesh with a
+"pod" axis, pod-major), and `model_axis` those of the ranks that split the heads,
 the MLP's width, the vocabulary and the experts ("model");
 `model_axis_over` gives them to a block only where they divide its
 heads or width (else the block is whole on every rank, as `resolve`
@@ -112,17 +113,18 @@ class Binding:
 
     def axis_group(self, phys: Tuple[str, ...]) -> AxisGroup:
         """The ranks over the mesh axes ``phys`` that share this rank's
-        coordinates on every other axis. On a 2-D mesh a group spans
-        one wide axis, or both where they are the whole mesh in the
-        mesh's order (the decode cache split along its sequence over
-        ("data", "model") at batch 1, `launch.cells.parallel_for`): then
-        it is the mesh's world group, and this rank's index is its
-        row-major coordinate over them, the rank's place in the world.
-        Any other group over two wide axes (one of a mesh with a "pod"
-        axis, ROADMAP A.4.5) raises; the ``attn_batch`` fallback needs
-        none (its rows split again over "model" alone, `models.
-        attention`). At extent 1 the group is the mesh's own one-rank
-        group of a single named axis, else None."""
+        coordinates on every other axis: their process group, their
+        number, and this rank's index among them, its row-major
+        coordinate over the wide ones in the mesh's order (how a dim
+        laid over ("pod", "data") is split: pod-major). One wide axis:
+        the mesh's group of that axis; every wide axis of the mesh: the
+        world group; any other set of two or more: the group that
+        `make_axis_groups` made for them when the mesh was made
+        (`launch.mesh.make_mesh`). At extent 1 the group is the mesh's
+        own one-rank group of a single named axis, else None. A mesh of
+        no ranks (a layout reckoned on the meta device, whose axes have
+        no groups) gives None for a group of several axes. Axes named in
+        another order than the mesh's raise: no rule names one."""
         wide = tuple(a for a in phys if self.axis_sizes.get(a, 1) > 1)
         if not wide:
             if (self.mesh is not None and len(phys) == 1
@@ -136,17 +138,62 @@ class Binding:
             return AxisGroup(self.mesh.get_group(wide[0]),
                              self.axis_sizes[wide[0]],
                              self.mesh.get_local_rank(wide[0]), wide)
-        whole = tuple(a for a in self.mesh.mesh_dim_names
-                      if self.axis_sizes.get(a, 1) > 1)
-        if wide != whole:
+        names = tuple(self.mesh.mesh_dim_names)
+        if tuple(a for a in names if a in wide) != wide:
             raise NotImplementedError(
-                f"collectives over mesh axes {list(wide)} of a mesh "
-                f"{list(self.mesh.mesh_dim_names)} (ROADMAP A.4.5)")
-        import torch.distributed as dist
+                f"a group over mesh axes {list(wide)} in another order "
+                f"than the mesh's {list(names)}")
         index = 0
         for a in wide:
             index = index * self.axis_sizes[a] + self.mesh.get_local_rank(a)
-        return AxisGroup(dist.group.WORLD, self.extent(wide), index, wide)
+        whole = tuple(a for a in names if self.axis_sizes.get(a, 1) > 1)
+        if wide == whole:
+            import torch.distributed as dist
+            group = dist.group.WORLD
+        else:
+            groups = getattr(self.mesh, "axis_groups", None)
+            if groups is not None:
+                group = groups[wide]
+            elif self.mesh.get_group(wide[0]) is None:
+                group = None                    # a mesh of no ranks
+            else:
+                raise ValueError(
+                    f"no group over mesh axes {list(wide)}: make the mesh "
+                    "with launch.mesh.make_mesh")
+        return AxisGroup(group, self.extent(wide), index, wide)
+
+
+def make_axis_groups(mesh) -> Dict[Tuple[str, ...], object]:
+    """The process groups of ``mesh`` (a ``DeviceMesh``) over each set of
+    two or more of its wide axes that is not all of them (on a mesh of
+    (pod, data, model) with every axis wide: ("pod", "data"), ("pod",
+    "model") and ("data", "model")): {axes in the mesh's order: this
+    rank's group over them}. ``dist.new_group`` is collective, so every
+    rank makes every group, in one order, once a mesh, never inside a
+    step. A group's ranks are those of the mesh that share one
+    coordinate on the other axes; ``new_group`` orders them by global
+    rank, which on the mesh's row-major layout is their row-major
+    coordinate over the group's axes, `Binding.axis_group`'s index."""
+    import itertools
+
+    import torch.distributed as dist
+    names = tuple(mesh.mesh_dim_names)
+    layout = mesh.mesh
+    wide = [i for i, n in enumerate(layout.shape) if n > 1]
+    me = dist.get_rank()
+    out = {}
+    for k in range(2, len(wide)):
+        for dims in itertools.combinations(wide, k):
+            rest = [i for i in range(layout.dim()) if i not in dims]
+            size = 1
+            for i in dims:
+                size *= layout.shape[i]
+            for row in layout.permute(*rest, *dims).reshape(
+                    -1, size).tolist():
+                group = dist.new_group(ranks=row)
+                if me in row:
+                    out[tuple(names[i] for i in dims)] = group
+    return out
 
 
 def current_binding() -> Optional[Binding]:
@@ -208,11 +255,12 @@ def seq_axis() -> Optional[AxisGroup]:
 
 
 def fsdp_layout() -> Dict[str, Tuple[int, AxisGroup]]:
-    """{leaf path: (dim counted from the end, the "data" ranks)} of the
-    parameters this rank holds as FSDP blocks under the active binding
+    """{leaf path: (dim counted from the end, the ranks of the "fsdp"
+    rule: "data", or ("pod", "data"))} of the parameters this rank holds
+    as FSDP blocks under the active binding
     (`runtime.param_sharding.fsdp_blocks`, set by
     `train.steps.make_train_step`); empty without a binding, with fsdp
-    off or at a "data" extent of 1. Counted from the end, a dim names
+    off or at an extent of 1. Counted from the end, a dim names
     the same axis in a stacked leaf and in one layer of it
     (`models.common.fsdp_gather`)."""
     binding = current_binding()

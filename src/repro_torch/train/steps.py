@@ -9,8 +9,10 @@ for its kernels either: ROADMAP queue C). Prefill and serve run without
 autograd.
 
 Across ranks (``make_train_step(..., mesh=)``, a mesh of (data = d,
-model = m)): each rank holds the contiguous rows of its "data"
-coordinate of the global batch (`data.tokens.TokenDataset.
+model = m), or of (pod = p, data = d, model = m), where "data" below
+means the "batch" rule's axes ("pod", "data"), pod-major, and FSDP's
+blocks lie over the "fsdp" rule's, the same two): each rank holds the
+contiguous rows of its "data" coordinate of the global batch (`data.tokens.TokenDataset.
 rows_for_step`) and, under tensor parallelism (m > 1), its pieces of the
 parameters (`runtime.param_sharding.tp_pieces`), and runs the loss under
 the mesh's binding, where every statistic over the batch is the global
@@ -310,23 +312,24 @@ def serve_binding(model: Model, mesh, parallel: ParallelConfig,
     """The binding of a prefill (or, with ``decode``, a decode) step of a
     ``global_batch`` on ``mesh`` under ``parallel``, as the reference's
     cells bind it (``_mesh_binding``): `launch.mesh.binding_for`'s, with
-    the batch over "data" where "data" divides ``global_batch`` and
-    else whole on every rank ("batch" bound to no axis), and "seq"
-    bound to ``parallel.seq_axes`` that the mesh has and the batch
-    leaves it, as `runtime.sharding.resolve` gives them to the cache's
-    dims; under ``parallel.fsdp`` the parameters' FSDP layout
-    (`state_blocks`); and for a decode step marked ``seq_sharded``: its
-    cache is the decode cell's, split along its sequence, where the
-    "seq" ranks divide its ``seq_len`` positions; where they do not, the
-    reference's resolve drops the axis, and so does this binding: the
-    cache is whole along its sequence on every rank (its KV heads over
-    "model" where "model" divides them) and decode attends it whole.
-    Raises `NotImplementedError` for a decode step whose ``parallel``
-    does not split the cache along its sequence (ROADMAP A.4.4)."""
-    if decode and not parallel.seq_shard_decode:
-        raise NotImplementedError(
-            "decode on a mesh without seq_shard_decode: the cache with "
-            "its KV heads over \"model\" (ROADMAP A.4.4)")
+    the batch over the "batch" rule's axes ("data", or ("pod", "data")
+    on a mesh with a "pod" axis) where their extent divides
+    ``global_batch`` and else whole on every rank ("batch" bound to no
+    axis), and "seq" bound to ``parallel.seq_axes`` that the mesh has
+    and the batch leaves it, as `runtime.sharding.resolve` gives them
+    to the cache's dims (replicated over "pod"); under
+    ``parallel.fsdp`` the parameters' FSDP layout (`state_blocks`).
+    A decode step under ``parallel.seq_shard_decode`` is marked
+    ``seq_sharded``: its cache is the decode cell's, split along its
+    sequence, where the "seq" ranks divide its ``seq_len`` positions;
+    where they do not, the reference's resolve drops the axis, and so
+    does this binding: the cache is whole along its sequence on every
+    rank and decode attends it whole. A decode step without
+    ``seq_shard_decode`` keeps the prefill cell's cache: its KV heads
+    over "model" where "model" divides them (else every KV head on every
+    rank, the queries' heads split as in prefill), every position, the
+    new K/V written into the rank's own heads
+    (`runtime.param_sharding.cache_layout`)."""
     binding = binding_for(mesh, parallel)
     batch = binding.rules["batch"]
     if global_batch % binding.extent(batch):
@@ -340,7 +343,7 @@ def serve_binding(model: Model, mesh, parallel: ParallelConfig,
         layout = state_blocks(model.cfg, TrainConfig(), mesh, parallel)
         binding.fsdp_layout = _fsdp_layout(model.cfg, tree.map_(
             lambda sh: None if sh is None else sh.block, layout["params"]))
-    binding.seq_sharded = decode
+    binding.seq_sharded = decode and parallel.seq_shard_decode
     return binding
 
 
@@ -431,10 +434,11 @@ def make_serve_step(model: Model, mesh=None,
     """One decode iteration: write KV, attend, next token (greedy:
     deterministic, per the paper's execution model). The cache is
     updated in place (``hybrid.decode_step``). With a ``mesh``, as
-    `make_prefill_step`'s, on the cache in the decode cell's layout,
-    split along its sequence over the "seq" ranks (flash-decode,
-    `models.attention`) where they divide the cache's ``seq_len``
-    positions (`serve_binding`). Without a mesh
+    `make_prefill_step`'s, on the cache in the decode cell's layout:
+    under ``parallel.seq_shard_decode`` split along its sequence over
+    the "seq" ranks (flash-decode, `models.attention`) where they divide
+    the cache's ``seq_len`` positions, else the prefill cell's, its KV
+    heads over "model" (`serve_binding`). Without a mesh
     it computes what it always has, bit for bit."""
     binding = _cell_binding(model, mesh, parallel, global_batch,
                             decode=True, seq_len=seq_len)

@@ -5,18 +5,25 @@ For every architecture of `configs` and every shape of `SHAPES`:
 `parallel_for`, `cell_supported`, `count_params` and `model_flops`
 equal the reference's; `input_specs` gives the reference's shapes and
 dtypes leaf by leaf (``meta`` tensors against ShapeDtypeStructs); and on
-meshes (16, 16), (2, 2) and (1, 4), the cache layouts of the prefill and
+meshes (16, 16), (2, 2), (1, 4) and the multi-pod (2, 16, 16) (the
+reference's ``MULTI_POD_RULES``), the cache layouts of the prefill and
 decode cells (`make_cell` over a mesh of no ranks: a group per axis of
 None) name, dim by dim, the mesh axes that the reference's ``resolve``
 gives each cache leaf under its own ``_mesh_binding`` (the reference's
 ``_cache_shardings`` without devices), every config built at every
 mesh (those whose heads or widths "model" does not divide, once
-refused, ROADMAP A.4.6, too: the SSM's states of such a block whole).
+refused, ROADMAP A.4.6, too: the SSM's states of such a block whole);
+and at (2, 2) and (1, 16) the decode cells without
+``seq_shard_decode`` (the cache's KV heads over "model") against the
+reference's specs without ``seq_shard``.
 Besides: `common.greedy_token` under a vocabulary split over two ranks
 picks the lowest global id on a tie between their slices; decode
 attention over a sequence split in two blocks, one of them masked
 whole, combines to the attention over the whole cache; a group over
-("data", "model") is the mesh's world in row-major order; the "seq"
+("data", "model") is the mesh's world in row-major order, and on a
+(2, 2, 2) mesh the groups over ("pod", "data") and ("data", "model")
+index the rank by its row-major coordinate over them (the groups made
+once a mesh: one a pair of axes and coordinate on the third); the "seq"
 rule follows ``ParallelConfig.seq_axes``; and without a mesh the
 prefill and serve steps compute what they computed before the mesh
 path (the model's prefill or decode step, then the argmax), bit for
@@ -53,17 +60,23 @@ from repro_torch.train.steps import (make_prefill_step,  # noqa: E402
 
 NAMES = [next(k for k, v in _ALIASES.items() if v == m) for m in ARCHS]
 CELLS = [(a, s) for a in NAMES for s in SHAPES]
-MESHES = [(16, 16), (2, 2), (1, 4)]
+MESHES = [(16, 16), (2, 2), (1, 4), (2, 16, 16)]
+_AXES = ("pod", "data", "model")
+
+
+def _mesh_id(m):
+    return "x".join(str(n) for n in m)
 
 
 class _FakeMesh:
-    """What the port's bindings read of a mesh of (data, model), with no
-    ranks: a group per axis of None and this rank's coordinates."""
+    """What the port's bindings read of a mesh of (data, model), or of
+    (pod, data, model) for a shape of three, with no ranks: a group per
+    axis of None and this rank's coordinates."""
 
-    def __init__(self, shape, index=(0, 0)):
-        self.mesh_dim_names = ("data", "model")
+    def __init__(self, shape, index=None):
+        self.mesh_dim_names = _AXES[3 - len(shape):]
         self.mesh = torch.zeros(shape)
-        self.index = dict(zip(self.mesh_dim_names, index))
+        self.index = dict(zip(self.mesh_dim_names, index or (0,) * 3))
 
     def get_group(self, name):
         return None
@@ -76,7 +89,7 @@ class _FakeJMesh:
     """What the reference's ``_mesh_binding`` reads of a mesh."""
 
     def __init__(self, shape):
-        self.axis_names = ("data", "model")
+        self.axis_names = _AXES[3 - len(shape):]
         self.devices = np.empty(shape)
 
 
@@ -133,7 +146,9 @@ def test_input_specs_equal_the_reference(arch, shape):
 
 
 def _want_cache(arch, shape, mesh, seq_sharded):
-    """The reference's resolved spec of each cache leaf of the cell."""
+    """The reference's resolved spec of each cache leaf of the cell (with
+    ``seq_sharded`` False for a decode cell: the cache without
+    ``seq_shard``)."""
     cfg, sh = j_get_config(arch), J_SHAPES[shape]
     model = j_get_model(cfg)
     parallel = j_cells.parallel_for(cfg, sh)
@@ -154,7 +169,27 @@ SERVING = [(a, s) for a, s in CELLS if SHAPES[s].kind != "train"
            and cells.cell_supported(get_config(a), SHAPES[s])[0]]
 
 
-@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def _held_to(layout, want, cfg, mesh):
+    """``layout`` (a tree of `Parts`) names the axes of ``want``, the
+    reference's specs (the SSM's states of a block whose heads "model"
+    does not divide whole, as the port runs such a block), and splits
+    exactly the dims whose axes are wider than one."""
+    from repro_torch.runtime.param_sharding import tp_layout
+    got = {k: v.spec for k, v in tree.items(layout)}
+    if tp_layout(cfg, mesh[-1]).get("ssm") == "whole":
+        want = {k: tuple(None if e == "model" else e for e in v)
+                if k.endswith(("conv", "ssm")) else v
+                for k, v in want.items()}
+    assert got == want
+    sizes = dict(zip(_AXES[3 - len(mesh):], mesh))
+    for k, parts in tree.items(layout):
+        wide = [i for i, e in enumerate(parts.spec) if e is not None and
+                np.prod([sizes[a] for a in ((e,) if isinstance(e, str)
+                                             else e)]) > 1]
+        assert [p.dim for p in parts.parts] == wide, k
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=_mesh_id)
 @pytest.mark.parametrize("arch,shape", SERVING,
                          ids=[f"{a}-{s}" for a, s in SERVING])
 def test_cache_layouts_name_the_reference_axes(arch, shape, mesh):
@@ -163,25 +198,35 @@ def test_cache_layouts_name_the_reference_axes(arch, shape, mesh):
     block whose heads it does not divide are whole on every rank (the
     port runs such a block whole), where the reference's resolve may
     still split their flat width."""
-    from repro_torch.runtime.param_sharding import tp_layout
     cfg = get_config(arch)
     cell = cells.make_cell(cfg, SHAPES[shape], _FakeMesh(mesh),
                            device="cpu")
     decode = SHAPES[shape].kind == "decode"
     layout = cell.in_layouts[2] if decode else cell.out_layouts[1]
-    got = {k: v.spec for k, v in tree.items(layout)}
-    want = _want_cache(arch, shape, mesh, decode)
-    if tp_layout(cfg, mesh[1]).get("ssm") == "whole":
-        want = {k: tuple(None if e == "model" else e for e in v)
-                if k.endswith(("conv", "ssm")) else v
-                for k, v in want.items()}
-    assert got == want
-    # the parts split exactly the dims whose axes are wider than one
-    for k, parts in tree.items(layout):
-        wide = [i for i, e in enumerate(parts.spec) if e is not None and
-                np.prod([dict(zip(("data", "model"), mesh))[a]
-                         for a in ((e,) if isinstance(e, str) else e)]) > 1]
-        assert [p.dim for p in parts.parts] == wide, k
+    _held_to(layout, _want_cache(arch, shape, mesh, decode), cfg, mesh)
+
+
+DECODING = [(a, s) for a, s in SERVING if SHAPES[s].kind == "decode"]
+KV_MESHES = [(2, 2), (1, 16)]
+
+
+@pytest.mark.parametrize("mesh", KV_MESHES, ids=_mesh_id)
+@pytest.mark.parametrize("arch,shape", DECODING,
+                         ids=[f"{a}-{s}" for a, s in DECODING])
+def test_kv_heads_cache_layouts_name_the_reference_axes(arch, shape, mesh):
+    """A decode cell without ``seq_shard_decode`` (`make_cell` given
+    that ``parallel``) keeps the prefill cell's cache: its KV heads over
+    "model" where "model" divides them, every position; the reference's
+    ``cache_specs`` without ``seq_shard`` under its ``_mesh_binding``."""
+    import dataclasses
+    cfg = get_config(arch)
+    parallel = dataclasses.replace(cells.parallel_for(cfg, SHAPES[shape]),
+                                   seq_shard_decode=False)
+    cell = cells.make_cell(cfg, SHAPES[shape], _FakeMesh(mesh),
+                           device="cpu", parallel=parallel)
+    assert not cell.step.binding.seq_sharded
+    _held_to(cell.in_layouts[2], _want_cache(arch, shape, mesh, False),
+             cfg, mesh)
 
 
 def test_long_context_cells_skip_as_the_reference():
@@ -284,8 +329,52 @@ def test_group_over_data_and_model_is_the_world_in_row_major():
         axis = b.axis_group(("data", "model"))
         assert (axis.extent, axis.index, axis.axes) == (
             4, 2 * d + m, ("data", "model"))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.4\.5"):
+    # on a (2, 2, 2) mesh: the row-major coordinate over the group's
+    # axes (pod-major over ("pod", "data"), as the reference lays a dim)
+    for p in (0, 1):
+        for d in (0, 1):
+            for m in (0, 1):
+                b = binding_for(_FakeMesh((2, 2, 2), (p, d, m)))
+                assert b.rules["batch"] == ("pod", "data")
+                batch = b.axis_group(b.rules["batch"])
+                assert (batch.extent, batch.index, batch.axes) == (
+                    4, 2 * p + d, ("pod", "data"))
+                seq = b.axis_group(("data", "model"))
+                assert (seq.extent, seq.index, seq.axes) == (
+                    4, 2 * d + m, ("data", "model"))
+                every = b.axis_group(("pod", "data", "model"))
+                assert (every.extent, every.index) == (8, 4 * p + 2 * d + m)
+    with pytest.raises(NotImplementedError, match="another order"):
         binding_for(_FakeMesh((2, 2))).axis_group(("model", "data"))
+
+
+def test_axis_groups_of_a_2x2x2_mesh(monkeypatch):
+    """`runtime.sharding.make_axis_groups` on a (2, 2, 2) mesh (every
+    rank making every group, `dist.new_group` recorded): one group for
+    each pair of axes and each coordinate on the third, its ranks in
+    row-major order over the pair; rank 5 (pod 1, data 0, model 1) keeps
+    the groups it belongs to, and `Binding.axis_group` takes them with
+    the rank's index among their ranks."""
+    import torch.distributed as dist
+    made = []
+    monkeypatch.setattr(dist, "new_group",
+                        lambda ranks: made.append(tuple(ranks)) or made[-1])
+    monkeypatch.setattr(dist, "get_rank", lambda: 5)
+    mesh = _FakeMesh((2, 2, 2), (1, 0, 1))
+    mesh.mesh = torch.arange(8).view(2, 2, 2)
+    groups = shlib.make_axis_groups(mesh)
+    assert made == [(0, 2, 4, 6), (1, 3, 5, 7),      # ("pod", "data")
+                    (0, 1, 4, 5), (2, 3, 6, 7),      # ("pod", "model")
+                    (0, 1, 2, 3), (4, 5, 6, 7)]      # ("data", "model")
+    assert groups == {("pod", "data"): (1, 3, 5, 7),
+                      ("pod", "model"): (0, 1, 4, 5),
+                      ("data", "model"): (4, 5, 6, 7)}
+    mesh.axis_groups = groups
+    b = binding_for(mesh)
+    for axes in groups:
+        axis = b.axis_group(axes)
+        assert axis.group == groups[axes]
+        assert axis.group[axis.index] == 5
 
 
 def test_seq_rule_follows_seq_axes():
@@ -309,8 +398,9 @@ def test_seq_rule_follows_seq_axes():
 
 def test_serving_steps_on_a_mesh_take_the_cells_choices():
     """On a mesh the serving steps take the cell's ``parallel`` and
-    global batch (`launch.cells.make_cell`), and a decode step refuses
-    a cache whose sequence ``parallel`` does not split."""
+    global batch (`launch.cells.make_cell`); a decode step whose
+    ``parallel`` does not split the cache's sequence is built, its cache
+    the prefill cell's (its KV heads over "model"): no flash-decode."""
     model = get_model(get_smoke("qwen3-8b"), device="cpu")
     mesh = _FakeMesh((1, 2))
     decode = ParallelConfig(seq_shard_decode=True)
@@ -318,8 +408,11 @@ def test_serving_steps_on_a_mesh_take_the_cells_choices():
         make_prefill_step(model, mesh)
     with pytest.raises(TypeError, match="make_cell"):
         make_serve_step(model, mesh, decode)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.4\.4"):
-        make_serve_step(model, mesh, ParallelConfig(), 4)
+    kv = make_serve_step(model, mesh, ParallelConfig(), 4).binding
+    assert not kv.seq_sharded
+    with shlib.use_binding(kv):
+        assert shlib.seq_axis() is None
+        assert shlib.model_axis().extent == 2
     assert make_serve_step(model, mesh, decode, 4).binding.seq_sharded
     assert not make_prefill_step(model, mesh, decode,
                                  4).binding.seq_sharded

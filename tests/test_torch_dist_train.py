@@ -41,8 +41,8 @@ straddle two ranks: 512 tokens at world 2, (4, 128), and 1,024 at world
   checkpoint restored at world 4 (split, gathered again) and at world 1
   is bit for bit the saved state; the runs resumed from it to step 4
   agree with the uncut run within rtol 1e-5 (metrics) and 1e-4 (state).
-- `make_mesh` refuses a "pod" extent above 1 (or any axis but "data"
-  and "model" wider than 1) and a pipeline "pod" axis, and builds a
+- `make_mesh` refuses an axis that no rule binds wider than 1, builds
+  a "pod" of 2 (a pipeline "pod" too, bound as data), and builds a
   "model" axis of 2 (tests/test_torch_tp.py runs it) and a "data" axis
   of 2 under fsdp (tests/test_torch_fsdp.py runs it);
   `make_production_mesh` wants 256 ranks.
@@ -370,12 +370,18 @@ def test_restore_at_world_1_and_continue(loops, tmp_path):
 
 
 def test_make_mesh_refuses_what_it_does_not_run(dist):
-    """An axis other than "data" and "model" wider than 1, a "pod" of 2
-    and a pipeline "pod" raise; a "model" axis of 2 is built, and so is
-    a "data" axis of 2 under fsdp (tests/test_torch_fsdp.py runs it)."""
+    """An axis that no rule binds wider than 1 raises, and so does the
+    production mesh on two ranks; a "pod" of 2 is built with the
+    reference's multi-pod rules (the batch and FSDP's blocks over
+    ("pod", "data")), a pipeline "pod" too, bound as data as the
+    reference binds it; a "model" axis of 2 is built, and so is a
+    "data" axis of 2 (tests/test_torch_fsdp.py runs FSDP on it)."""
     got = dist[2]["refusals"]
-    assert all(msg is not None for msg in got[:4]), got
-    assert all("ROADMAP A.4" in msg for msg in got[:3]), got
+    assert "no sharding rule" in got[0], got
+    pod = ((("pod", 2), ("data", 1), ("model", 1)), ("pod", "data"),
+           ("pod", "data"))
+    assert got[1] == pod, got
+    assert got[2] == pod, got
     assert "256 ranks" in got[3]
     assert got[4] == (("data", 1), ("model", 2))
     assert got[5] == (("data", 2), ("model", 1))

@@ -6,10 +6,13 @@ the layer's body (inside remat, so the recompute gathers again) and gets
 their gradients back reduce-scattered in f32.
 
 - Layout, on the meta device, no process group: for every full-width
-  config of the registry at (data 2, model 2), (4, 1) and (16, 16), each
-  parameter's FSDP block lies on the dim where the reference's
-  ``param_pspecs`` under a binding with ``fsdp=True`` names "data", with
-  the extent of "data" (none where the spec names none), its piece on
+  config of the registry at (data 2, model 2), (4, 1), (16, 16) and the
+  multi-pod (pod 2, data 16, model 16) (the reference's
+  ``MULTI_POD_RULES``: "fsdp" over ("pod", "data")), each parameter's
+  FSDP block lies on the dim where the reference's ``param_pspecs``
+  under a binding with ``fsdp=True`` names "data", with the extent of
+  its axes and the rank's pod-major index over them (none where the
+  spec names none), its piece on
   the dim where the spec names "model" (but for the port's own layouts,
   `runtime.param_sharding`), and each moment's block where the
   reference's ``specs_from_logical(zero1_moment_axes(...),
@@ -121,7 +124,7 @@ IDS = [f"{c}-{m[0]}x{m[1]}" for c, m in PAIRS]
 EXTRAS2 = {(2, 1): {"mb": ("gemma3", SMALL), "faults": ("gemma3", SMALL)},
            (1, 2): {"plain": ("gemma3", SMALL)}}
 FULL = sorted(_ALIASES)
-LAYOUT_MESHES = [(2, 2), (4, 1), (16, 16)]
+LAYOUT_MESHES = [(2, 2), (4, 1), (16, 16), (2, 16, 16)]
 
 
 @pytest.fixture(scope="module")
@@ -372,18 +375,21 @@ def _own_piece(path):
 
 
 @pytest.mark.parametrize("mesh", LAYOUT_MESHES,
-                         ids=[f"{d}x{m}" for d, m in LAYOUT_MESHES])
+                         ids=["x".join(map(str, m)) for m in LAYOUT_MESHES])
 @pytest.mark.parametrize("arch", FULL)
 def test_fsdp_layout_matches_reference_specs(arch, mesh):
     cfg, ref, port = _trees(arch)
-    d, m = mesh
+    names = ("pod", "data", "model")[3 - len(mesh):]
+    rules = (j_shlib.MULTI_POD_RULES if len(mesh) == 3
+             else j_shlib.SINGLE_POD_RULES)
+    d, m = int(np.prod(mesh[:-1])), mesh[-1]     # the "fsdp" ranks, model
     with j_shlib.use_binding(j_shlib.Binding(
-            j_shlib.SINGLE_POD_RULES, {"data": d, "model": m}, fsdp=True)):
+            rules, dict(zip(names, mesh)), fsdp=True)):
         pspecs = _flat_specs(j_psh.param_pspecs(ref))
         moments = _flat_specs(j_psh.specs_from_logical(
             j_psh.zero1_moment_axes(j_psh.logical_param_axes(ref), ref),
             ref, keep_fsdp=True))
-    rank = (d - 1, m - 1)
+    rank = tuple(n - 1 for n in mesh)       # the last rank: d - 1 pod-major
     fake = _tool()._MeshShape(mesh, rank)
     layout = state_blocks(cfg, TrainConfig(), fake,
                           ParallelConfig(fsdp=True))
@@ -402,7 +408,7 @@ def test_fsdp_layout_matches_reference_specs(arch, mesh):
         else:
             n_split += 1
             assert (block.dim, block.axis.extent, block.axis.index) == (
-                data_dim, d, rank[0]), path
+                data_dim, d, d - 1), path
         # a block "model" does not divide is whole: no piece, or (KV heads
         # under split query heads, the attn_batch fallback's leaves) a
         # piece of the whole leaf

@@ -3,8 +3,9 @@ data-parallel tests).
 
 `run_ranks(fn, n, tmp_dir, *args, shape=None)` spawns n processes; each
 starts the group from a file under ``tmp_dir`` (no port, so it is safe
-under pytest-xdist), builds the mesh of ``shape`` on ("data", "model")
-(default (n, 1): every rank on "data") and returns ``fn(mesh, rank,
+under pytest-xdist), builds the mesh of ``shape`` on ("data", "model"),
+or on ("pod", "data", "model") for a shape of three (default (n, 1):
+every rank on "data") and returns ``fn(mesh, rank,
 *args)``; the parent gets the n results in rank order. This module
 imports neither JAX nor the reference, so the ranks start quickly.
 """
@@ -32,7 +33,8 @@ def _rank_main(rank, n, tmp_dir, threads, shape):
             "gloo", init_method="file://" + os.path.join(tmp_dir, "group"),
             rank=rank, world_size=n)
         try:
-            mesh = make_mesh(shape or (n, 1), ("data", "model"))
+            shape = tuple(shape or (n, 1))
+            mesh = make_mesh(shape, _AXES[3 - len(shape):])
             result = fn(mesh, rank, *args)
         finally:
             dist.destroy_process_group()
@@ -40,6 +42,17 @@ def _rank_main(rank, n, tmp_dir, threads, shape):
     except BaseException:
         torch.save({"error": traceback.format_exc()}, out)
         raise
+
+
+_AXES = ("pod", "data", "model")
+
+
+def _batch_axis(mesh):
+    """The ranks that split the batch: the "batch" rule's group
+    ("data", or ("pod", "data") on a mesh with a "pod" axis)."""
+    from repro_torch.launch.mesh import binding_for
+    binding = binding_for(mesh)
+    return binding.axis_group(binding.rules["batch"])
 
 
 def start_ranks(fn, n, tmp_dir, *args, threads=1, shape=None):
@@ -94,9 +107,10 @@ def run_ranks(fn, n, tmp_dir, *args, threads=1, timeout=600, shape=None):
 # ---------------------------------------------------------------------------
 
 
-def compress_rank(mesh, rank, per_rank):
-    """`compressed_psum_mean` of this rank's numpy tree, without and with
-    the residual: {"mean", "mean_r", "residual"} as numpy trees."""
+def compress_rank(mesh, rank, per_rank, axes=("data",)):
+    """`compressed_psum_mean` over the mesh axes ``axes`` of this rank's
+    numpy tree, without and with the residual: {"mean", "mean_r",
+    "residual"} as numpy trees."""
     from repro_torch import tree
     from repro_torch.launch.mesh import binding_for
     from repro_torch.optim.compress import compressed_psum_mean
@@ -106,8 +120,9 @@ def compress_rank(mesh, rank, per_rank):
     as_t = lambda t: tree.map_(torch.from_numpy, t)        # noqa: E731
     as_np = lambda t: tree.map_(lambda x: x.numpy(), t)     # noqa: E731
     with use_binding(binding_for(mesh)):
-        mean, none = compressed_psum_mean(as_t(grads), "data")
-        mean_r, new_r = compressed_psum_mean(as_t(grads), ("data",),
+        mean, none = compressed_psum_mean(
+            as_t(grads), axes[0] if len(axes) == 1 else axes)
+        mean_r, new_r = compressed_psum_mean(as_t(grads), tuple(axes),
                                              as_t(residual))
     assert none is None
     return {"mean": as_np(mean), "mean_r": as_np(mean_r),
@@ -132,7 +147,6 @@ def dp_run(mesh, arch, overrides, init, shape, steps, zero1=True,
     from repro_torch import checkpoint, tree
     from repro_torch.configs import ParallelConfig, TrainConfig
     from repro_torch.data import TokenDataset
-    from repro_torch.launch.mesh import binding_for
     from repro_torch.models import get_model, params_from_numpy
     from repro_torch.optim import adamw_init
     from repro_torch.train.steps import (make_train_step, moment_blocks,
@@ -148,7 +162,7 @@ def dp_run(mesh, arch, overrides, init, shape, steps, zero1=True,
     state = {"params": params, "opt": adamw_init(params,
                                                  moment_blocks(blocks))}
     step_fn = make_train_step(model, tcfg, mesh, parallel)
-    axis = binding_for(mesh).axis_group(("data",))
+    axis = _batch_axis(mesh)
     data = TokenDataset(cfg, *shape, seed=0)
     out = []
     for i in range(1, steps + 1):
@@ -179,7 +193,7 @@ def remat_thread_grads(mesh, arch, overrides, init, shape):
     model = get_model(cfg, device="cpu")
     params = params_from_numpy(cfg, tree.map_(lambda a: a.copy(), init),
                                device="cpu")
-    axis = binding_for(mesh).axis_group(("data",))
+    axis = _batch_axis(mesh)
     rows = TokenDataset(cfg, *shape, seed=0).rows_for_step(
         1, axis.index, axis.extent)
     batch = {k: torch.from_numpy(v) for k, v in rows.items()}
@@ -312,19 +326,22 @@ def loop_rank_resume(mesh, rank, root):
 
 def refusals_rank(mesh, rank):
     """What `make_mesh` and `make_production_mesh` say to the layouts
-    this port does not run (None where one did not raise), then the
-    axes of the (data 1, model 2) mesh and of the (data 2, model 1) mesh
-    under ``ParallelConfig(fsdp=True)`` that `make_mesh` now builds."""
+    this port does not run (None where one did not raise) or, where one
+    builds, the mesh's axes and its binding's "batch" and "fsdp" rules
+    (a pipeline "pod" binds as data); then the axes of the (data 1,
+    model 2) and (data 2, model 1) meshes that `make_mesh` builds."""
     from repro_torch.configs import ParallelConfig
-    from repro_torch.launch.mesh import (make_mesh, make_production_mesh,
-                                         mesh_axes)
+    from repro_torch.launch.mesh import (binding_for, make_mesh,
+                                         make_production_mesh, mesh_axes)
     out = []
-    for kwargs in (dict(shape=(1, 2), axes=("data", "expert")),
-                   dict(shape=(2, 1, 1), axes=("pod", "data", "model")),
-                   dict(parallel=ParallelConfig(pod_axis_role="pipeline"))):
+    pod = (2, 1, 1), ("pod", "data", "model")
+    for shape, axes, parallel in (
+            ((1, 2), ("data", "expert"), None), pod + (None,),
+            pod + (ParallelConfig(pod_axis_role="pipeline"),)):
         try:
-            make_mesh(**kwargs)
-            out.append(None)
+            built = make_mesh(shape, axes)
+            rules = binding_for(built, parallel).rules
+            out.append((mesh_axes(built), rules["batch"], rules["fsdp"]))
         except NotImplementedError as exc:
             out.append(str(exc))
     try:
@@ -333,8 +350,7 @@ def refusals_rank(mesh, rank):
     except ValueError as exc:
         out.append(str(exc))
     out.append(mesh_axes(make_mesh((1, 2), ("data", "model"))))
-    out.append(mesh_axes(make_mesh((2, 1), ("data", "model"),
-                                   parallel=ParallelConfig(fsdp=True))))
+    out.append(mesh_axes(make_mesh((2, 1), ("data", "model"))))
     return out
 
 
@@ -345,11 +361,11 @@ def refusals_rank(mesh, rank):
 
 def _mesh_of(mesh, shape):
     """``mesh`` where it has ``shape``, else a new mesh of ``shape`` over
-    the same ranks."""
+    the same ranks (on ("pod", "data", "model") for a shape of three)."""
     from repro_torch.launch.mesh import make_mesh
     if tuple(mesh.mesh.shape) == tuple(shape):
         return mesh
-    return make_mesh(shape, ("data", "model"))
+    return make_mesh(shape, _AXES[3 - len(shape):])
 
 
 def _smoke_params(cfg, seed=0):
@@ -695,3 +711,50 @@ def fallback_rank(mesh, rank, shapes, cases, faults=None, serve=None):
             got[("serve", name)] = r
         out[tuple(shape)] = got
     return out if rank == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# The "pod" axis (tests/test_torch_pod.py)
+# ---------------------------------------------------------------------------
+
+
+POD_MESHES = ((2, 2, 1), (2, 1, 2), (4, 1), (2, 2))
+POD_LOOP = "pod_uncut"
+
+
+def pod_rank(mesh, rank, cases, root, per_rank):
+    """World 4, on each mesh of POD_MESHES in order (over this group):
+    `dp_run` with FSDP of every case of ``cases`` ({name: {"arch",
+    "overrides", "init", "shape", "steps"}}); at (2, 2, 1) also one step
+    of "gemma3" with the gradients summed over "data" alone
+    (tools/dist_train_scaling.py's fault ``pod_unsummed``), the int8
+    mean of ``per_rank`` over ("pod", "data") (`compress_rank`), and a
+    4-step `train_loop` with FSDP saving at step 2 in ``root``; at
+    (4, 1) that save restored with FSDP (`restored_state`); on each mesh
+    with a "pod" axis the serving tool's f32 checks (`f32_rank`, its
+    fault where "model" >= 2). Every rank: {"compress": its int8 means},
+    rank 0 also {"meshes": {shape: {name: result}}}."""
+    from repro_torch.configs import ParallelConfig
+    fsdp = ParallelConfig(fsdp=True)
+    out, mine = {}, None
+    for shape in POD_MESHES:
+        m = _mesh_of(mesh, shape)
+        got = {name: dp_run(m, c["arch"], c["overrides"], c["init"],
+                            c["shape"], c["steps"], fsdp=True)
+               for name, c in cases.items()}
+        if shape == (2, 2, 1):
+            c = cases["gemma3"]
+            with _tool().fault_in("pod_unsummed"):
+                got["pod_unsummed"] = dp_run(m, c["arch"], c["overrides"],
+                                             c["init"], c["shape"], 1,
+                                             fsdp=True)
+            mine = compress_rank(m, rank, per_rank, ("pod", "data"))
+            got["uncut"] = loop_run(m, root, POD_LOOP, 4, parallel=fsdp)
+        if shape == (4, 1):
+            got["restored"] = restored_state(m, root, POD_LOOP, 2,
+                                             parallel=fsdp)
+        if len(shape) == 3:
+            got["serve"] = serve_tool().f32_rank(m, "cpu")
+        out[shape] = got
+    return ({"meshes": out, "compress": mine} if rank == 0
+            else {"compress": mine})

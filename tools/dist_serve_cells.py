@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The serving cells across the cards of one host: prefill and decode on
-a (data, model) mesh, the decode KV cache split along its sequence.
+a (data, model) or (pod, data, model) mesh, the decode KV cache split
+along its sequence, or with ``--kv-heads`` its KV heads over "model".
 
 Run from the repository root on a machine with CUDA cards:
 
@@ -8,6 +9,8 @@ Run from the repository root on a machine with CUDA cards:
     python3 tools/dist_serve_cells.py --meshes 1x4 2x2 --f32-only
     python3 tools/dist_serve_cells.py --smoke --device cpu --meshes 1x2
     python3 tools/dist_serve_cells.py --meshes 1x3 --fallback
+    python3 tools/dist_serve_cells.py --meshes 2x1x2 2x2x1
+    python3 tools/dist_serve_cells.py --meshes 1x4 --kv-heads
 
 Each world size runs in its own spawn of one process a card (NCCL for
 CUDA tensors, gloo for CPU ones, over tcp://localhost on a free port),
@@ -36,6 +39,17 @@ inputs and outputs; `runtime.param_sharding.relayout`).
     divide their heads, the cases of FALLBACK_CASES at a global batch
     of 2 d m rows (gemma3 with ``attn_batch_fallback``, qwen3 with 3
     heads and one KV head, with and without it).
+  - on a mesh (pod P, data D, model M) (``--meshes PxDxM``, the
+    reference's multi-pod rules: the batch over ("pod", "data"), "seq"
+    over ("model",), or ("data", "model") at batch 1, replicated over
+    "pod"), the f32 checks of POD_CASES at batch 4 and at batch 1 and of
+    KV_CASES; with ``--kv-heads`` (or on such a mesh) the decode cells
+    of KV_CASES without ``seq_shard_decode``: the cache in the prefill
+    cell's layout, its KV heads over "model" where "model" divides them
+    (qwen3's 2 at "model" 2), else whole on every rank (gemma3's one),
+    seamless's cross-attention cache too; at "model" >= 2 the fault
+    ``kv_block0`` (every rank writes the new K/V of head block 0, rank
+    0's heads, into its cache), which the check must catch.
   - bf16 runs (`--timed`, default on CUDA): qwen3-8b at full width and
     depth, a 4,096-token prompt at a global batch of 16 (QWEN_PROMPT),
     the cache grown to decode_32k's 32,768 positions, relayout, DECODE
@@ -54,7 +68,15 @@ inputs and outputs; `runtime.param_sharding.relayout`).
     (its dispatch groups over both "data" ranks' rows) decoding a
     QWEN_PROMPT prompt grown to QWEN_LEN positions, DECODE steps fed
     one card's tokens and held to one card's under the near-tie rule,
-    then DECODE timed ones. Each: ms a step, tok/s,
+    then DECODE timed ones. On a mesh (P, 1, M), M >= 2: the qwen3-8b
+    decode and zamba2's prefill cell as at (1, 4); on (P, D, 1), D >= 2:
+    zamba2 long_500k as at (2, 2). With ``--kv-heads`` on a 2-D mesh of
+    "model" >= 2: after the qwen3-8b decode, the same decode with the
+    cache's KV heads over "model" (8 KV heads, 2 a card at (1, 4), no
+    all-to-all), in place of zamba2's prefill cell. With
+    ``--prefill-only``, in place of all of these: on each mesh of
+    "model" >= 2, zamba2's prefill cell at prefill_32k's length, batch
+    1, its next token against one card's. Each: ms a step, tok/s,
     peak GB a card (the largest over the ranks), the cache a card
     reckoned by bytes, NCCL calls a step (counted at the
     ``torch.distributed`` calls), and each kernel's launches summed over
@@ -82,8 +104,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
 
-from dist_train_scaling import (_Timer, _dev, _start, card,  # noqa: E402
-                                free_port, say)
+from dist_train_scaling import (_Timer, _axes, _dev, _dm,  # noqa: E402
+                                _mesh_arg, _start, card, free_port, say)
 from repro_torch.runtime.param_sharding import take_parts  # noqa: E402
 
 # the f32 checks: (name, arch, overrides, global batch); prompt PROMPT,
@@ -102,6 +124,15 @@ F32_CASES = (
     ("qwen2-vl", "qwen2-vl-2b", {}, 4),
 )
 BATCH1 = ("zamba2", "gemma3")   # batch 1, "seq" over ("data", "model")
+# on a mesh with a "pod" axis, at batch 4 and at batch 1
+POD_CASES = ("qwen3", "zamba2")
+# decode cells without seq_shard_decode: the KV heads over "model"
+KV_CASES = (
+    ("qwen3-kv", "qwen3-8b", {}),
+    ("gemma3-kv", "gemma3-1b", {}),
+    ("seamless-kv", "seamless-m4t-large-v2", {}),
+)
+KV_FAULT = ("qwen3-kv", "kv_block0")
 # blocks "model" does not divide (name, arch, overrides), at a global
 # batch of 2 d m rows, which the attn_batch fallback splits over
 # ("data", "model")
@@ -149,7 +180,7 @@ def fault_in(fault):
     from repro_torch.models import attention, common
     from repro_torch.runtime import collectives
     kept = (attention.combine_partials, attention.seq_slot,
-            common.greedy_token)
+            common.greedy_token, attention._decode_qkv)
 
     def unrescaled(mx, denom, numer, seq):
         every = collectives.gathered(
@@ -164,6 +195,16 @@ def fault_in(fault):
     def local_argmax(logits, params, cfg):
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
+    def kv_block0(params, cfg, *args, **kwargs):
+        # each rank's new K/V replaced by head block 0's (rank 0's)
+        q, k, v, keep = kept[3](params, cfg, *args, **kwargs)
+        axis = attention.heads_axis(cfg)
+        if keep is None and axis is not None:
+            every = collectives.gathered(torch.cat([k, v], 2).contiguous(),
+                                         axis)[0]
+            k, v = every.split(k.shape[2], dim=2)
+        return q, k, v, keep
+
     try:
         if fault == "unrescaled":
             attention.combine_partials = unrescaled
@@ -171,12 +212,14 @@ def fault_in(fault):
             attention.seq_slot = every_rank
         elif fault == "local_argmax":
             common.greedy_token = local_argmax
+        elif fault == "kv_block0":
+            attention._decode_qkv = kv_block0
         elif fault is not None:
             raise ValueError(fault)
         yield
     finally:
         (attention.combine_partials, attention.seq_slot,
-         common.greedy_token) = kept
+         common.greedy_token, attention._decode_qkv) = kept
 
 
 @contextlib.contextmanager
@@ -256,7 +299,9 @@ def f32_case(mesh, name, arch, overrides, batch, fault=None,
     """The f32 check of one case on ``mesh`` (module doc), from the
     smoke parameters of seed 0 and a prompt of seed 1, the same on every
     rank; the decode cell's "seq" over `launch.cells.parallel_for`'s
-    axes (at batch 1: ("data", "model")). Returns this rank's readings:
+    axes (at batch 1: ("data", "model")), or for a case of KV_CASES its
+    cache's KV heads over "model" (no ``seq_shard_decode``). Returns
+    this rank's readings:
     "refused" (the message, where the mesh refuses the config), else
     "prefill" and "decode" {"tokens_equal", "logits_err" (of the
     largest |logit|), "cache_err"}, "relayout_exact"; with
@@ -302,10 +347,14 @@ def f32_case(mesh, name, arch, overrides, batch, fault=None,
            "batch": batch}
     pshape = ShapeConfig("prefill", "prefill", PROMPT, batch)
     dshape = ShapeConfig("decode", "decode", dec_len, batch)
+    kv = name in {n for n, *_ in KV_CASES}
+    out["kv_heads"] = kv
     try:
         with fault_in(fault):
             pcell = cells.make_cell(cfg, pshape, mesh, device=dev)
-            dcell = cells.make_cell(cfg, dshape, mesh, device=dev)
+            dcell = cells.make_cell(cfg, dshape, mesh, device=dev,
+                                    parallel=_decode_parallel(cfg, dshape,
+                                                              kv))
             out["seq_axes"] = list(dcell.parallel.seq_axes)
             p_local = take_parts(params, pcell.in_layouts[0])
             with logits_recorded() as rec:
@@ -372,12 +421,35 @@ def case_ok(r: dict) -> bool:
         and r[k]["cache_err"] <= CACHE_TOL for k in ("prefill", "decode")))
 
 
-def f32_jobs(mesh_shape, faults: bool = True) -> list:
+def _decode_parallel(cfg, shape, kv_heads: bool):
+    """The decode cell's `ParallelConfig`: `launch.cells.parallel_for`'s,
+    without ``seq_shard_decode`` where ``kv_heads``."""
+    import dataclasses
+
+    from repro_torch.launch import cells
+    parallel = cells.parallel_for(cfg, shape)
+    return (dataclasses.replace(parallel, seq_shard_decode=False)
+            if kv_heads else parallel)
+
+
+def f32_jobs(mesh_shape, faults: bool = True, kv_heads: bool = False
+             ) -> list:
     """The f32 cases of a mesh (module doc): (name, arch, overrides,
     batch, fault); the faults where ``faults`` and "model" divides the
     decode cache's MAX_LEN positions (else the cache is whole along
-    them, and nothing combines: `train.steps.serve_binding`)."""
-    data, model = mesh_shape
+    them, and nothing combines: `train.steps.serve_binding`). On a mesh
+    with a "pod" axis: POD_CASES at batch 4 and 1, KV_CASES, and at
+    "model" >= 2 with ``faults`` the fault KV_FAULT; KV_CASES (and
+    their fault) on the others with ``kv_heads``."""
+    data, model = _dm(mesh_shape)
+    kv = [(n, a, o, 4, None) for n, a, o in KV_CASES]
+    if faults and model >= 2:
+        name, fault = KV_FAULT
+        kv += [(n, a, o, 4, fault) for n, a, o in KV_CASES if n == name]
+    if len(mesh_shape) == 3:
+        pod = [c for c in F32_CASES if c[0] in POD_CASES]
+        return ([(n, a, o, b, None) for n, a, o, b in pod]
+                + [(n, a, o, 1, None) for n, a, o, _ in pod] + kv)
     jobs = [(n, a, o, b, None) for n, a, o, b in F32_CASES]
     if data == 2 and model >= 2:
         jobs += [(n, a, o, 1, None) for n, a, o, _ in F32_CASES
@@ -389,23 +461,24 @@ def f32_jobs(mesh_shape, faults: bool = True) -> list:
     if faults and model >= 2 and MAX_LEN % model == 0:
         case = next(c for c in F32_CASES if c[0] == FAULT_CASE)
         jobs += [(*case, f) for f in FAULTS]
-    return jobs
+    return jobs + (kv if kv_heads else [])
 
 
 def case_of(name) -> tuple:
     """(arch, overrides) of the f32 case ``name``."""
     return next((a, o) for n, a, o, *_ in F32_CASES + FALLBACK_CASES
-                if n == name)
+                + KV_CASES if n == name)
 
 
 def f32_rank(mesh, device, faults: bool = True,
-             keep_logits: bool = False) -> list:
+             keep_logits: bool = False, kv_heads: bool = False) -> list:
     """Every f32 job of the mesh (`f32_jobs`) on this rank: each
     reading, the worst over the ranks, with "ok" (whether it holds);
     with ``keep_logits`` this rank's "logits" (`f32_case`)."""
     shape = tuple(mesh.mesh.shape)
     out = []
-    for name, arch, over, batch, fault in f32_jobs(shape, faults):
+    for name, arch, over, batch, fault in f32_jobs(shape, faults,
+                                                   kv_heads):
         r = _worst_over_ranks(f32_case(mesh, name, arch, over, batch,
                                        fault, device, keep_logits))
         r["ok"] = case_ok(r)
@@ -501,11 +574,14 @@ def profiled_step(fn) -> dict:
 
 
 def timed_decode(mesh, arch, prompt, max_len, smoke=False, compare=False,
-                 steps=DECODE, dtype="bfloat16", flags=None) -> dict:
+                 steps=DECODE, dtype="bfloat16", flags=None,
+                 kv_heads=False) -> dict:
     """bf16 ``arch`` at full width and depth (``smoke``: its smoke
     config): the prefill cell of a ``prompt`` (global batch, length),
     the cache grown to ``max_len``, `relayout` into the decode cell's
-    layout, ``steps`` timed decode steps (CUDA events on rank 0). With
+    layout (with ``kv_heads``, the decode cell without
+    ``seq_shard_decode``: the prefill cell's layout, nothing moves),
+    ``steps`` timed decode steps (CUDA events on rank 0). With
     ``compare``, rank 0 runs one card first (its logits recorded), and
     before the timed steps ``steps`` untimed ones are fed one card's
     tokens (teacher-forced) and recorded (`_against_one_card`); "ties"
@@ -554,8 +630,10 @@ def timed_decode(mesh, arch, prompt, max_len, smoke=False, compare=False,
         dist.broadcast(one, 0)
     pcell = cells.make_cell(cfg, ShapeConfig("prefill", "prefill", plen,
                                              batch), mesh, device=dev)
-    dcell = cells.make_cell(cfg, ShapeConfig("decode", "decode", max_len,
-                                             batch), mesh, device=dev)
+    dshape = ShapeConfig("decode", "decode", max_len, batch)
+    dcell = cells.make_cell(cfg, dshape, mesh, device=dev,
+                            parallel=_decode_parallel(cfg, dshape,
+                                                      kv_heads))
     params = take_parts(model.init_params(0), pcell.in_layouts[0])
     # warm (libraries, kernels built and loaded): a short prompt
     pcell.step(params, take_parts(synth_train_batch(
@@ -622,7 +700,7 @@ def timed_decode(mesh, arch, prompt, max_len, smoke=False, compare=False,
         torch.cuda.empty_cache()
     b_step = np.mean(ms[1:]) if len(ms) > 1 else ms[0]
     return dict(arch=arch, mesh=list(mesh.mesh.shape), batch=batch,
-                prompt=plen, max_len=max_len,
+                prompt=plen, max_len=max_len, kv_heads=kv_heads,
                 seq_axes=list(dcell.parallel.seq_axes),
                 prefill_ms=prefill_ms, relayout_ms=relayout_ms,
                 step_ms=ms, tok_s=batch / b_step * 1e3,
@@ -742,37 +820,30 @@ def timed_prefill(mesh, arch, seq, smoke=False, cap=32,
 
 
 def rank_main(rank, world, port, shapes, out_path, device, smoke, timed,
-              f32, fallback=False):
+              f32, fallback=False, kv_heads=False, prefill_only=False):
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     _start(rank, world, port, device)
     results = []
     try:
         for shape in shapes:
-            mesh = make_mesh(tuple(shape), ("data", "model"),
-                             device_type=device)
+            shape = tuple(shape)
+            mesh = make_mesh(shape, _axes(shape), device_type=device)
             if f32:
-                for r in f32_rank(mesh, device):
+                for r in f32_rank(mesh, device, kv_heads=kv_heads):
                     results.append(dict(kind="f32", **r))
             if not timed:
                 continue
-            data, model = shape
             flags = dict(use_flash_kernel=True)
             if fallback:
                 results += fallback_timed(mesh, shape, smoke, flags)
-            elif (data, model) == (1, 4) or (smoke and data == 1):
-                results.append(dict(kind="decode", **timed_decode(
-                    mesh, "qwen3-8b", (4, 64) if smoke else QWEN_PROMPT,
-                    128 if smoke else QWEN_LEN, smoke)))
-                results.append(dict(kind="prefill", **timed_prefill(
-                    mesh, "zamba2-1.2b", 64 if smoke else ZAMBA_PREFILL,
-                    smoke, cap=2 if smoke else 32, flags=flags)))
-            if not fallback and ((data, model) == (2, 2)
-                                 or (smoke and data == 2)):
-                results.append(dict(kind="decode", **timed_decode(
-                    mesh, "zamba2-1.2b", (1, 32 if smoke else ZAMBA_PROMPT),
-                    256 if smoke else 524288, smoke, compare=True,
-                    flags=flags)))
+            elif prefill_only:
+                if shape[-1] >= 2:
+                    results.append(dict(kind="prefill", **timed_prefill(
+                        mesh, "zamba2-1.2b", 64 if smoke else ZAMBA_PREFILL,
+                        smoke, cap=1, flags=flags, compare=True)))
+            else:
+                results += timed_runs(mesh, shape, smoke, flags, kv_heads)
             if device == "cuda":
                 torch.cuda.empty_cache()
     finally:
@@ -782,9 +853,37 @@ def rank_main(rank, world, port, shapes, out_path, device, smoke, timed,
             json.dump(results, f)
 
 
+def timed_runs(mesh, shape, smoke, flags, kv_heads) -> list:
+    """The bf16 runs on the mesh ``shape`` (module doc): at (1, 4) (any
+    "data" 1 with ``smoke``) and at (P, 1, M), M >= 2, the qwen3-8b
+    decode, then with ``kv_heads`` on a 2-D mesh the same with the
+    cache's KV heads over "model", else zamba2's prefill cell; at (2, 2)
+    (any "data" 2 with ``smoke``) and at (P, D, 1), D >= 2, zamba2
+    long_500k."""
+    pod = len(shape) == 3
+    data, model = _dm(shape)
+    out = []
+    if (shape == (1, 4) or (smoke and not pod and data == 1)
+            or (pod and shape[1] == 1 and model >= 2)):
+        for kv in (False, True) if kv_heads and not pod else (False,):
+            out.append(dict(kind="decode", **timed_decode(
+                mesh, "qwen3-8b", (4, 64) if smoke else QWEN_PROMPT,
+                128 if smoke else QWEN_LEN, smoke, kv_heads=kv)))
+        if not kv_heads or pod:
+            out.append(dict(kind="prefill", **timed_prefill(
+                mesh, "zamba2-1.2b", 64 if smoke else ZAMBA_PREFILL,
+                smoke, cap=2 if smoke else 32, flags=flags)))
+    if (shape == (2, 2) or (smoke and not pod and data == 2)
+            or (pod and model == 1 and shape[1] >= 2)):
+        out.append(dict(kind="decode", **timed_decode(
+            mesh, "zamba2-1.2b", (1, 32 if smoke else ZAMBA_PROMPT),
+            256 if smoke else 524288, smoke, compare=True, flags=flags)))
+    return out
+
+
 def fallback_timed(mesh, shape, smoke, flags) -> list:
     """``--fallback``'s bf16 runs on the mesh ``shape`` (module doc)."""
-    data, model = shape
+    data, model = _dm(shape)
     out = []
     if 32 % model:                  # zamba2's heads, whole on every rank
         out.append(dict(kind="prefill", **timed_prefill(
@@ -799,11 +898,11 @@ def fallback_timed(mesh, shape, smoke, flags) -> list:
 
 
 def run_world(world, shapes, tmp, device, smoke, timed, f32,
-              fallback=False) -> list:
+              fallback=False, kv_heads=False, prefill_only=False) -> list:
     path = os.path.join(tmp, f"cells_world{world}.json")
     mp.start_processes(rank_main, args=(world, free_port(), shapes, path,
                                         device, smoke, timed, f32,
-                                        fallback),
+                                        fallback, kv_heads, prefill_only),
                        nprocs=world, join=True, start_method="spawn")
     with open(path) as f:
         return json.load(f)
@@ -829,7 +928,8 @@ def report(r: dict) -> str:
                     f"{r['decode']['cache_err']:.2e}")
         tag = (f" fault {r['fault']}" if r["fault"] else "") + (
             f" batch 1 seq over {tuple(r['seq_axes'])}" if r["batch"] == 1
-            else "")
+            else "") + (" KV heads over model" if r.get("kv_heads")
+                        else "")
         verdict = ("caught" if not r["ok"] else "NOT CAUGHT") if \
             r["fault"] else ("ok" if r["ok"] else "FAILED")
         return (f"[cells] f32 {r['name']} at {tuple(r['mesh'])}{tag}: "
@@ -863,9 +963,11 @@ def report(r: dict) -> str:
             f"others {min(c['gap'] for c in cmp):.6g}"
             + ("" if r["ties_ok"] else " -> BEYOND A NEAR TIE"))
     steps = r["step_ms"]
+    layout = ("the cache's KV heads over model" if r.get("kv_heads")
+              else f"seq over {tuple(r['seq_axes'])}")
     return (f"[cells] decode {r['arch']} bf16 at {tuple(r['mesh'])}, batch "
             f"{r['batch']}, prompt {r['prompt']} -> {r['max_len']} "
-            f"positions, seq over {tuple(r['seq_axes'])}: prefill "
+            f"positions, {layout}: prefill "
             f"{r['prefill_ms']:.1f} ms, relayout {r['relayout_ms'][1]:.1f} "
             f"ms (cold {r['relayout_ms'][0]:.1f}), "
             f"decode {np.mean(steps[1:] or steps):.2f} ms a step (first "
@@ -894,15 +996,19 @@ def result_ok(r: dict) -> bool:
     return all(x.get("tokens_equal", True) for x in r["runs"])
 
 
-def _mesh_arg(text: str):
-    data, model = (int(x) for x in text.lower().split("x"))
-    return data, model
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--meshes", type=_mesh_arg, nargs="*", default=None,
-                    help="meshes DxM (default 1xn and, from 4, n/2x2)")
+                    help="meshes DxM or PxDxM (default 1xn and, from 4, "
+                    "n/2x2)")
+    ap.add_argument("--kv-heads", action="store_true",
+                    help="the decode cells without seq_shard_decode too: "
+                    "the f32 cases of KV_CASES, and the qwen3-8b decode "
+                    "with the cache's KV heads over \"model\" (module "
+                    "doc)")
+    ap.add_argument("--prefill-only", action="store_true",
+                    help="the bf16 runs: zamba2-1.2b's prefill cell alone, "
+                    "batch 1, against one card, where \"model\" >= 2")
     ap.add_argument("--f32-only", action="store_true")
     ap.add_argument("--timed-only", action="store_true")
     ap.add_argument("--smoke", action="store_true",
@@ -918,11 +1024,14 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("FAILED: no CUDA device")
     n = (torch.cuda.device_count() if args.device == "cuda" else
-         max((d * m for d, m in args.meshes or [(1, 2)]), default=2))
+         max((int(np.prod(s)) for s in args.meshes or [(1, 2)]),
+             default=2))
     meshes = args.meshes or ([(1, n)] + ([(n // 2, 2)] if n >= 4 else []))
     plan = {}
-    for d, m in meshes:
-        plan.setdefault(d * m, []).append((d, m))
+    for shape in meshes:
+        plan.setdefault(int(np.prod(shape)), []).append(shape)
+    # every mesh with a "pod" axis: lines tagged [pod]
+    pod = all(len(shape) == 3 for shape in meshes)
     if max(plan) > n:
         raise SystemExit(f"FAILED: {max(plan)} ranks, {n} cards")
     say(f"[cells] {card()} x {n}; torch {torch.__version__}, CUDA "
@@ -936,11 +1045,11 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         results = run_world(world, shapes, tmp, args.device, args.smoke,
                             not args.f32_only, not args.timed_only,
-                            args.fallback)
+                            args.fallback, args.kv_heads, args.prefill_only)
         for r in results:
             line = report(r)
             say(line.replace("[cells]", "[fallback]") if args.fallback
-                else line)
+                else line.replace("[cells]", "[pod]") if pod else line)
             ok &= result_ok(r)
             out["results"].append(r)
         say(f"[cells] world {world} took {time.perf_counter() - t0:.1f}s")

@@ -12,6 +12,7 @@ Run from the repository root on a machine with CUDA cards:
     python3 tools/dist_train_scaling.py --meshes 1x4 2x2 --steps 2
     python3 tools/dist_train_scaling.py --moe --meshes 4x1 2x2 1x4
     python3 tools/dist_train_scaling.py --attn-batch --meshes 1x3 4x1
+    python3 tools/dist_train_scaling.py --fsdp --meshes 4x1 2x2 2x2x1 2x1x2
 
 Each world size runs in its own spawn of one process a card (NCCL for
 CUDA tensors, gloo for CPU ones, over tcp://localhost on a free port),
@@ -19,8 +20,11 @@ through the port's entry points (`launch.mesh.make_mesh`,
 `train.steps.make_train_step(..., mesh)`), under
 `train.steps.deterministic_algorithms`. ``--worlds n``: the mesh (n, 1),
 every card on "data"; ``--meshes DxM``: the mesh (data D, model M),
-tensor parallelism over M cards (each mesh of one world in that world's
-spawn).
+tensor parallelism over M cards, or ``PxDxM``: the mesh (pod P, data
+D, model M) under the reference's multi-pod rules, the batch (and
+FSDP's blocks) over ("pod", "data"), its jobs those of the mesh
+(P D, M), each timed line also against that mesh's where the call ran
+it (each mesh of one world in that world's spawn, in the order given).
 
   - gemma3-1b, bf16, full width and depth, random weights from seed 0,
     TokenDataset batches: one warm step and ``--steps`` timed steps
@@ -40,7 +44,8 @@ spawn).
     the parameters left ungathered, and at a "model" extent >= 2 the
     "model" sum of a shared KV head's gradient left out (gemma3-1b, one
     KV head for all) or the SSM's gated norm over the rank's width
-    (mamba2-130m, which is checked too on meshes with "model" >= 2);
+    (mamba2-130m, which is checked too on meshes with "model" >= 2), and
+    on a mesh with a "pod" axis the gradients summed over "data" alone;
   - with ``--qwen``: qwen3-8b, bf16, full width and depth, ZeRO-1, a
     warm step and ``--steps`` timed ones: tok/s, peak MB a card, loss
     and grad norm of each step. ``--worlds``: (1, 2048) a card at the
@@ -91,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import os
 import socket
@@ -163,16 +169,34 @@ def _start(rank: int, world: int, port: int, device: str) -> None:
         init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
 
 
+def _axes(shape) -> tuple:
+    """The axis names of a mesh shape: (data, model), or (pod, data,
+    model)."""
+    return ("pod", "data", "model")[3 - len(shape):]
+
+
 def _mesh(shape, device: str):
     from repro_torch.launch.mesh import make_mesh
-    return make_mesh(tuple(shape), ("data", "model"), device_type=device)
+    return make_mesh(tuple(shape), _axes(shape), device_type=device)
+
+
+def _dm(shape) -> tuple:
+    """(data, model) of a mesh shape: the ranks that split the batch
+    (pod x data) and those that split the model."""
+    return int(np.prod(shape[:-1])), shape[-1]
 
 
 def _extents(mesh) -> tuple:
-    """(data, model) extents of a mesh."""
-    from repro_torch.launch.mesh import mesh_axes
-    sizes = dict(mesh_axes(mesh))
-    return sizes.get("data", 1), sizes.get("model", 1)
+    """(data, model) extents of a mesh (`_dm`)."""
+    return _dm(tuple(int(n) for n in mesh.mesh.shape))
+
+
+def _batch_axis(mesh):
+    """The ranks that split the batch: the "batch" rule's group
+    ("data", or ("pod", "data"))."""
+    from repro_torch.launch.mesh import binding_for
+    binding = binding_for(mesh)
+    return binding.axis_group(binding.rules["batch"])
 
 
 def _dev():
@@ -275,7 +299,6 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
     from repro_torch import tree
     from repro_torch.configs import ParallelConfig, TrainConfig
     from repro_torch.data import TokenDataset
-    from repro_torch.launch.mesh import binding_for
     from repro_torch.models import get_model
     from repro_torch.models.api import family_module
     from repro_torch.train.steps import (deterministic_algorithms,
@@ -284,7 +307,7 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
 
     cfg = _config(arch, dtype, smoke, **(overrides or {}))
     world = mesh.size()
-    axis = binding_for(mesh).axis_group(("data",))
+    axis = _batch_axis(mesh)
     dev = _dev()
     timer = _Timer(dev)
     if timer.cuda:
@@ -330,7 +353,7 @@ def timed_run(mesh, arch: str, shape, steps: int, zero1: bool,
     toks = shape[0] * shape[1]
     return dict(arch=arch, dtype=dtype, world=world,
                 overrides=overrides or {},
-                mesh=list(_extents(mesh)), zero1=zero1, fsdp=fsdp,
+                mesh=list(mesh.mesh.shape), zero1=zero1, fsdp=fsdp,
                 variant=cfg.moe_variant if cfg.n_experts else None,
                 layers=cfg.n_layers,
                 rows_a_card=shape[0] // axis.extent, global_rows=shape[0],
@@ -368,7 +391,7 @@ def attn_timed(mesh, arch: str, shape, overrides: dict = None,
     dev = _dev()
     timer = _Timer(dev)
     binding = binding_for(mesh)
-    data = binding.axis_group(("data",))
+    data = _batch_axis(mesh)
     whole = get_model(cfg, device=dev).init_params(0)["layers"]["attn"]
     shards = state_blocks(cfg, TrainConfig(), mesh)["params"]["layers"][
         "attn"]
@@ -397,7 +420,7 @@ def attn_timed(mesh, arch: str, shape, overrides: dict = None,
             call()
         ms = timer.stop() / reps
     return dict(kind="attn", arch=arch, overrides=overrides or {},
-                mesh=list(_extents(mesh)), world=mesh.size(),
+                mesh=list(mesh.mesh.shape), world=mesh.size(),
                 global_rows=shape[0], seq=shape[1], reps=reps, ms=ms)
 
 
@@ -416,10 +439,12 @@ MOMENT_LIMIT = 5e-5
 # own), and each gathered layer cached across steps (step 2 runs on
 # step 1's weights); a block "model" does not divide: the gradients of
 # its whole leaves summed over "model" as if each rank's were partial,
-# and the attn_batch fallback's "model" sum of its leaves left out
+# and the attn_batch fallback's "model" sum of its leaves left out; on a
+# mesh with a "pod" axis, the gradients summed over "data" alone
 FAULTS = ("unsummed", "ungathered", "kv_unsummed", "local_norm",
           "experts_input_uncopied", "combine_weights_uncopied",
-          "fsdp_unsummed", "fsdp_cached", "whole_summed", "rows_unsummed")
+          "fsdp_unsummed", "fsdp_cached", "whole_summed", "rows_unsummed",
+          "pod_unsummed")
 # the experts' and FSDP's faults must read at least this many times
 # MOMENT_LIMIT
 MOE_FAULT_FACTOR = 10
@@ -431,10 +456,13 @@ def controls(cfg, mesh, fsdp: bool = False) -> tuple:
     """The faults of FAULTS that break the step of ``cfg`` on ``mesh``
     (a fault the mesh does not reach would pass the check); with
     ``fsdp`` FSDP's two in place of the data axis's."""
+    from repro_torch.launch.mesh import mesh_axes
     from repro_torch.runtime.param_sharding import tp_layout
     data, model = _extents(mesh)
     out = (() if data == 1 else ("fsdp_unsummed", "fsdp_cached") if fsdp
            else ("unsummed", "ungathered"))
+    if dict(mesh_axes(mesh)).get("pod", 1) > 1:
+        out += ("pod_unsummed",)
     layout = tp_layout(cfg, model) if model > 1 else {}
     if (layout.get("attn") == "split" and not cfg.use_mla
             and layout["kv"] != "split"):
@@ -485,6 +513,13 @@ def fault_in(fault):
     def rows_unsummed(grads, pieces, axis, rows=False):
         return kept[2](grads, pieces, axis, False)
 
+    def data_only(tensors, axis, *args, **kwargs):
+        # the sum over ("pod", "data") taken over "data" alone
+        from repro_torch.runtime import sharding
+        if axis is not None and "pod" in axis.axes:
+            axis = sharding.current_binding().axis_group(("data",))
+        return kept[0](tensors, axis, *args, **kwargs)
+
     def local_norm(params, x, eps=1e-6, axis=None):
         return kept[3](params, x, eps)
 
@@ -530,6 +565,8 @@ def fault_in(fault):
             steps.sum_shared_grads = whole_summed
         elif fault == "rows_unsummed":
             steps.sum_shared_grads = rows_unsummed
+        elif fault == "pod_unsummed":
+            collectives.sum_in_f32_buckets = data_only
         elif fault is not None:
             raise ValueError(fault)
         yield
@@ -552,11 +589,10 @@ def _dp_step(mesh, model, tcfg, data, fault=None, fsdp: bool = False,
     (`routes_agree`)."""
     from repro_torch import checkpoint
     from repro_torch.configs import ParallelConfig
-    from repro_torch.launch.mesh import binding_for
     from repro_torch.train.steps import (deterministic_algorithms,
                                          init_train_state, make_train_step,
                                          state_blocks)
-    axis = binding_for(mesh).axis_group(("data",))
+    axis = _batch_axis(mesh)
     dev = _dev()
     parallel = ParallelConfig(fsdp=fsdp)
     blocks = state_blocks(model.cfg, tcfg, mesh, parallel)
@@ -726,7 +762,7 @@ def f32_check(mesh, smoke: bool = False, arch: str = "gemma3-1b",
                 out = dict(arch=cfg.name, world=world,
                            variant=cfg.moe_variant if cfg.n_experts
                            else None, overrides=overrides or {},
-                           mesh=list(_extents(mesh)), fsdp=fsdp,
+                           mesh=list(mesh.mesh.shape), fsdp=fsdp,
                            steps=steps,
                            global_batch=[2 * world, seq], **held,
                            routes_agree=agree, controls={})
@@ -826,7 +862,7 @@ def mesh_jobs(mesh, steps: int, f32_only: bool, qwen: bool) -> list:
     """``--meshes``: the f32 checks (gemma3-1b at a "data" or "model"
     extent >= 2, mamba2-130m at "model" >= 2), gemma3-1b bf16 at
     TP_GEMMA, and qwen3-8b at TP_QWEN."""
-    data, model = mesh
+    data, model = _dm(mesh)
     jobs = []
     if data > 1 or model > 1:
         jobs.append(("f32", mesh, "gemma3-1b"))
@@ -846,7 +882,7 @@ def moe_jobs(mesh, steps: int, f32_only: bool, timed: str = "all"
     "all", V1 and V3 too where "data" is 1, and deepseek-v2 at
     DEEPSEEK_LAYERS layers and DEEPSEEK_SHAPE where "data" is 1 and
     "model" at least 4 (its state fits no fewer cards)."""
-    data, model = mesh
+    data, model = _dm(mesh)
     jobs = ([("f32", mesh, arch, over, True) for arch, over in MOE_F32]
             if model > 1 else [])
     if f32_only:
@@ -874,7 +910,7 @@ def fsdp_jobs(mesh, steps: int, f32_only: bool) -> list:
     """``--fsdp``: the f32 checks of FSDP_F32 under FSDP where "data" is
     2 or more; qwen3-8b at TP_QWEN with FSDP on and off; granite-moe
     (V2) at MOE_SHAPE with FSDP where "model" is 1."""
-    data, model = mesh
+    data, model = _dm(mesh)
     jobs = ([("f32+fsdp", mesh, arch, over, True) for arch, over in FSDP_F32]
             if data > 1 else [])
     if f32_only:
@@ -903,17 +939,17 @@ def fallback_jobs(mesh, steps: int, f32_only: bool, meshes=()) -> list:
     check, then bf16 at V2_ACROSS_SHAPE). The mesh (1, 1) runs the
     timed jobs of the other ``meshes`` at their global batches (each
     config once: the fallback changes nothing on one card)."""
-    data, model = mesh
+    data, model = _dm(mesh)
     granite = ("granite-moe-3b-a800m", V2_ACROSS_SHAPE, steps, True)
     if mesh == (1, 1):
         if f32_only:
             return []
         jobs = []
-        if any(m > 1 for _, m in meshes):
+        if any(m > 1 for _, m in map(_dm, meshes)):
             jobs += [("timed", mesh, a, FALLBACK_SHAPE, steps, True, o)
                      for a, o in FALLBACK_TIMED if not o]
             jobs.append(("attn", mesh, "gemma3-1b", FALLBACK_SHAPE, {}))
-        if any(d > 1 and m == 1 for d, m in meshes):
+        if any(d > 1 and m == 1 for d, m in map(_dm, meshes)):
             jobs.append(("timed", mesh) + granite)
         return jobs
     jobs = []
@@ -933,7 +969,10 @@ def fallback_jobs(mesh, steps: int, f32_only: bool, meshes=()) -> list:
 
 
 def _where(r: dict) -> str:
-    d, m = r["mesh"]
+    shape = r["mesh"]
+    if len(shape) == 3:
+        return "mesh (pod {}, data {}, model {})".format(*shape)
+    d, m = shape
     return f"world {r['world']}" if m == 1 else f"mesh (data {d}, model {m})"
 
 
@@ -1013,10 +1052,11 @@ def qwen_reckoning() -> dict:
 class _MeshShape:
     """What `launch.mesh.binding_for` and `runtime.sharding.Binding.
     axis_group` read of a mesh, for one rank of a mesh never built: a
-    layout reckoned on the meta device, with no process group."""
-    mesh_dim_names = ("data", "model")
+    layout reckoned on the meta device, with no process group. A shape
+    of two names (data, model), of three (pod, data, model)."""
 
     def __init__(self, shape, index):
+        self.mesh_dim_names = _axes(shape)
         self.mesh = torch.zeros(shape)
         self.index = dict(zip(self.mesh_dim_names, index))
 
@@ -1027,10 +1067,10 @@ class _MeshShape:
         return self.index[name]
 
 
-def reckoned_state_gb(arch: str, data: int, model: int, fsdp: bool,
+def reckoned_state_gb(arch: str, shape, fsdp: bool,
                       dtype: str = "bfloat16") -> float:
-    """GB of the train state of the largest rank on the mesh (data,
-    model), by bytes, from `train.steps.state_blocks` on the meta
+    """GB of the train state of the largest rank on the mesh ``shape``
+    ((data, model) or (pod, data, model)), by bytes, from `train.steps.state_blocks` on the meta
     device: its parameters and their gradients as it holds them (pieces,
     FSDP blocks) in ``dtype``, and its two f32 moments (ZeRO-1 or FSDP
     blocks)."""
@@ -1052,23 +1092,27 @@ def reckoned_state_gb(arch: str, data: int, model: int, fsdp: bool,
         return int(np.prod(shape))
 
     worst = 0
-    for d in range(data):
-        for m in range(model):
-            layout = state_blocks(cfg, TrainConfig(),
-                                  _MeshShape((data, model), (d, m)),
-                                  ParallelConfig(fsdp=fsdp))
-            n = 0
-            for leaf, p, mo in zip(leaves(spec), leaves(layout["params"]),
-                                   leaves(layout["opt"]["m"])):
-                n += 2 * size * held(p, leaf.shape) + 8 * held(
-                    mo, leaf.shape)
-            worst = max(worst, n)
+    for index in itertools.product(*(range(n) for n in shape)):
+        layout = state_blocks(cfg, TrainConfig(), _MeshShape(shape, index),
+                              ParallelConfig(fsdp=fsdp))
+        n = 0
+        for leaf, p, mo in zip(leaves(spec), leaves(layout["params"]),
+                               leaves(layout["opt"]["m"])):
+            n += 2 * size * held(p, leaf.shape) + 8 * held(mo, leaf.shape)
+        worst = max(worst, n)
     return worst / 1e9
 
 
 def _mesh_arg(text: str):
-    data, model = (int(x) for x in text.lower().split("x"))
-    return data, model
+    """``DxM`` or ``PxDxM``: the mesh shape."""
+    shape = tuple(int(x) for x in text.lower().split("x"))
+    if len(shape) not in (2, 3):
+        raise argparse.ArgumentTypeError(f"{text}: DxM or PxDxM")
+    return shape
+
+
+def _name(shape) -> str:
+    return "x".join(str(n) for n in shape)
 
 
 def main(argv=None) -> int:
@@ -1076,8 +1120,9 @@ def main(argv=None) -> int:
     ap.add_argument("--worlds", type=int, nargs="*", default=None,
                     help="world sizes (default 1, 2, 4 up to the cards)")
     ap.add_argument("--meshes", type=_mesh_arg, nargs="*", default=None,
-                    help="meshes DxM (data D, model M) in place of "
-                    "--worlds, e.g. 4x1 2x2 1x4")
+                    help="meshes DxM (data D, model M) or PxDxM (pod P, "
+                    "data D, model M) in place of --worlds, e.g. 4x1 2x2 "
+                    "1x4 2x2x1")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--qwen", action="store_true",
                     help="qwen3-8b at full size over the largest world "
@@ -1113,22 +1158,24 @@ def main(argv=None) -> int:
     if (args.moe or args.fsdp or args.attn_batch) and not tp:
         raise SystemExit("FAILED: --moe, --fsdp and --attn-batch run on "
                          "--meshes")
+    pod = tp and all(len(shape) == 3 for shape in args.meshes)
     tag = ("[fsdp]" if args.fsdp else "[ep]" if args.moe else "[fallback]"
-           if args.attn_batch else "[tp]" if tp else "[dist]")
+           if args.attn_batch else "[pod]" if pod else "[tp]" if tp
+           else "[dist]")
     if tp:
         # one spawn a world, its meshes in order
         plan = {}
         meshes = list(args.meshes)
         if args.attn_batch and (1, 1) not in meshes:
             meshes.insert(0, (1, 1))
-        for d, m in meshes:
-            plan.setdefault(d * m, []).extend(
-                fallback_jobs((d, m), args.steps, args.f32_only, meshes)
+        for shape in meshes:
+            plan.setdefault(int(np.prod(shape)), []).extend(
+                fallback_jobs(shape, args.steps, args.f32_only, meshes)
                 if args.attn_batch else
-                fsdp_jobs((d, m), args.steps, args.f32_only) if args.fsdp
-                else moe_jobs((d, m), args.steps, args.f32_only,
+                fsdp_jobs(shape, args.steps, args.f32_only) if args.fsdp
+                else moe_jobs(shape, args.steps, args.f32_only,
                               args.moe_timed) if args.moe else
-                mesh_jobs((d, m), args.steps, args.f32_only, args.qwen))
+                mesh_jobs(shape, args.steps, args.f32_only, args.qwen))
         plan = {w: jobs for w, jobs in plan.items() if jobs}
     else:
         plan = None
@@ -1170,15 +1217,26 @@ def main(argv=None) -> int:
                 key = ((r["arch"], r["zero1"], r["global_rows"],
                         r.get("variant"), r["fsdp"]) if tp
                        else (r["arch"], r["zero1"]))
+                pod = len(r["mesh"]) == 3
                 one = (r["mesh"] == [1, 1] if args.attn_batch
                        else r["mesh"][1] == 1 if tp else r["world"] == 1)
-                if one:
+                if one and not pod:
                     base[key] = r
-                ref = None if one else base.get(key)
-                say(report_timed(r, tag, ref, "the mesh (1, 1)"
-                                 if args.attn_batch else "the mesh (data "
-                                 f"{r['world']}, model 1)" if tp
-                                 else "world 1"))
+                if tp and not pod:
+                    base[key + tuple(r["mesh"])] = r
+                ref = None if one and not pod else base.get(key)
+                against = ("the mesh (1, 1)" if args.attn_batch else
+                           f"the mesh (data {r['world']}, model 1)" if tp
+                           else "world 1")
+                if pod:
+                    # against the 2-D mesh of the same math, where the
+                    # call ran it
+                    flat = _dm(r["mesh"])
+                    ref = base.get(key + flat, ref)
+                    if key + flat in base:
+                        against = "the mesh (data {}, model {})".format(
+                            *flat)
+                say(report_timed(r, tag, ref, against))
                 ok &= r["finite"] and r["routes_agree"]
                 out["timed"].append(r)
             else:
@@ -1196,14 +1254,14 @@ def main(argv=None) -> int:
             f"ZeRO-1 over 4 cards {rk['zero1_4_gb']:.1f} GB a card before "
             "activations"
             + ("; " + ", ".join(
-                f"({d}, {m}) {reckoned_state_gb('qwen3-8b', d, m, False):.1f}"
+                f"{tuple(s)} {reckoned_state_gb('qwen3-8b', s, False):.1f}"
                 " GB a card"
-                for d, m in args.meshes) if tp else ""))
+                for s in args.meshes) if tp else ""))
     if args.fsdp and not args.f32_only:
         out["reckoned"] = {
-            f"{d}x{m}": {"fsdp": reckoned_state_gb("qwen3-8b", d, m, True),
-                         "plain": reckoned_state_gb("qwen3-8b", d, m, False)}
-            for d, m in args.meshes}
+            _name(s): {"fsdp": reckoned_state_gb("qwen3-8b", s, True),
+                       "plain": reckoned_state_gb("qwen3-8b", s, False)}
+            for s in args.meshes}
         say(f"{tag} qwen3-8b state a card reckoned on the meta device "
             "(bf16 parameters and gradients as held, f32 m and v), FSDP "
             "on / off: " + ", ".join(
