@@ -17,8 +17,14 @@ last line):
                each launch) beside its bound and, where one PyTorch call
                computes the same function, that call's time; for
                `bsr_beamform` also its skip rule against the all-zero
-               blocks, two runs bit-equal, f32 errors against float64,
-               the 3xTF32 bound beside the SIMT one, and its bf16 time;
+               blocks, its operator check on the device, two runs
+               bit-equal, f32 errors against float64, the 3xTF32 bound
+               beside the SIMT one, and its bf16 time; `bsr_spmm` at (a)
+               one channel's real product and (b) the beamform's real
+               form (`real_form`, K 128, 128 x 128 blocks), each with
+               two runs bit-equal, f32 errors against float64, the
+               bounds over the stored slots and over the occupied
+               blocks, and its bf16 time;
                for `das_beamform` and the fused spans the share of
                zero-apodization pairs they skip, the IQ bytes they stage
                into shared memory, the bound of the terms these tables
@@ -288,7 +294,9 @@ from repro_torch.data.traces import generate_trace, mixed_rate  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
                                           bsr_beamform, bsr_beamform_ref,
-                                          bsr_spmm, bsr_spmm_ref, kept_slots)
+                                          bsr_spmm, bsr_spmm_ref, kept_slots,
+                                          real_form)
+from repro_torch.kernels.bsr_spmm.ops import require_checked  # noqa: E402
 from repro_torch.kernels.das_beamform import (das_beamform,  # noqa: E402
                                               das_beamform_ref)
 from repro_torch.kernels.das_beamform.ops import tile_plan  # noqa: E402
@@ -756,12 +764,88 @@ def check_skip_rule(cols, occupied) -> None:
           "kept all-zero blocks other than slot 0 of empty rows")
 
 
+def spmm_shapes(cols, blocks, iq_b) -> tuple:
+    """bsr_spmm's two timed shapes from the sparse operator and a batch of
+    blocked IQ: (a) the real part of the middle channel's product; (b) the
+    sparse beamform's real form (``real_form``: the reference's own
+    formulation of the beamform, four real SpMMs a channel, as one real
+    product). Returns ({"a": args, "b": args}, (b)'s view back to the
+    beamform's output)."""
+    n_c, n_pb, k, bp, bs, _ = blocks.shape
+    b, n_sb, _, _, n_f, _ = iq_b.shape
+    ch = n_c // 2
+    a = (cols[ch].contiguous(), blocks[ch, ..., 0].contiguous(),
+         iq_b[:, :, :, ch, :, 0].permute(1, 2, 0, 3)
+         .reshape(n_sb, bs, b * n_f).contiguous())
+    args_b, back = real_form(cols, blocks, iq_b)
+    return {"a": a, "b": args_b}, back
+
+
+def spmm_bounds(cols, blocks, x) -> dict:
+    """bsr_spmm's bounds at one shape, each by ``split_tf32_bound`` (the
+    3xTF32 route and the SIMT bound): over the stored slots, which the
+    contract makes the kernel sum, and over the occupied blocks."""
+    n_pb, k, bp, bs = blocks.shape
+    nf = x.shape[-1]
+    occ = int((blocks != 0).flatten(2).any(-1).sum())
+    rest = cols.numel() * 4 + x.numel() * 4 + n_pb * bp * nf * 4
+    per_block = 2.0 * bp * bs * nf
+    return {"stored": split_tf32_bound(n_pb * k * bp * bs * 4 + rest,
+                                       per_block * n_pb * k),
+            "occupied": split_tf32_bound(occ * bp * bs * 4 + rest,
+                                         per_block * occ),
+            "occ": occ, "slots": n_pb * k, "gflop": per_block * n_pb * k
+            / 1e9, "bytes": n_pb * k * bp * bs * 4 + rest}
+
+
+def spmm_row(name, args, flush, library, library_name) -> dict:
+    """bsr_spmm at one shape: against its plain version at f32 / bf16 /
+    f16, two runs bit-equal, the f32 errors of kernel and plain version
+    against float64, both bounds, the bf16 time; then the row that
+    ``measure`` times (its bound the occupied blocks', as the table's)."""
+    cols, blocks, x = args
+    n_pb, k, bp, bs = blocks.shape
+    bd = spmm_bounds(cols, blocks, x)
+    say(f"[kernels] {name}: n_pb={n_pb} K={k} bp={bp} bs={bs} "
+        f"x {tuple(x.shape)}; {bd['occ']} of {bd['slots']} stored blocks "
+        f"occupied; stored {bd['gflop']:.2f} GFLOP, "
+        f"{bd['bytes'] / 1e6:.2f} MB")
+    err = check_precisions(
+        name, lambda p: bsr_spmm(*args, precision=p),
+        lambda p: bsr_spmm_ref(*args, precision=p))
+    first = bsr_spmm(*args)
+    check(torch.equal(first, bsr_spmm(*args)), f"{name}: two runs differ")
+    exact = bsr_spmm_ref(cols, blocks.double(), x.double())
+    err64, plain64 = ((t - exact).abs().max().item() for t in
+                      (first.double(), bsr_spmm_ref(*args).double()))
+    say(f"[kernels] {name}: two runs bit-equal; [f32] against float64: "
+        f"kernel max|d|={err64:.3e}, plain max|d|={plain64:.3e} "
+        f"(max|exact|={exact.abs().max().item():.3e})")
+    del first, exact
+    ms16 = time_ms(lambda: bsr_spmm(*args, precision="bf16"), 20, flush)
+    say(f"[kernels] {name}[bf16]: kernel {ms16:.4f} ms")
+    bounds = ", ".join(
+        f"{kind} {bd[kind][0][0]:.4f} ms ({bd[kind][0][1]}; SIMT "
+        f"{bd[kind][1][0]:.4f} ms, {bd[kind][1][1]})"
+        for kind in ("stored", "occupied"))
+    say(f"[kernels] {name} bounds, 3xTF32 route: {bounds}")
+    return dict(
+        err=err, kernel="bsr_spmm",
+        fn=lambda: bsr_spmm(*args), plain=lambda: bsr_spmm_ref(*args),
+        library=library, library_name=library_name,
+        bound=bd["occupied"][0], simt_bound=bd["occupied"][1],
+        source="src/repro_torch/kernels/csrc/bsr_spmm.cu",
+        replaces="src/repro/kernels/bsr_spmm/kernel.py:51")
+
+
 def sparse_rows(source, flush) -> dict:
-    """bsr_beamform at the served shapes, and bsr_spmm on one channel's
-    real product at the same shapes. The operations bound counts the
-    occupied blocks: the padded K slots are zero and need no work. For
-    bsr_beamform also: the skip rule, two runs bit-equal, the f32 error
-    of kernel and plain version against float64, and the bf16 time."""
+    """bsr_beamform at the served shapes, and bsr_spmm at (a) one
+    channel's real product and (b) the beamform's real form. The
+    operations bound counts the occupied blocks: the padded K slots are
+    zero and need no work (bsr_spmm's rows print the stored slots' bound
+    beside it). For bsr_beamform also: the skip rule, the operator check
+    on the device, two runs bit-equal, the f32 error of kernel and plain
+    version against float64, and the bf16 time."""
     dev = torch.device("cuda")
     cfg = paper_config(variant="sparse")
     t0 = time.perf_counter()
@@ -789,6 +873,11 @@ def sparse_rows(source, flush) -> dict:
         f"occupied; all stored: {gflop * n_c * n_pb * k:.1f} GFLOP, "
         f"occupied: {gflop * n_occ:.1f} GFLOP")
     check_skip_rule(cols, occupied)
+    t0 = time.perf_counter()
+    require_checked(cols, blocks)
+    torch.cuda.synchronize()
+    say(f"[kernels] bsr_beamform operator check on the device (once per "
+        f"operator): {1e3 * (time.perf_counter() - t0):.1f} ms")
     rows = {}
 
     bf_err = check_precisions(
@@ -807,18 +896,12 @@ def sparse_rows(source, flush) -> dict:
         f"max|d|={err64:.3e}, plain max|d|={plain64:.3e} "
         f"(max|exact|={exact.abs().max().item():.3e})")
     del first, exact, plain
-    # torch's BSR product over the real form [[re, -im], [im, re]] of each
-    # block, columns (channel, sample block), summing the channels
-    re, im = blocks[..., 0], blocks[..., 1]
-    real = torch.cat([torch.cat([re, -im], -1), torch.cat([im, re], -1)], -2)
-    a = sorted_bsr(
-        (cols + torch.arange(n_c, device=dev)[:, None, None] * n_sb)
-        .permute(1, 0, 2).reshape(n_pb, n_c * k),
-        real.permute(1, 0, 2, 3, 4).reshape(n_pb, n_c * k, 2 * bp, 2 * bs),
-        n_pb * 2 * bp, n_c * n_sb * 2 * bs)
-    del real, re, im
-    x = iq_b.permute(3, 1, 5, 2, 0, 4).reshape(n_c * n_sb * 2 * bs,
-                                                 b * n_f)
+    shapes, back = spmm_shapes(cols, blocks, iq_b)
+    # torch's BSR product over the real form: one row of (channel, slot)
+    # blocks a pixel block, summing the channels
+    cols_r, blocks_r, x_r = shapes["b"]
+    a = sorted_bsr(cols_r, blocks_r, n_pb * 2 * bp, n_c * n_sb * 2 * bs)
+    x = x_r.reshape(n_c * n_sb * 2 * bs, b * n_f)
     plain = bsr_beamform_ref(cols, blocks, iq_b)
     library = (lambda: a @ x)
     # the occupied blocks' work: the bound of the 3xTF32 route, and the
@@ -827,17 +910,17 @@ def sparse_rows(source, flush) -> dict:
                 + b * n_pb * bp * n_f * 8)
     bf_flops = 8.0 * b * n_occ * bp * bs * n_f
     route, simt = split_tf32_bound(bf_bytes, bf_flops)
-    as_out = (lambda y: y.view(n_pb, 2, bp, b, n_f).permute(3, 0, 2, 4, 1)
-              .reshape(b, n_pb * bp, n_f, 2))
-    ok = library_check("bsr_beamform", lambda: as_out(library()), plain)
+    ok = library_check(
+        "bsr_beamform",
+        lambda: back(library().view(n_pb, 2 * bp, b * n_f)), plain)
+    library_name = ("torch.sparse_bsr_tensor @ dense, real "
+                    "[[re, -im], [im, re]] blocks" if ok
+                    else "none: torch's BSR product refused or disagreed")
     rows["bsr_beamform"] = dict(
         err=bf_err,
         fn=lambda: bsr_beamform(cols, blocks, iq_b),
         plain=lambda: bsr_beamform_ref(cols, blocks, iq_b),
-        library=library if ok else None,
-        library_name=("torch.sparse_bsr_tensor @ dense, real "
-                      "[[re, -im], [im, re]] blocks" if ok
-                      else "none: torch's BSR product refused or disagreed"),
+        library=library if ok else None, library_name=library_name,
         bound=route, simt_bound=simt,
         source="src/repro_torch/kernels/csrc/bsr_spmm.cu",
         replaces="src/repro/kernels/bsr_spmm/kernel.py:51")
@@ -848,34 +931,24 @@ def sparse_rows(source, flush) -> dict:
     say(f"[kernels] bsr_beamform[bf16]: kernel {ms16:.4f} ms, bound "
         f"{b16[0]:.4f} ms ({b16[1]}; bf16 tensor cores at 989 TFLOP/s)")
 
-    # bsr_spmm: the real part of one (middle) channel's product
-    ch = n_c // 2
-    cols1 = cols[ch].contiguous()
-    blocks1 = blocks[ch, ..., 0].contiguous()
-    x1 = (iq_b[:, :, :, ch, :, 0].permute(1, 2, 0, 3)
-          .reshape(n_sb, bs, b * n_f).contiguous())
-    occ1 = int((blocks1 != 0).flatten(2).any(-1).sum())
-    spmm_err = check_precisions(
-        "bsr_spmm", lambda p: bsr_spmm(cols1, blocks1, x1, precision=p),
-        lambda p: bsr_spmm_ref(cols1, blocks1, x1, precision=p))
+    # bsr_spmm (a): the real part of one (middle) channel's product
+    cols1, blocks1, x1 = shapes["a"]
     a1 = sorted_bsr(cols1, blocks1, n_pb * bp, n_sb * bs)
     x1_flat = x1.reshape(n_sb * bs, b * n_f)
     library1 = (lambda: a1 @ x1_flat)
     ok1 = library_check("bsr_spmm",
                         lambda: library1().view(n_pb, bp, b * n_f),
                         bsr_spmm_ref(cols1, blocks1, x1))
-    rows["bsr_spmm"] = dict(
-        err=spmm_err,
-        fn=lambda: bsr_spmm(cols1, blocks1, x1),
-        plain=lambda: bsr_spmm_ref(cols1, blocks1, x1),
-        library=library1 if ok1 else None,
-        library_name=("torch.sparse_bsr_tensor @ dense" if ok1
-                      else "none: torch's BSR product refused or disagreed"),
-        bound=bound(occ1 * bp * bs * 4 + cols1.numel() * 4
-                    + x1.numel() * 4 + n_pb * bp * b * n_f * 4,
-                    2.0 * occ1 * bp * bs * b * n_f),
-        source="src/repro_torch/kernels/csrc/bsr_spmm.cu",
-        replaces="src/repro/kernels/bsr_spmm/kernel.py:51")
+    rows["bsr_spmm"] = spmm_row(
+        "bsr_spmm", shapes["a"], flush, library1 if ok1 else None,
+        "torch.sparse_bsr_tensor @ dense" if ok1
+        else "none: torch's BSR product refused or disagreed")
+    # bsr_spmm (b): the beamform's real form; its library call is the one
+    # bsr_beamform's row times (the same product)
+    rows["bsr_spmm (real form)"] = spmm_row(
+        "bsr_spmm (real form)", shapes["b"], flush,
+        library if ok else None, library_name)
+    del shapes
     return measure(rows, flush)
 
 
@@ -2910,7 +2983,8 @@ def main() -> None:
     say(f"[done] in {time.perf_counter() - t_start:.1f}s")
     say(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": rows[n]["source"],
-         "replaces": rows[n]["replaces"], "launches": launches[n],
+         "replaces": rows[n]["replaces"],
+         "launches": launches[rows[n].get("kernel", n)],
          "max_abs_err": rows[n]["err"], "ms": rows[n]["ms"],
          "plain_ms": rows[n]["plain_ms"], "bound_ms": rows[n]["bound"][0],
          "bound_by": rows[n]["bound"][1],

@@ -11,8 +11,10 @@ and applies the phase rotation exp(+j 2 pi f0 tau).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
+import torch
 
 from repro_torch.core import geometry
 from repro_torch.core.config import UltrasoundConfig
@@ -146,7 +148,7 @@ def bsr_operator(cfg: UltrasoundConfig, tables: DelayTables) -> BsrOperator:
                        nnz_ratio=nnz_ratio)
 
 
-def check_skipped_slots(col_idx: np.ndarray, blocks: np.ndarray) -> None:
+def check_skipped_slots(col_idx, blocks) -> None:
     """Raise ValueError unless every K slot that ``bsr_beamform``'s kernel
     skips holds an all-zero block.
 
@@ -154,11 +156,20 @@ def check_skipped_slots(col_idx: np.ndarray, blocks: np.ndarray) -> None:
     slot k - 1's (``kernels.bsr_spmm.kept_slots``); the plain version,
     which CPU tensors run, sums every slot. The two agree exactly when
     the skipped blocks are zero, as ``bsr_operator``'s format makes them.
+    Takes numpy arrays or tensors on any device: the counts are taken
+    where the operator lies, a channel at a time, and read back once.
     """
-    skipped = np.zeros(col_idx.shape, dtype=bool)
-    skipped[..., 1:] = col_idx[..., 1:] <= col_idx[..., :-1]
-    for c in range(col_idx.shape[0]):         # one channel's blocks at once
-        bad = np.count_nonzero(blocks[c][skipped[c]])
+    with warnings.catch_warnings():   # read only: a read-only array is fine
+        warnings.filterwarnings("ignore", message=".*not writable")
+        cols = torch.as_tensor(col_idx)
+        blocks = torch.as_tensor(blocks)
+    if cols.shape[0] == 0:
+        return
+    skipped = torch.zeros_like(cols, dtype=torch.bool)
+    skipped[..., 1:] = cols[..., 1:] <= cols[..., :-1]
+    counts = torch.stack([torch.count_nonzero(blocks[c][skipped[c]])
+                          for c in range(cols.shape[0])]).tolist()
+    for c, bad in enumerate(counts):
         if bad:
             raise ValueError(
                 f"BSR operator: channel {c} holds {bad} non-zero values in "

@@ -7,4 +7,5 @@ from repro_torch.kernels.bsr_spmm.ref import (  # noqa: F401
     bsr_beamform_ref,
     bsr_spmm_ref,
     kept_slots,
+    real_form,
 )

@@ -1,17 +1,21 @@
 """Public wrappers for the BSR SpMM CUDA kernels (csrc/bsr_spmm.cu).
 
-`bsr_spmm` is the real primitive (f32 SIMT, every stored slot summed),
-`bsr_beamform` the complex multi-channel beamform of the sparse variant
-in one launch, on the tensor cores, skipping the padded K slots.
+`bsr_spmm` is the real primitive (wgmma on the tensor cores, every
+stored slot summed), `bsr_beamform` the complex multi-channel beamform of
+the sparse variant in one launch, on the tensor cores, skipping the
+padded K slots (the operator is checked on the device once, before its
+first use, to be in the format that makes the skip exact).
 `block_sample_axis` cuts the IQ sample axis into the operator's sample
-blocks. The kernels refuse a block structure they cannot take (more than
-65535 pixel blocks or 64-row tiles of a pixel block; for `bsr_spmm` also
-a staged tile larger than shared memory); the wrapper then raises.
+blocks. The kernels refuse a block structure they cannot take
+(`bsr_beamform`: more than 65535 pixel blocks or 64-row tiles of a pixel
+block; `bsr_spmm`: more than 65535 row tiles or 128-column tiles); the
+wrapper then raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +31,39 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # host memory it may not). A call under capture makes its own, in the
 # graph's pool: graphs replayed on two streams at once never share them.
 _ARRIVALS: dict = {}
+# Operators whose skipped K slots were checked on the device, by (data
+# pointer, shape, _version) of cols and blocks; each entry holds weak
+# references to the two tensors and goes when either is freed, so a new
+# tensor at a freed address is checked anew.
+_CHECKED: dict = {}
+
+
+def _operator_key(cols, blocks) -> tuple:
+    return tuple((t.data_ptr(), tuple(t.shape), t._version)
+                 for t in (cols, blocks))
+
+
+def require_checked(cols, blocks) -> None:
+    """Check once per operator that every K slot ``bsr_beamform``'s
+    kernel skips holds an all-zero block (``check_skipped_slots``, on the
+    operator's device; raises its ValueError). A later call with the same
+    tensors, unchanged, checks nothing. The check reads its result back,
+    which a CUDA graph capture cannot do: an operator that reaches one
+    unchecked raises, so the engine's eager warm-up checks it first."""
+    from repro_torch.core.delays import check_skipped_slots  # no cycle
+
+    key = _operator_key(cols, blocks)
+    refs = _CHECKED.get(key)
+    if refs is not None and refs[0]() is cols and refs[1]() is blocks:
+        return
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "bsr_beamform: the operator reaches a CUDA graph capture "
+            "unchecked; call bsr_beamform (or require_checked) on it once "
+            "outside the capture")
+    check_skipped_slots(cols, blocks)
+    drop = (lambda _, key=key, held=_CHECKED: held.pop(key, None))
+    _CHECKED[key] = (weakref.ref(cols, drop), weakref.ref(blocks, drop))
 
 
 def next_multiple(x: int, m: int) -> int:
@@ -97,8 +134,11 @@ def bsr_beamform(cols, blocks, iq_b, *, precision: str = "f32"):
     ascending columns, and unused slots are all-zero blocks at column 0.
     The kernel skips every slot that ``kept_slots`` marks False (a slot
     k > 0 whose column is not above slot k - 1's), which is exact for
-    finite IQ in that format; the plain version sums every slot. For any
-    other operator use ``bsr_spmm``.
+    finite IQ in that format; the plain version sums every slot. On CUDA
+    the wrapper checks the operator before its first use
+    (``require_checked``) and raises ValueError, naming the channel, where
+    a skipped slot holds a non-zero value. For any other operator use
+    ``bsr_spmm``.
 
     Args:
       cols:   (n_c, n_pb, K) int32.
@@ -123,6 +163,7 @@ def bsr_beamform(cols, blocks, iq_b, *, precision: str = "f32"):
     cuda_lib.require(cols, "cols", torch.int32, (n_c, n_pb, k), dev)
     cuda_lib.require(blocks, "blocks", torch.float32,
                      (n_c, n_pb, k, bp, bs, 2), dev)
+    require_checked(cols, blocks)
     out = torch.empty((b, n_pb * bp, n_f, 2), dtype=torch.float32,
                       device=dev)
     # the kernel splits the channels over thread blocks where the output

@@ -29,7 +29,9 @@ from repro_torch.core import config as tcfg  # noqa: E402
 from repro_torch.core import delays as tdelays  # noqa: E402
 from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
                                           bsr_beamform, bsr_beamform_ref,
-                                          bsr_spmm, bsr_spmm_ref, kept_slots)
+                                          bsr_spmm, bsr_spmm_ref, kept_slots,
+                                          real_form)
+from repro_torch.kernels.bsr_spmm import ops as bsr_ops  # noqa: E402
 
 
 def _close(out, ref):
@@ -52,12 +54,38 @@ def _spmm_inputs(seed, n_pb, k, bp, bs, n_sb, nf):
     (8, 1, 8, 32, 4, 8),      # K = 1
     (3, 3, 32, 8, 9, 1),      # nf = 1, more sample blocks than pixel blocks
     (5, 2, 16, 16, 7, 40),    # more columns than the kernel's 32-wide tile
-    (2, 2, 80, 24, 3, 5),     # bp past the kernel's 64-row tile
+    (2, 2, 80, 24, 3, 5),     # bp past a 64-row tile, bs not a multiple of 8
+    (2, 2, 128, 128, 3, 4),   # bs 128 with bp 128: bs staged in chunks
+    (3, 8, 16, 16, 3, 6),     # K 8 over 3 sample blocks: repeated columns
+    (2, 2, 16, 16, 4, 7),     # nf 7: no 16-byte copies of x
+    (2, 2, 16, 16, 4, 130),   # nf past one 128-column tile
 ])
 def test_bsr_spmm_ref_matches_reference_kernel(n_pb, k, bp, bs, n_sb, nf):
     args = _spmm_inputs(n_pb * bs, n_pb, k, bp, bs, n_sb, nf)
+    if k == 8:          # the columns repeat and descend within a row
+        cols = args[0]
+        assert (np.diff(cols, axis=1) == 0).any()
+        assert (np.diff(cols, axis=1) < 0).any()
     out = bsr_spmm_ref(*map(torch.as_tensor, args))
     _close(out, j_spmm(*map(jnp.asarray, args)))
+
+
+def test_bsr_spmm_sums_every_slot_of_a_padded_row():
+    """Every stored slot is summed, whatever its column: a NaN in x at
+    column 0, where a row's padding (all-zero) blocks point, reaches that
+    row's output, in the reference kernel and in the plain version the
+    card's kernel is held to."""
+    cols, blocks, x = _spmm_inputs(2, 3, 3, 16, 16, 4, 5)
+    cols[1] = [2, 0, 0]                  # one occupied slot, then padding
+    blocks[1, 1:] = 0.0
+    cols[[0, 2]] = np.maximum(cols[[0, 2]], 1)   # rows 0, 2 skip column 0
+    x[0, 3, 2] = np.nan
+    out = bsr_spmm_ref(*map(torch.as_tensor, (cols, blocks, x))).numpy()
+    ref = np.asarray(j_spmm(*map(jnp.asarray, (cols, blocks, x))))
+    for y in (out, ref):
+        assert np.isnan(y[1, :, 2]).all()
+        assert np.isfinite(np.delete(y, 1, axis=0)).all()
+        assert np.isfinite(y[1][:, [0, 1, 3, 4]]).all()
 
 
 @pytest.mark.parametrize("precision", ["bf16", "f16"])
@@ -222,3 +250,90 @@ def test_operator_check_refuses_a_value_in_a_skipped_slot(where):
     blocks[c, pb, k, 0, 0, 1] = 1e-3
     with pytest.raises(ValueError, match=f"channel {c} holds 1 non-zero"):
         tdelays.check_skipped_slots(op.col_idx, blocks)
+
+
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_operator_check_on_tensors_refuses_a_value_in_a_skipped_slot(where):
+    """The same check on torch tensors, as the wrapper runs it on the
+    card: the built operator passes, one value in a skipped slot (the
+    first or the last such slot) raises, naming its channel."""
+    op = _tiny_operator()
+    cols, blocks = torch.as_tensor(op.col_idx), torch.as_tensor(op.blocks)
+    tdelays.check_skipped_slots(cols, blocks)
+    skipped = torch.nonzero(~kept_slots(cols))
+    c, pb, k = skipped[0 if where == "first" else -1].tolist()
+    bad = blocks.clone()
+    bad[c, pb, k, -1, -1, 0] = -2.5
+    with pytest.raises(ValueError, match=f"channel {c} holds 1 non-zero"):
+        tdelays.check_skipped_slots(cols, bad)
+
+
+def test_wrapper_check_is_remembered_per_operator(monkeypatch):
+    """``require_checked`` (what ``bsr_beamform`` runs on CUDA tensors
+    before a launch) checks an operator once; the same tensors again
+    cost nothing; an in-place change (a new ``_version``) is checked anew
+    and refused; an unchecked operator under a CUDA graph capture raises
+    before anything is read back."""
+    calls = []
+    real_check = tdelays.check_skipped_slots
+
+    def counting(cols, blocks):
+        calls.append(1)
+        real_check(cols, blocks)
+
+    op = _tiny_operator()
+    monkeypatch.setattr(tdelays, "check_skipped_slots", counting)
+    cols, blocks = torch.as_tensor(op.col_idx), torch.tensor(op.blocks)
+    bsr_ops.require_checked(cols, blocks)
+    bsr_ops.require_checked(cols, blocks)
+    assert len(calls) == 1
+    c, pb, k = torch.nonzero(~kept_slots(cols))[0].tolist()
+    blocks[c, pb, k, 0, 0, 0] = 1.0               # bumps blocks._version
+    with pytest.raises(ValueError, match=f"channel {c} holds 1 non-zero"):
+        bsr_ops.require_checked(cols, blocks)
+    assert len(calls) == 2
+    fresh = blocks.clone()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(RuntimeError, match="capture unchecked"):
+        bsr_ops.require_checked(cols, fresh)
+    assert len(calls) == 2
+    fresh[c, pb, k] = 0.0
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    bsr_ops.require_checked(cols, fresh)          # checked, then remembered
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    bsr_ops.require_checked(cols, fresh)
+    assert len(calls) == 3
+    del fresh                                     # its entry goes with it
+    assert all(r[1]() is not None for r in bsr_ops._CHECKED.values())
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_real_form_product_equals_the_complex_beamform(precision):
+    """The sparse beamform written as one real BSR product (``real_form``,
+    which chip_smoke.py times the real kernel on): the plain real product,
+    viewed back, equals the plain complex beamform and the reference's
+    ``bsr_beamform`` on the tiny sparse operator (rtol 1e-5, atol 1e-5 *
+    max: the same products summed in another order)."""
+    op = _tiny_operator()
+    n_c, _, _, _, bs, _ = op.blocks.shape
+    rng = np.random.default_rng(9)
+    n_sb, n_f = int(op.col_idx.max()) + 2, 3
+    iq_b = rng.standard_normal((2, n_sb, bs, n_c, n_f, 2)).astype(np.float32)
+    cols, blocks = torch.as_tensor(op.col_idx), torch.as_tensor(op.blocks)
+    args, back = real_form(cols, blocks, torch.as_tensor(iq_b))
+    n_pb = cols.shape[1]
+    assert args[0].dtype == torch.int32
+    assert args[1].shape == (n_pb, n_c * cols.shape[2], 2 * op.bp, 2 * bs)
+    assert args[2].shape == (n_c * n_sb, 2 * bs, 2 * n_f)
+    out = back(bsr_spmm_ref(*args, precision=precision))
+    want = bsr_beamform_ref(cols, blocks, torch.as_tensor(iq_b),
+                            precision=precision)
+    _close(out, want)
+    for b in range(iq_b.shape[0]):
+        _close(out[b], j_beamform(jnp.asarray(op.col_idx),
+                                  jnp.asarray(op.blocks),
+                                  jnp.asarray(iq_b[b]), precision=precision))

@@ -13,7 +13,8 @@ version round each per-channel term alike (the kernels are built with
 -fmad=false and the same operand casts); only the order of the channel
 sum differs, which a CPU emulation at the paper's geometry puts at
 3.4e-7 of the maximum. The BSR kernels round the same operands as their
-plain versions and sum in f32 with fused multiply-adds, in another order.
+plain versions and sum in f32, in another order; their f32 products run
+as 3xTF32 on the tensor cores (about 2^-21 of each product lost).
 
 The LM kernels are held to their plain versions with the CPU parity
 tolerances of tests/test_torch_lm_kernels.py: flash attention rtol 2e-4,
@@ -44,7 +45,7 @@ from repro_torch.core.cnn_ops import sqrt_rn  # noqa: E402
 from repro_torch.data import synth_rf  # noqa: E402
 from repro_torch.kernels.bsr_spmm import (block_sample_axis,  # noqa: E402
                                           bsr_beamform, bsr_beamform_ref,
-                                          bsr_spmm, bsr_spmm_ref)
+                                          bsr_spmm, bsr_spmm_ref, kept_slots)
 from repro_torch.kernels.das_beamform import (das_beamform,  # noqa: E402
                                               das_beamform_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -217,21 +218,78 @@ def test_fused_kernels_on_wide_windows(cuda, n_f, bp):
         _close(out, ref)
 
 
-@pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])
-@pytest.mark.parametrize("n_pb,k,bp,bs,n_sb,nf", [
-    (4, 2, 16, 16, 6, 3), (8, 1, 8, 32, 4, 8), (3, 3, 32, 8, 9, 1),
-    (5, 2, 16, 16, 7, 40), (2, 2, 80, 24, 3, 5), (16, 2, 64, 64, 6, 128)])
-def test_bsr_spmm_kernel_matches_plain(cuda, precision, n_pb, k, bp, bs,
-                                       n_sb, nf):
+def _spmm_args(cuda, n_pb, k, bp, bs, n_sb, nf):
     g = torch.Generator().manual_seed(n_pb * bs)
     cols = torch.randint(0, n_sb, (n_pb, k), generator=g, dtype=torch.int32)
     blocks = torch.randn(n_pb, k, bp, bs, generator=g)
     x = torch.randn(n_sb, bs, nf, generator=g)
-    args = [t.to(cuda) for t in (cols, blocks, x)]
+    return [t.to(cuda) for t in (cols, blocks, x)]
+
+
+# (n_pb, K, bp, bs, n_sb, nf): the kernel's edges (rows past its 64- or
+# 128-row tile, bs not a multiple of 8 or of its 32-sample chunk, nf of
+# 1, 3, 5, 7 and past 128 columns, K 1, K 8 with repeated and descending
+# columns), then chip_smoke.py's two shapes: (a) one channel's real part
+# at the paper's geometry and (b) the beamform's real form cut to 16
+# pixel blocks
+SPMM_SHAPES = [
+    (4, 2, 16, 16, 6, 3), (8, 1, 8, 32, 4, 8), (3, 3, 32, 8, 9, 1),
+    (5, 2, 16, 16, 7, 40), (2, 2, 80, 24, 3, 5), (16, 2, 64, 64, 6, 128),
+    (3, 2, 128, 128, 4, 5), (4, 8, 16, 16, 3, 7), (2, 3, 200, 40, 3, 130),
+    (3, 1, 72, 21, 2, 64), (256, 2, 64, 64, 6, 128),
+    (16, 128, 128, 128, 384, 128)]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n_pb,k,bp,bs,n_sb,nf", SPMM_SHAPES)
+def test_bsr_spmm_kernel_matches_plain(cuda, precision, n_pb, k, bp, bs,
+                                       n_sb, nf):
+    args = _spmm_args(cuda, n_pb, k, bp, bs, n_sb, nf)
     before = bsr_spmm.launches
     out = bsr_spmm(*args, precision=precision)
     assert bsr_spmm.launches == before + 1
     _close(out, bsr_spmm_ref(*args, precision=precision))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(16, 128, 128, 128, 384, 128),
+                                   (2, 3, 200, 40, 3, 130)])
+def test_bsr_spmm_kernel_is_bit_identical_run_to_run(cuda, precision,
+                                                     shape):
+    args = _spmm_args(cuda, *shape)
+    first = bsr_spmm(*args, precision=precision)
+    for _ in range(3):
+        assert torch.equal(bsr_spmm(*args, precision=precision), first)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_bsr_spmm_kernel_sums_padded_slots(cuda, precision):
+    """Every stored slot is summed: a NaN in x at column 0, where the
+    all-zero padding blocks of row 1 point, reaches row 1's output and
+    no other row's."""
+    cols, blocks, x = _spmm_args(cuda, 4, 3, 64, 64, 5, 40)
+    cols.clamp_(min=1)
+    cols[1] = torch.tensor([3, 0, 0], dtype=torch.int32)
+    blocks[1, 1:] = 0.0
+    x[0, 7, 9] = float("nan")
+    out = bsr_spmm(cols, blocks, x, precision=precision)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[1, :, 9]).all()
+    keep = torch.ones_like(out, dtype=torch.bool)
+    keep[1, :, 9] = False
+    assert torch.isfinite(out[keep]).all()
+
+
+def test_bsr_spmm_kernel_refuses_what_it_cannot_take(cuda):
+    """More 128-row tiles of a pixel block than the grid's y axis holds:
+    the kernel refuses, the wrapper raises, nothing is launched."""
+    cols = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    blocks = torch.ones((1, 1, 128 * 65535 + 1, 1), device=cuda)
+    x = torch.ones((1, 1, 1), device=cuda)
+    before = bsr_spmm.launches
+    with pytest.raises(RuntimeError, match="bsr_spmm_launch"):
+        bsr_spmm(cols, blocks, x)
+    assert bsr_spmm.launches == before
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])
@@ -265,6 +323,52 @@ def test_bsr_beamform_kernel_refuses_what_it_cannot_take(cuda, n_pb, bp, bs):
     with pytest.raises(RuntimeError, match="bsr_beamform_launch"):
         bsr_beamform(cols, blocks, iq_b)
     assert bsr_beamform.launches == before
+
+
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_bsr_beamform_refuses_an_operator_outside_its_format(cuda, where):
+    """A value in a slot the kernel skips: the wrapper's check on the
+    device raises the ValueError of ``check_skipped_slots``, naming the
+    channel, and nothing is launched; the fixed operator runs."""
+    cfg = tiny_config(variant="sparse", n_c=16, n_f=8, nz=32, nx=32)
+    c = consts_from_numpy(init_pipeline(cfg), cuda)
+    cols, blocks = c["bsr_col_idx"], c["bsr_blocks"].clone()
+    ch, pb, k = torch.nonzero(~kept_slots(cols))[
+        0 if where == "first" else -1].tolist()
+    blocks[ch, pb, k, 0, 0, 0] = 0.5
+    iq = torch.randn(2, cfg.n_s, cfg.n_c, cfg.n_f, 2, device=cuda)
+    iq_b = block_sample_axis(iq, cfg.sparse_block_s)
+    before = bsr_beamform.launches
+    with pytest.raises(ValueError, match=f"channel {ch} holds 1 non-zero"):
+        bsr_beamform(cols, blocks, iq_b)
+    assert bsr_beamform.launches == before
+    blocks[ch, pb, k] = 0.0
+    _close(bsr_beamform(cols, blocks, iq_b),
+           bsr_beamform_ref(cols, blocks, iq_b))
+
+
+def test_bsr_beamform_refuses_an_unchecked_operator_under_capture(cuda):
+    """Nothing may be read back under a CUDA graph capture: an operator
+    not checked before raises there; once checked eagerly it captures,
+    and the replay equals the eager call."""
+    cfg = tiny_config(variant="sparse", n_c=16, n_f=8, nz=32, nx=32)
+    c = consts_from_numpy(init_pipeline(cfg), cuda)
+    cols, blocks = c["bsr_col_idx"], c["bsr_blocks"].clone()
+    iq = torch.randn(2, cfg.n_s, cfg.n_c, cfg.n_f, 2, device=cuda)
+    iq_b = block_sample_axis(iq, cfg.sparse_block_s)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture unchecked"):
+        with torch.cuda.graph(graph, stream=side):
+            bsr_beamform(cols, blocks, iq_b)
+    want = bsr_beamform(cols, blocks, iq_b)         # eager: checks it
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = bsr_beamform(cols, blocks, iq_b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def _edge_operator(cuda, n_c, n_pb, k, bp, bs, n_sb, seed):
