@@ -134,6 +134,15 @@ last line):
                bit for bit; both kernels refusing a gradient on the
                card; one gemma3-1b train step under torch.profiler
                (`[lm split]`);
+  8c2. dryrun — each step that 8c timed, costed by the dry run
+               (`launch.dryrun.dry_run`) on the meta device on this
+               machine's CPU: its counted FLOPs (all, and the matmuls'),
+               the model FLOPs (6 N D), the step's ms from 8c, the
+               achieved TFLOP/s, `mfu` (model FLOPs over the step's
+               seconds times the data sheet's bf16 peak, with the card's
+               name and power limit) and the reckoned peak beside the
+               measured one; fails if the dry run raises or a count is
+               zero or not finite;
   8d. dist   — every card a rank (NCCL): in this process, world 1:
                gemma3-1b bf16 at full width and depth, (4, 2048), three
                steps of the data-parallel step at one rank (ZeRO-1 on,
@@ -332,12 +341,14 @@ from repro_torch.runtime.sharding import use_binding  # noqa: E402
 from repro_torch.train.steps import (make_prefill_step,  # noqa: E402
                                      make_serve_step, state_blocks)
 
-# NVIDIA H100 SXM data sheet: HBM rate, f32 rate outside the tensor cores,
-# dense TF32 rate of the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-PEAK_TF32_FLOP_PER_S = 495e12
-PEAK_BF16_FLOP_PER_S = 989e12
+from repro_torch.launch.dryrun import dry_run  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+# NVIDIA H100 SXM data sheet (launch/roofline.py): HBM rate, f32 rate
+# outside the tensor cores, dense TF32 and bf16 rates of the tensor cores.
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as PEAK_BYTES_PER_S, PEAK_F32_FLOPS as PEAK_F32_FLOP_PER_S,
+    PEAK_TF32_FLOPS as PEAK_TF32_FLOP_PER_S,
+    PEAK_FLOPS as PEAK_BF16_FLOP_PER_S)
 SPLIT_TF32 = 3          # 3xTF32: three TF32 products per f32 product
 # f32 instructions per second outside the tensor cores (128 lanes x 132
 # SMs x 1.98 GHz): half the FLOP rate, which counts an FMA as two. Built
@@ -558,6 +569,17 @@ def measure(rows: dict, flush: torch.Tensor, tag: str = "[kernels]") -> dict:
     return out
 
 
+def card_line() -> str:
+    """What `nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader` prints, one card a line."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return "\n".join(line.strip()
+                     for line in smi.stdout.strip().splitlines())
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: torch.cuda.is_available() is false — "
@@ -565,12 +587,7 @@ def phase_device() -> str:
     name = torch.cuda.get_device_name(0)
     say(f"[device] {name} x{torch.cuda.device_count()} "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    for line in smi.stdout.strip().splitlines():
-        say(line.strip())
+    say(card_line())
     # the NVML idle baseline, before any work heats the board: every
     # energy meter of this process subtracts this first reading
     idle = NvmlEnergyMeter(
@@ -2121,13 +2138,14 @@ def _on_card(batch: dict, dev) -> dict:
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def train_timed(cfg, name, microbatches, shape) -> None:
+def train_timed(cfg, name, microbatches, shape) -> dict:
     """One warm step and TRAIN_TIMED timed steps of ``cfg`` (random
     weights from seed 0, TokenDataset batches at ``shape``), under the
     training loop's deterministic mode: each step's device time (CUDA
     events) and host time, tok/s, peak memory, loss and grad norm (all
-    finite), and no kernel launched. Raises OutOfMemoryError where it
-    does not fit."""
+    finite), and no kernel launched; returned: the run's figures (the
+    timed steps' mean ms, the peak bytes) for `phase_dryrun`. Raises
+    OutOfMemoryError where it does not fit."""
     dev = torch.device("cuda")
     model = get_model(cfg)
     tcfg = TrainConfig(microbatches=microbatches)
@@ -2174,15 +2192,17 @@ def train_timed(cfg, name, microbatches, shape) -> None:
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
           f"{name}: non-finite loss or grad norm")
     check(not launched, f"{name}: training launched {launched}")
+    return dict(cfg=cfg, name=name, microbatches=microbatches, shape=shape,
+                step_ms=float(np.mean(timed)), peak=peak)
 
 
-def train_model(arch, required: bool) -> None:
-    """`train_timed` at the first cut of TRAIN_CUTS that fits."""
+def train_model(arch, required: bool):
+    """`train_timed` at the first cut of TRAIN_CUTS that fits: its
+    figures, or None where none fits."""
     cfg, name = lm_config(arch)
     for microbatches, shape in TRAIN_CUTS:
         try:
-            train_timed(cfg, name, microbatches, shape)
-            return
+            return train_timed(cfg, name, microbatches, shape)
         except torch.cuda.OutOfMemoryError:
             say(f"[train] {name}: out of memory at batch {shape} with "
                 f"{microbatches} microbatch(es)")
@@ -2263,15 +2283,15 @@ def train_checks(arch) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train() -> None:
+def phase_train() -> list:
     """The [train] phase (after phase 8): TRAIN_REQUIRED then
     TRAIN_OPTIONAL through `train_model`; the checks on TRAIN_CHECK_ARCH
     (`train_checks`); the kernels refusing a gradient on the card; and
-    one gemma3-1b train step under torch.profiler (`[lm split]`)."""
-    for arch in TRAIN_REQUIRED:
-        train_model(arch, required=True)
-    for arch in TRAIN_OPTIONAL:
-        train_model(arch, required=False)
+    one gemma3-1b train step under torch.profiler (`[lm split]`).
+    Returns the timed runs' figures."""
+    trained = [train_model(arch, required=True) for arch in TRAIN_REQUIRED]
+    trained += [train_model(arch, required=False)
+                for arch in TRAIN_OPTIONAL]
     train_checks(TRAIN_CHECK_ARCH)
 
     (q, k, v), args, chunk = lm_kernel_inputs(
@@ -2300,6 +2320,46 @@ def phase_train() -> None:
                      lambda: train_step(state, batch))
     del state, batch
     torch.cuda.empty_cache()
+    return [t for t in trained if t is not None]
+
+
+def phase_dryrun(trained: list) -> None:
+    """The [dryrun] phase (after [train]): each step that [train] timed,
+    costed by `launch.dryrun.dry_run` on the meta device (this machine's
+    CPU; no mesh, the run's config, batch and microbatches): its counted
+    FLOPs (all, and the matmuls'), the model FLOPs 6 N D (N active),
+    the step's CUDA-event ms from [train], the achieved TFLOP/s of both
+    counts, ``mfu`` = model FLOPs / (step s x the data sheet's bf16
+    peak), and the reckoned peak beside the measured one. Fails if the
+    dry run raises or a count is zero or not finite."""
+    card = card_line()
+    for t in trained:
+        shape = ShapeConfig("train", "train", t["shape"][1], t["shape"][0])
+        r = dry_run(t["cfg"], shape,
+                    tcfg=TrainConfig(microbatches=t["microbatches"]))
+        step_s = t["step_ms"] / 1e3
+        counts = (r["flops_per_device"], r["matmul_flops_per_device"],
+                  r["model_flops_global"], r["peak_bytes"],
+                  r["memory"]["temp_bytes"])
+        check(all(np.isfinite(c) and c > 0 for c in counts),
+              f"{t['name']}: a dry-run count is zero or not finite: "
+              f"{counts}")
+        mfu = r["model_flops_global"] / (step_s * PEAK_BF16_FLOP_PER_S)
+        say(f"[dryrun] {t['name']} at {t['shape']}, {t['microbatches']} "
+            f"microbatch(es): counted {r['flops_per_device']:.4e} FLOP "
+            f"({r['matmul_flops_per_device']:.4e} in matmuls), model_flops "
+            f"{r['model_flops_global']:.4e} (6 N D, N active "
+            f"{r['params_active']}); step {t['step_ms']:.3f} ms (CUDA "
+            f"events, [train]) = {r['flops_per_device'] / step_s / 1e12:.1f}"
+            f" TFLOP/s counted, {r['model_flops_global'] / step_s / 1e12:.1f}"
+            f" TFLOP/s model; mfu {mfu:.5f} of {PEAK_BF16_FLOP_PER_S:.3g} "
+            f"FLOP/s (data-sheet bf16 peak; card {card}); peak reckoned "
+            f"{r['peak_bytes'] / 1e6:.1f} MB (arguments "
+            f"{r['memory']['argument_bytes'] / 1e6:.1f}, temp "
+            f"{r['memory']['temp_bytes'] / 1e6:.1f}) against "
+            f"{t['peak'] / 1e6:.1f} MB measured "
+            f"({r['peak_bytes'] / t['peak']:.3f}); dry run {r['run_s']} s "
+            f"on the CPU")
 
 
 DIST_ARCH = "gemma3-1b"
@@ -2968,7 +3028,7 @@ def main() -> None:
     phase_moe_variants()
     phase_lm_outputs()
     phase_products()
-    phase_train()
+    phase_dryrun(phase_train())
     phase_dist()
     phase_tp()
     phase_ep()

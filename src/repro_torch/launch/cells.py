@@ -30,9 +30,12 @@ prefill cell's cache, its KV heads over "model" (`train.steps.
 serve_binding`).
 
 The reference lowers and compiles each cell on forced host devices
-(``lower_cell``, ``launch/dryrun.py``) and never runs it; the port runs
-eagerly, so ``lower_cell`` has no counterpart (ROADMAP A.5): a cell is
-run, on the ranks of a real mesh.
+(``lower_cell``, ``launch/dryrun.py``) and never runs it. The port's
+counterpart of ``lower_cell`` is its dry run (`launch.dryrun`): a cell's
+step run once on ``meta`` tensors as one rank of a fake process group
+of the production mesh's size, costed by `launch.op_cost`. Otherwise a
+cell is run on the ranks of a real mesh. ``mesh`` None gives the cell
+of one device: its step without a mesh, every input whole.
 """
 
 from __future__ import annotations
@@ -177,7 +180,8 @@ def make_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     params = steps_lib.state_blocks(cfg, tcfg, mesh, parallel)
     if shape.kind == "train":
         step = steps_lib.make_train_step(model, tcfg, mesh, parallel)
-        with shlib.use_binding(binding_for(mesh, parallel)):
+        with shlib.use_binding(None if mesh is None
+                               else binding_for(mesh, parallel)):
             batch = _batch_layout(specs["batch"])
         in_l = (params, batch)
         out_l = (params, None)               # metrics: whole on every rank

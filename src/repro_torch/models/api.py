@@ -10,7 +10,8 @@ the config and the device:
   decode_step(params, tokens, cache, lengths) -> (logits, cache)
   cache_specs(seq_sharded=...)      -> logical axes of the cache's leaves
 
-The device is CUDA unless the caller passes ``device="cpu"``; without a
+The device is CUDA unless the caller passes ``device="cpu"`` (or
+``device="meta"``, which the dry run names: `launch.dryrun`); without a
 card the default raises. Every family of the reference is ported: the
 transformer serves dense, MoE (with MLA) and the VLM, beside ssm
 (mamba2), hybrid (zamba2) and audio (enc-dec).
@@ -63,7 +64,11 @@ def family_module(cfg: ModelConfig):
 
 def get_model(cfg: ModelConfig, device=None) -> Model:
     mod = family_module(cfg)
-    dev = resolve_device(device)
+    named = None if device is None else torch.device(device)
+    # "meta" only where a caller names it: the dry run's shapes without
+    # storage (`launch.dryrun`); else CUDA, or the CPU where asked
+    dev = named if named is not None and named.type == "meta" \
+        else resolve_device(device)
 
     def init_params(seed: int = 0):
         gen = torch.Generator(device=dev).manual_seed(seed)

@@ -159,9 +159,11 @@ def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     strided view is read in place where cuBLAS can). Otherwise the
     operands are cast to f32 first: ``aten::bmm.dtype`` has no derivative
     and no CPU kernel. Both give the same products, since a bf16 or f16
-    product is exact in f32; only the order of the sums differs.
+    product is exact in f32; only the order of the sums differs. On
+    ``meta`` tensors (`launch.dryrun`) the card's path is taken, so the
+    dry run costs what the card runs.
     """
-    if (a.is_cuda and a.dtype == b.dtype
+    if (a.device.type in ("cuda", "meta") and a.dtype == b.dtype
             and a.dtype in (torch.bfloat16, torch.float16)
             and not (torch.is_grad_enabled()
                      and (a.requires_grad or b.requires_grad))):

@@ -87,6 +87,7 @@ from repro_torch import checkpoint, tree  # noqa: E402
 from repro_torch.configs import (  # noqa: E402
     _ALIASES, ParallelConfig, TrainConfig, get_config, get_smoke)
 from repro_torch.data import TokenDataset  # noqa: E402
+from repro_torch.launch.dryrun import MeshShape  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.api import family_module  # noqa: E402
@@ -390,7 +391,7 @@ def test_fsdp_layout_matches_reference_specs(arch, mesh):
             j_psh.zero1_moment_axes(j_psh.logical_param_axes(ref), ref),
             ref, keep_fsdp=True))
     rank = tuple(n - 1 for n in mesh)       # the last rank: d - 1 pod-major
-    fake = _tool()._MeshShape(mesh, rank)
+    fake = MeshShape(mesh, rank)
     layout = state_blocks(cfg, TrainConfig(), fake,
                           ParallelConfig(fsdp=True))
     params = dict(tree.items(layout["params"]))

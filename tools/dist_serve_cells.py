@@ -106,6 +106,7 @@ import torch.multiprocessing as mp  # noqa: E402
 
 from dist_train_scaling import (_Timer, _axes, _dev, _dm,  # noqa: E402
                                 _mesh_arg, _start, card, free_port, say)
+from repro_torch.launch.op_cost import tallied  # noqa: E402
 from repro_torch.runtime.param_sharding import take_parts  # noqa: E402
 
 # the f32 checks: (name, arch, overrides, global batch); prompt PROMPT,
@@ -245,33 +246,6 @@ def logits_recorded():
         yield seen
     finally:
         common.greedy_token = kept
-
-
-@contextlib.contextmanager
-def collectives_counted():
-    """The number of ``torch.distributed`` collective calls in the block
-    (all-reduce, all-gather, all-to-all, broadcast), in the dict
-    yielded under "calls"."""
-    import torch.distributed as dist
-    names = [n for n in ("all_reduce", "all_gather_into_tensor",
-                         "all_gather_single", "all_to_all_single",
-                         "broadcast", "reduce_scatter_tensor",
-                         "reduce_scatter_single") if hasattr(dist, n)]
-    kept = {n: getattr(dist, n) for n in names}
-    box = {"calls": 0}
-
-    def counted(fn):
-        def call(*a, **k):
-            box["calls"] += 1
-            return fn(*a, **k)
-        return call
-    for n in names:
-        setattr(dist, n, counted(kept[n]))
-    try:
-        yield box
-    finally:
-        for n in names:
-            setattr(dist, n, kept[n])
 
 
 def _clone(t):
@@ -680,11 +654,11 @@ def timed_decode(mesh, arch, prompt, max_len, smoke=False, compare=False,
     ms, calls = [], []
     for i in range(steps):
         dist.barrier()
-        with collectives_counted() as n:
+        with tallied() as n:
             timer.start()
             t, cache, ln = dcell.step(params, t, cache, ln)
             ms.append(timer.stop())
-        calls.append(n["calls"])
+        calls.append(n.coll_calls)
     decode_launches = _launches()
     peak = _peak_gb()
     prof = None
@@ -782,7 +756,7 @@ def timed_prefill(mesh, arch, seq, smoke=False, cap=32,
             cfg, batch, seq, seed=1, device=dev), cell.in_layouts[1])
         kernels.reset_launch_counts()
         dist.barrier()
-        with collectives_counted() as n:
+        with tallied() as n:
             timer.start()
             tok, cache = cell.step(params, prompt)
             ms = timer.stop()
@@ -790,7 +764,7 @@ def timed_prefill(mesh, arch, seq, smoke=False, cap=32,
                  seq=seq, prefill_ms=ms, tok_s=batch * seq / ms * 1e3,
                  peak_gb_a_card=_peak_gb(), base_gb=base,
                  cache_gb_a_card=_cache_gb(cache),
-                 nccl_calls=n["calls"], launches=_launches())
+                 nccl_calls=n.coll_calls, launches=_launches())
         if one is not None and batch == 1:
             same = torch.tensor([float(torch.equal(
                 tok, cell.out_layouts[0].take(one)))], device=dev)

@@ -96,7 +96,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import itertools
 import json
 import os
 import socket
@@ -1049,58 +1048,28 @@ def qwen_reckoning() -> dict:
                 card_gb=card_bytes / 1e9)
 
 
-class _MeshShape:
-    """What `launch.mesh.binding_for` and `runtime.sharding.Binding.
-    axis_group` read of a mesh, for one rank of a mesh never built: a
-    layout reckoned on the meta device, with no process group. A shape
-    of two names (data, model), of three (pod, data, model)."""
-
-    def __init__(self, shape, index):
-        self.mesh_dim_names = _axes(shape)
-        self.mesh = torch.zeros(shape)
-        self.index = dict(zip(self.mesh_dim_names, index))
-
-    def get_group(self, name):
-        return None
-
-    def get_local_rank(self, name):
-        return self.index[name]
-
-
 def reckoned_state_gb(arch: str, shape, fsdp: bool,
                       dtype: str = "bfloat16") -> float:
     """GB of the train state of the largest rank on the mesh ``shape``
-    ((data, model) or (pod, data, model)), by bytes, from `train.steps.state_blocks` on the meta
-    device: its parameters and their gradients as it holds them (pieces,
-    FSDP blocks) in ``dtype``, and its two f32 moments (ZeRO-1 or FSDP
-    blocks)."""
+    ((data, model) or (pod, data, model)), by bytes, from `train.steps.
+    state_blocks` on the meta device, rank by rank
+    (`launch.dryrun.rank_bytes`): its parameters and their gradients as
+    it holds them (pieces, FSDP blocks) in ``dtype``, and its two f32
+    moments (ZeRO-1 or FSDP blocks)."""
     from repro_torch.configs import ParallelConfig, TrainConfig
+    from repro_torch.launch.dryrun import MeshShape, rank_bytes
     from repro_torch.models.api import family_module
+    from repro_torch.optim.adamw import adamw_init
     from repro_torch.train.steps import state_blocks
-    from repro_torch.tree import leaves
     cfg = _config(arch, dtype, False)
     spec = family_module(cfg).init_params(cfg, None, torch.device("meta"))
-    size = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
-
-    def held(shard, shape):
-        if shard is None:
-            return int(np.prod(shape))
-        if shard.piece is not None:
-            shape = shard.piece.shape(shape)
-        if shard.block is not None:
-            shape = shard.block.shape(shape)
-        return int(np.prod(shape))
-
-    worst = 0
-    for index in itertools.product(*(range(n) for n in shape)):
-        layout = state_blocks(cfg, TrainConfig(), _MeshShape(shape, index),
-                              ParallelConfig(fsdp=fsdp))
-        n = 0
-        for leaf, p, mo in zip(leaves(spec), leaves(layout["params"]),
-                               leaves(layout["opt"]["m"])):
-            n += 2 * size * held(p, leaf.shape) + 8 * held(mo, leaf.shape)
-        worst = max(worst, n)
-    return worst / 1e9
+    layout = state_blocks(cfg, TrainConfig(), MeshShape(shape),
+                          ParallelConfig(fsdp=fsdp))
+    opt = adamw_init(spec)
+    params = rank_bytes([spec], [layout["params"]], shape)
+    moments = rank_bytes([opt["m"], opt["v"]],
+                         [layout["opt"]["m"], layout["opt"]["v"]], shape)
+    return max(2 * p + m for p, m in zip(params, moments)) / 1e9
 
 
 def _mesh_arg(text: str):
